@@ -1,0 +1,17 @@
+"""phi4-mini-3.8b [dense] — 32L d_model=3072 24H (GQA kv=8) d_ff=8192
+vocab=200064 — RoPE SwiGLU GQA, tied embeddings [arXiv:2412.08905; hf].
+Full RoPE where HF applies it to part of the head, as the reference."""
+from repro_torch.configs.base import LMConfig
+
+CONFIG = LMConfig(
+    name="phi4-mini-3.8b",
+    n_layers=32,
+    d_model=3072,
+    n_heads=24,
+    n_kv_heads=8,
+    head_dim=128,
+    d_ff=8192,
+    vocab_size=200064,
+    rope_theta=10000.0,
+    tie_embeddings=True,
+)

@@ -18,6 +18,7 @@ import torch
 from repro_torch.core import tiling
 from repro_torch.core.dedup import bucket_size
 from repro_torch.data.synthetic import tile_counts
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 
 FRAME_BUCKET = 4  # frames per frame-program call (padded up)
@@ -129,14 +130,16 @@ def _empty_prepared(sp_size: int, gd_size: int, device,
 
 def prepare_frames(frames, tile_size: int, sp_size: int, gd_size: int,
                    frame_bucket: int = FRAME_BUCKET, with_stats: bool = True,
-                   device="cpu") -> PreparedFrames:
+                   device="cuda") -> PreparedFrames:
     """Run the frame program over a workload of (img, boxes, classes).
 
     Frames are grouped by resolution and processed in zero-padded buckets
     of ``frame_bucket``; ground-truth counts are collected on the host.
     ``with_stats=False`` skips the moments (policies that use neither ROI
-    nor dedup); the tiles are the same either way.
+    nor dedup); the tiles are the same either way. ``device`` is "cuda"
+    (the default; raises without a card) or "cpu".
     """
+    device = resolve_device(device)
     if not frames:
         return _empty_prepared(sp_size, gd_size, device, with_stats)
     shapes = {np.shape(img) for img, _, _ in frames}

@@ -29,26 +29,8 @@ from repro_torch.core.metrics import cmae
 from repro_torch.core.pipeline import PipelineConfig, PipelineResult, budgets_for
 from repro_torch.core.policies import PolicyContext, Selection, get_policy
 from repro_torch.core.throttle import clamp_budget_bytes
+from repro_torch.device import resolve_device
 from repro_torch.models import detector
-
-
-def resolve_device(device) -> torch.device:
-    """The device an entry point runs on; "cuda" without a card raises.
-
-    On CUDA, TF32 is turned off for convolutions and matrix products:
-    the reference computes in full float32, and TF32 keeps only about
-    three digits.
-    """
-    device = torch.device(device)
-    if device.type == "cuda":
-        if not torch.cuda.is_available():
-            raise RuntimeError("no CUDA device: repro_torch runs on the GPU "
-                               "unless the caller passes device='cpu'")
-        torch.backends.cudnn.allow_tf32 = False
-        torch.backends.cuda.matmul.allow_tf32 = False
-    elif device.type != "cpu":
-        raise ValueError(f"unsupported device {device}")
-    return device
 
 
 @dataclass

@@ -19,9 +19,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-# no --use_fast_math: it would change division, sqrtf and cbrtf
+# no --use_fast_math: it would change division, sqrtf and cbrtf;
+# --ptxas-options=-v reports each kernel's registers, spills and shared memory
 FLAGS = ("-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-         "-gencode=arch=compute_90a,code=sm_90a")
+         "-gencode=arch=compute_90a,code=sm_90a", "--ptxas-options=-v")
 
 P = ctypes.c_void_p  # every pointer and the stream
 I = ctypes.c_int     # every size
@@ -45,11 +46,13 @@ class _Build:
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT, text=True)
 
-    def finish(self) -> None:
+    def finish(self) -> str:
+        """Wait for nvcc -> its output (ptxas's report included)."""
         log, _ = self.proc.communicate()
         if self.proc.returncode != 0:
             raise RuntimeError(f"nvcc failed for {self.name}:\n{log}")
         os.replace(self.tmp, self.out)
+        return log
 
 
 class CudaKernel:
@@ -103,17 +106,19 @@ class CudaKernel:
         self.launches += 1
 
 
-def build_all(kernels) -> None:
+def build_all(kernels) -> dict:
     """Build every kernel's library in parallel (one nvcc each), then
-    load them all."""
+    load them all -> {name: nvcc's output} of the kernels built here
+    (those already built are left out)."""
     builds = [b for b in (k.start_build() for k in kernels) if b is not None]
-    errors = []
+    errors, logs = [], {}
     for b in builds:
         try:
-            b.finish()
+            logs[b.name] = b.finish()
         except RuntimeError as e:
             errors.append(str(e))
     if errors:
         raise RuntimeError("\n".join(errors))
     for k in kernels:
         k.load()
+    return logs

@@ -7,7 +7,46 @@ card.
 """
 from __future__ import annotations
 
+import math
+from typing import Optional
+
 import torch
+
+NEG_INF = -1e30
+
+
+def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+              causal: bool = False, q_offset: int = 0,
+              kv_len: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Multi-head, GQA-aware attention: q (B, Sq, Hq, D), k/v
+    (B, Skv, Hkv, D) with Hq % Hkv == 0 (query head h reads kv head
+    h // rep) -> (B, Sq, Hq, D) in ``q.dtype``.
+
+    ``causal`` masks key positions above ``q_offset + query index``;
+    ``kv_len`` (B,) masks each batch row's cache tail (decode). The
+    reference's mixed precision: q is scaled in float32 and rounded back
+    to its dtype; both products accumulate in float32 (the bf16 operands
+    are upcast, which is exact, where a bf16 product would round its
+    output); the softmax is float32 and its weights are cast to
+    ``v.dtype`` before the second product.
+    """
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    qf = (q.float() / math.sqrt(d)).to(q.dtype).float()
+    qf = qf.reshape(b, sq, hkv, rep, d)
+    logits = torch.einsum("bqhrd,bkhd->bhrqk", qf, k.float())
+    if causal:
+        qpos = torch.arange(sq, device=q.device) + q_offset
+        kpos = torch.arange(skv, device=q.device)
+        mask = kpos[None, :] <= qpos[:, None]
+        logits = logits.masked_fill(~mask, NEG_INF)
+    if kv_len is not None:
+        valid = torch.arange(skv, device=q.device)[None, :] < kv_len[:, None]
+        logits = logits.masked_fill(~valid[:, None, None, None, :], NEG_INF)
+    w = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhrqk,bkhd->bqhrd", w.to(v.dtype).float(), v.float())
+    return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
 def tile_moments(tiles: torch.Tensor) -> torch.Tensor:
@@ -78,3 +117,17 @@ def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     area_b = torch.clamp(bx2 - bx1, min=0.0) * torch.clamp(by2 - by1, min=0.0)
     union = area_a + area_b - inter
     return inter / torch.clamp(union, min=1e-9)
+
+
+def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
+                w_scale: torch.Tensor) -> torch.Tensor:
+    """x_q (M, K) int8 @ w_q (K, N) int8, scaled per row by x_scale (M,)
+    and per column by w_scale (N,) -> (M, N) float32:
+    ``(acc_f32 * x_scale[:, None]) * w_scale[None, :]``.
+
+    The products are summed in float64, which holds every partial sum of
+    int8 products exactly (|acc| < 2**53), so ``acc`` is the exact int32
+    sum on every device (CUDA has no int32 matrix product).
+    """
+    acc = x_q.double() @ w_q.double()
+    return acc.float() * x_scale.float()[:, None] * w_scale.float()[None, :]

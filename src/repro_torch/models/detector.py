@@ -18,12 +18,15 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.configs.base import DetectorConfig
+from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 
 
-def init(gen: torch.Generator, cfg: DetectorConfig, device="cpu") -> dict:
-    """Random weights from ``gen`` (drawn on the CPU, then moved)."""
+def init(gen: torch.Generator, cfg: DetectorConfig, device="cuda") -> dict:
+    """Random weights from ``gen`` (drawn on the CPU, then moved to
+    ``device``: "cuda", the default, raises without a card, or "cpu")."""
+    device = resolve_device(device)
     p = {"stem": L.conv_init(gen, 3, 3, 3, cfg.widths[0]), "stages": []}
     prev = cfg.widths[0]
     for w in cfg.widths[1:]:

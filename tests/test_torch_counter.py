@@ -74,7 +74,7 @@ def test_params_from_jax_keeps_tree_and_values(arch):
 
 def test_port_init_shapes_match_reference():
     cfg = reduced(get_config("targetfuse-ground"))
-    p = detector.init(torch.Generator().manual_seed(0), cfg)
+    p = detector.init(torch.Generator().manual_seed(0), cfg, device="cpu")
     jcfg = jreduced(jget("targetfuse-ground"))
     jp = jax.eval_shape(lambda key: jdet.init(key, jcfg), jax.random.PRNGKey(0))
     shapes = jax.tree_util.tree_map(lambda v: tuple(v.shape), jp)

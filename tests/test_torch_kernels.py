@@ -3,10 +3,11 @@
 Each plain PyTorch version (``repro_torch.kernels.ref``) is held against
 the reference's oracle (``repro.kernels.ref``) on the shapes of
 tests/test_kernels.py and on the shapes the Mission path gives it, with
-inputs made from a seed in numpy. The CUDA kernels themselves run only
-on a card (``chip_smoke.py``); here their wrappers must import and build
-nothing. Also: the port's threefry ``randint`` against JAX's, and the
-import guard (the port loads neither JAX nor ``repro``).
+inputs made from a seed in numpy (attention: tests/test_torch_lm.py).
+The CUDA kernels themselves run only on a card (``chip_smoke.py``); here
+their wrappers must import and build nothing. Also: the port's threefry
+``randint`` against JAX's, and the import guard (the port loads neither
+JAX nor ``repro``, and its entry points need a card by default).
 """
 import os
 import subprocess
@@ -19,8 +20,10 @@ import pytest
 import torch
 
 from repro.kernels import ref as jref
+from repro.kernels.int8_matmul import int8_matmul as pallas_int8
 from repro.kernels.iou import iou_matrix as pallas_iou
 from repro.kernels.kmeans_assign import kmeans_assign as pallas_kmeans
+from repro.kernels.ops import quantize_int8 as jquantize
 from repro.kernels.tile_moments import tile_moments as pallas_moments
 from repro_torch import random as trandom
 from repro_torch.kernels import _build, ops, ref
@@ -140,6 +143,61 @@ def test_iou_matrix_batched_main_path_shape():
 
 
 # ---------------------------------------------------------------------------
+# int8 matmul: exact int32 sums, so bit-equal to the reference's oracle
+# and to the Pallas kernel (whose own test allows rtol 1e-6)
+# ---------------------------------------------------------------------------
+
+def _int8_inputs(m, k, n, seed):
+    rng = np.random.default_rng(seed)
+    xq = rng.integers(-127, 128, (m, k)).astype(np.int8)
+    wq = rng.integers(-127, 128, (k, n)).astype(np.int8)
+    xs = (rng.random(m) + 0.1).astype(np.float32)
+    ws = (rng.random(n) + 0.1).astype(np.float32)
+    return xq, wq, xs, ws
+
+
+@pytest.mark.parametrize("m,k,n", [(128, 128, 128), (100, 200, 150),
+                                   (256, 512, 384), (1, 64, 1)])
+def test_int8_matmul_matches_reference_bit_for_bit(m, k, n):
+    xq, wq, xs, ws = _int8_inputs(m, k, n, seed=m + k + n)
+    got = ref.int8_matmul(*(torch.from_numpy(a) for a in (xq, wq, xs, ws))).numpy()
+    assert got.dtype == np.float32 and got.shape == (m, n)
+    np.testing.assert_array_equal(got, np.asarray(jref.int8_matmul(xq, wq, xs, ws)))
+    np.testing.assert_array_equal(got, np.asarray(pallas_int8(xq, wq, xs, ws, interpret=True)))
+
+
+def test_int8_matmul_extreme_values_are_exact():
+    """Every product at +-127 * -127 over K = 4096: |acc| = 66,064,384,
+    past float32's 24-bit integers, so only an exact integer sum rounded
+    once agrees."""
+    xq = np.full((3, 4096), -127, np.int8)
+    xq[1] = 127
+    wq = np.full((4096, 2), -127, np.int8)
+    wq[::3, 1] = 126
+    one = np.ones(3, np.float32), np.ones(2, np.float32)
+    got = ref.int8_matmul(*(torch.from_numpy(a) for a in (xq, wq, *one))).numpy()
+    exact = xq.astype(np.int64) @ wq.astype(np.int64)
+    np.testing.assert_array_equal(got, exact.astype(np.float32))
+    np.testing.assert_array_equal(got, np.asarray(jref.int8_matmul(xq, wq, *one)))
+
+
+@pytest.mark.parametrize("dim", [0, 1])
+def test_quantize_int8_matches_reference(dim):
+    """Equal int8 values and scales. Row 0's largest value is 127, so its
+    per-row scale is 1 and its exact halves must round to even."""
+    rng = np.random.default_rng(dim)
+    x = rng.standard_normal((64, 256)).astype(np.float32)
+    x[0, :4] = [0.5, 1.5, -2.5, 127.0]
+    q, s = ops.quantize_int8(torch.from_numpy(x), dim)
+    jq, js = jquantize(x, axis=dim)
+    assert q.dtype == torch.int8
+    np.testing.assert_array_equal(q.numpy(), np.asarray(jq))
+    np.testing.assert_array_equal(s.numpy(), np.asarray(js))
+    if dim == 1:
+        assert q[0, :4].tolist() == [0, 2, -2, 127]
+
+
+# ---------------------------------------------------------------------------
 # dispatch and the CUDA wrappers, here without nvcc or a card
 # ---------------------------------------------------------------------------
 
@@ -153,13 +211,20 @@ def test_ops_sends_cpu_tensors_to_the_plain_versions():
     for got, want in zip(ops.kmeans_assign(x, x[:4]), ref.kmeans_assign(x, x[:4])):
         assert torch.equal(got, want)
     assert torch.equal(ops.iou_matrix(b, b), ref.iou_matrix(b, b))
-    assert [(k.launches, k._lib) for k in ops.KERNELS] == before == [(0, None)] * 3
+    xq, wq, xs, ws = (torch.from_numpy(a) for a in _int8_inputs(5, 70, 3, seed=0))
+    assert torch.equal(ops.int8_matmul(xq, wq, xs, ws), ref.int8_matmul(xq, wq, xs, ws))
+    assert [(k.launches, k._lib) for k in ops.KERNELS] == before
+    assert before == [(0, None)] * len(ops.KERNELS) and len(ops.KERNELS) == 5
 
 
 @pytest.mark.parametrize("call", [
     lambda: ops._moments.tile_moments(torch.zeros(1, 4, 4, 3)),
     lambda: ops._kmeans.kmeans_assign(torch.zeros(4, 9), torch.zeros(2, 9)),
     lambda: ops._iou.iou_matrix(torch.zeros(3, 4), torch.zeros(3, 4)),
+    lambda: ops._flash.flash_attention(*[torch.zeros(1, 8, 2, 16)] * 3, causal=True),
+    lambda: ops._int8.int8_matmul(torch.zeros(2, 4, dtype=torch.int8),
+                                  torch.zeros(4, 3, dtype=torch.int8),
+                                  torch.ones(2), torch.ones(3)),
 ])
 def test_cuda_wrappers_refuse_cpu_tensors(call):
     """A wrapper launches its kernel or raises: it never computes on the CPU."""
@@ -213,17 +278,26 @@ bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
              or m == "repro" or m.startswith("repro."))
 assert not bad, bad
-assert len(mods) >= 20, mods
+assert len(mods) >= 24, mods
+for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
+          "repro_torch.kernels.int8_matmul", "repro_torch.configs.qwen3_8b"):
+    assert m in mods, m
 import torch
 assert not torch.cuda.is_available()
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.engine import prepare_frames
 from repro_torch.core.mission import Mission
 from repro_torch.core.pipeline import run_pipeline
-from repro_torch.models import detector
+from repro_torch.models import detector, lm
 cfg = reduced(get_config("targetfuse-space"))
-p = detector.init(torch.Generator().manual_seed(0), cfg)
+lm_cfg = reduced(get_config("qwen3-8b"))
+p = detector.init(torch.Generator().manual_seed(0), cfg, device="cpu")
 for call in (lambda: Mission((p, cfg), (p, cfg)),
-             lambda: run_pipeline([], (p, cfg), (p, cfg))):
+             lambda: run_pipeline([], (p, cfg), (p, cfg)),
+             lambda: prepare_frames([], 128, 64, 64),
+             lambda: detector.init(torch.Generator().manual_seed(0), cfg),
+             lambda: lm.init(torch.Generator().manual_seed(0), lm_cfg),
+             lambda: lm.init_cache(lm_cfg, 1, 8)):
     try:
         call()
     except RuntimeError as e:
@@ -241,3 +315,42 @@ def test_port_imports_no_jax_and_needs_a_gpu_by_default():
                          capture_output=True, text=True, timeout=120)
     assert out.returncode == 0, out.stderr[-3000:]
     assert "GUARD-OK" in out.stdout
+
+
+# ---------------------------------------------------------------------------
+# the entry points' default device, in this process: "cuda", which raises
+# without a card (torch.cuda.is_available patched, so the test means the
+# same on a machine with one), and turns reduced-precision bf16 sums off
+# ---------------------------------------------------------------------------
+
+def test_prepare_frames_and_detector_init_default_to_the_card(monkeypatch):
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import engine
+    from repro_torch.models import detector
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = reduced(get_config("targetfuse-space"))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        engine.prepare_frames([], 128, 64, 64)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        detector.init(torch.Generator().manual_seed(0), cfg)
+    p = detector.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    assert p["stem"].device.type == "cpu"
+    assert engine.prepare_frames([], 128, 64, 64, device="cpu").n == 0
+
+
+def test_resolve_device_sets_full_precision_products(monkeypatch):
+    from repro_torch.device import resolve_device
+    flags = torch.backends.cuda.matmul
+    saved = (flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction,
+             torch.backends.cudnn.allow_tf32)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    try:
+        flags.allow_bf16_reduced_precision_reduction = True
+        assert resolve_device("cuda").type == "cuda"
+        assert not flags.allow_bf16_reduced_precision_reduction
+        assert not flags.allow_tf32 and not torch.backends.cudnn.allow_tf32
+    finally:
+        (flags.allow_tf32, flags.allow_bf16_reduced_precision_reduction,
+         torch.backends.cudnn.allow_tf32) = saved
+    with pytest.raises(ValueError, match="unsupported"):
+        resolve_device("meta")
