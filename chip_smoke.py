@@ -9,16 +9,18 @@ nothing of JAX or of the reference package ``repro``. Phases:
 1. device: the card's name and power limit, torch/CUDA versions, and
    the build of every hand-written kernel from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel), with ptxas's registers and
-   spills of each kernel entry;
+   spills of each kernel entry (a spill or a serialized ``wgmma`` in the
+   tensor-core ``flash_attention`` fails the run);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at ragged ones (a bf16
    ``flash_attention`` also against the plain version on its inputs
-   upcast to float32, within one bf16 rounding), timed with CUDA
-   events beside the plain version, the least time the card could take
-   (``bound_ms``) and, where one PyTorch call computes the same function,
-   that call (``library_ms``, a yardstick the port never calls); and
-   ``int8_matmul``'s one path, ``ops.int8_matmul`` at the kernel bench's
-   shape;
+   upcast to float32, within one bf16 rounding; each flash case checks
+   which entry, tensor-core or CUDA-core, it launched, and the prefill's
+   shape runs on both), timed with CUDA events beside the plain version,
+   the least time the card could take (``bound_ms``) and, where one
+   PyTorch call computes the same function, that call (``library_ms``, a
+   yardstick the port never calls); and ``int8_matmul``'s one path,
+   ``ops.int8_matmul`` at the kernel bench's shape;
 3. the Mission at full width: the ``targetfuse-space`` and
    ``targetfuse-ground`` counters (seeded random weights) on xview-like
    traffic, every selection policy, with every kernel's launch count
@@ -28,10 +30,10 @@ nothing of JAX or of the reference package ``repro``. Phases:
 5. LM serving at full width: qwen3-8b (36 layers, d_model 4096, seeded
    random bf16 weights) prefills 2 prompts of 4096 tokens and decodes 32
    greedy tokens; ``flash_attention`` launches once a layer in the
-   prefill; decode logits are held against ``forward_train`` over prompt
-   and generated tokens;
+   prefill, every launch on its tensor-core entry; decode logits are held
+   against ``forward_train`` over prompt and generated tokens;
 6. CUDA against CPU: reduced qwen3 in float32, prefill and 3 decode
-   steps on the card (kernel) and on the CPU (plain version).
+   steps on the card (the CUDA-core kernel) and on the CPU (plain version).
 
 It prints a ``{"kernels": [...]}`` line, then the ``nvidia-smi`` name and
 power limit, and last ``{"ok": true, "device": {...}}``. Any failure
@@ -55,13 +57,14 @@ INT8_OPS = 1979e12          # H100 SXM int8 tensor cores, dense
 SEED = 0
 XVIEW_SCENES, XVIEW_REVISITS = 3, 3
 # phase 5: LM_SHAPES' prefill_32k (B 32, S 32768) cut to what one card
-# holds and a CUDA-core attention kernel finishes in the time limit
+# holds
 LM_BATCH, LM_PROMPT, LM_STEPS = 2, 4096, 32
 # phase 5: relative norm of decode logits against the full forward's at
 # each generated position. bf16 activations through 36 layers, and the
-# prefill's kernel keeps p in float32 where the decode's plain version
-# rounds it to bf16: measured 1.6e-2 to 1.7e-2 at every position on the
-# H100, so about twice that (PERF.md)
+# prefill's kernel keeps p to ~16 bits (float32 on the CUDA cores, two
+# bf16 halves on the tensor cores) where the decode's plain version rounds
+# it to bf16: measured 1.6e-2 to 1.7e-2 at every position on the H100, so
+# about twice that (PERF.md)
 LM_DECODE_RTOL = 0.03
 # phase 2: a bf16 flash_attention output against the plain version on
 # the inputs upcast to float32, the arithmetic the kernel does: the
@@ -160,34 +163,48 @@ def kernel_cases(dev):
             plain=lambda a=a, bb=bb: ref.iou_matrix(a, bb), atol=1e-5,
             bytes=bs * (n + m) * 16 + bs * n * m * 4, flops=12 * bs * n * m))
 
-    # the LM prefill's shape first (qwen3-8b, B 2, S 4096), then the f32
-    # shapes of tests/test_kernels.py and ragged ones
-    attn = [((2, 4096, 32, 8, 128), torch.bfloat16, True)]
-    attn += [(shape, torch.float32, causal)
-             for shape in [(1, 128, 1, 1, 128), (2, 256, 4, 2, 128), (1, 384, 8, 8, 128),
-                           (2, 128, 6, 2, 256)] for causal in (False, True)]
-    attn += [((1, 200, 4, 2, 128), torch.float32, True),
-             ((2, 200, 4, 2, 16), torch.float32, False),
-             ((1, 200, 4, 2, 100), torch.float32, True),
-             ((1, 200, 4, 2, 128), torch.bfloat16, True)]
-    for (b, s, hq, hkv, d), dt, causal in attn:
-        q = torch.randn((b, s, hq, d), generator=g, device=dev).to(dt)
-        k, v = (torch.randn((b, s, hkv, d), generator=g, device=dev).to(dt) for _ in range(2))
-        tol = 3e-2 if dt == torch.bfloat16 else 2e-5
-        flops = 4 * b * hq * s * s * d / (2 if causal else 1)
+    # the LM prefill's shape first (qwen3-8b, B 2, S 4096: the tensor-core
+    # route), the same on the CUDA-core route (forced, to time the two in
+    # one run), bf16 shapes of the tensor-core route (ragged, D 64, Hq =
+    # Hkv, Sq < Skv), then the f32 shapes of tests/test_kernels.py and
+    # ragged ones, and bf16 with D 96 (the CUDA-core route)
+    tc, cc = flash_attention.TENSOR_CORE, flash_attention.CUDA_CORE
+    bf16, f32 = torch.bfloat16, torch.float32
+    main = (2, 4096, 4096, 32, 8, 128)
+    attn = [(main, bf16, True, tc), (main, bf16, True, cc),
+            ((1, 200, 200, 4, 2, 128), bf16, True, tc),
+            ((2, 256, 256, 4, 2, 64), bf16, False, tc),
+            ((1, 384, 384, 8, 8, 128), bf16, True, tc),
+            ((1, 128, 384, 4, 2, 128), bf16, False, tc)]
+    attn += [((b, s, s, hq, hkv, d), f32, causal, cc)
+             for b, s, hq, hkv, d in [(1, 128, 1, 1, 128), (2, 256, 4, 2, 128), (1, 384, 8, 8, 128),
+                                      (2, 128, 6, 2, 256)] for causal in (False, True)]
+    attn += [((1, 200, 200, 4, 2, 128), f32, True, cc),
+             ((2, 200, 200, 4, 2, 16), f32, False, cc),
+             ((1, 200, 200, 4, 2, 100), f32, True, cc),
+             ((1, 200, 200, 4, 2, 96), bf16, True, cc)]
+    for (b, sq, skv, hq, hkv, d), dt, causal, route in attn:
+        check(route == cc or flash_attention.choose_route(dt, d) == route,
+              f"flash case {(b, sq, skv, hq, hkv, d)} {dt}: not a {route} shape")
+        q = torch.randn((b, sq, hq, d), generator=g, device=dev).to(dt)
+        k, v = (torch.randn((b, skv, hkv, d), generator=g, device=dev).to(dt) for _ in range(2))
+        tol = 3e-2 if dt == bf16 else 2e-5
+        flops = 4 * b * hq * sq * skv * d / (2 if causal else 1)
         cases["flash_attention"].append(dict(
-            shape=f"q{(b, s, hq, d)} kv{(b, s, hkv, d)} {str(dt)[6:]} causal={causal}",
-            kernel=lambda q=q, k=k, v=v, c=causal: flash_attention.flash_attention(
-                q, k, v, causal=c),
+            shape=f"q{(b, sq, hq, d)} kv{(b, skv, hkv, d)} {str(dt)[6:]} causal={causal} "
+                  f"route={route}",
+            symbol=flash_attention.SYMBOLS[route, dt],
+            kernel=lambda q=q, k=k, v=v, c=causal, r=route: flash_attention.flash_attention(
+                q, k, v, causal=c, route=r),
             plain=lambda q=q, k=k, v=v, c=causal: ref.attention(q, k, v, causal=c),
             library=lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=c,
                 enable_gqa=True),
-            upcast=None if dt == torch.float32 else (
+            upcast=None if dt == f32 else (
                 lambda q=q, k=k, v=v, c=causal: ref.attention(q.float(), k.float(), v.float(),
                                                               causal=c)),
             atol=tol, rtol=tol, bytes=2 * (q.numel() + k.numel()) * q.element_size(),
-            flops=flops, rate=BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS))
+            flops=flops, rate=BF16_FLOPS if dt == bf16 else FP32_FLOPS))
     # the kernel bench's shape first, then those of tests/test_kernels.py,
     # then every product at +-127 * -127 over K 4096: |acc| = 66,064,384,
     # past float32's 24-bit integers, so only an exact int32 sum agrees
@@ -222,9 +239,17 @@ def check_upcast(name, case, got):
           f"{name} {case['shape']}: off the float32 version by {diff.max().item()}")
 
 
+TC_ENTRY = "flash_tc_kernel"  # the tensor-core flash_attention kernels
+TC_SYMBOL = "flash_attention_bf16_sm90"  # and their C entry point
+
+
 def ptxas_report(logs: dict):
     """Registers, spills and shared memory of every kernel entry, from
-    ptxas's report in this run's build."""
+    ptxas's report in this run's build. Fails if an entry of the
+    tensor-core ``flash_attention`` spills, or if ptxas serializes a
+    ``wgmma`` of it."""
+    if "flash_attention" not in logs:
+        print("ptxas: flash_attention was built by an earlier run, no report to check", flush=True)
     for name, log in logs.items():
         entry, spill = "?", ""
         for line in log.splitlines():
@@ -235,6 +260,13 @@ def ptxas_report(logs: dict):
                 spill = line
             elif line.startswith("ptxas info") and ": Used " in line:
                 print(f"ptxas {name} {entry}: {line.split(': ', 1)[1]}; {spill}", flush=True)
+                if TC_ENTRY in entry:
+                    check("0 bytes spill stores, 0 bytes spill loads" in spill,
+                          f"ptxas: {entry} spills ({spill})")
+            if "wgmma" in line and "serializ" in line:
+                fail(f"ptxas serializes wgmma: {line}")
+    if "flash_attention" in logs:
+        check(TC_ENTRY in logs["flash_attention"], "ptxas reported no tensor-core entry")
 
 
 def int8_args(g, dev, m, k, n):
@@ -258,11 +290,18 @@ LIBRARY_NOTE = {
 
 def phase_kernels(dev):
     import torch
+    from repro_torch.kernels import flash_attention
     rows = {}
     for name, cases in kernel_cases(dev).items():
         for i, case in enumerate(cases):
+            before = dict(flash_attention.KERNEL.symbol_launches)
             got, want = case["kernel"](), case["plain"]()
             torch.cuda.synchronize()
+            if "symbol" in case:
+                took = {k: n - before[k] for k, n in flash_attention.KERNEL.symbol_launches.items()
+                        if n != before[k]}
+                check(took == {case["symbol"]: 1},
+                      f"{name} {case['shape']}: launched {took}, not {case['symbol']}")
             if name == "kmeans_assign":
                 check(torch.equal(got[0], want[0]),
                       f"{name} {case['shape']}: assignments differ")
@@ -305,7 +344,7 @@ def int8_path(dev, kernel):
     import torch
     from repro_torch.kernels import ops
     args = int8_args(torch.Generator(device=dev).manual_seed(SEED + 1), dev, 256, 512, 256)
-    kernel.launches = 0
+    kernel.reset()
     out = ops.int8_matmul(*args)
     torch.cuda.synchronize()
     check(out.shape == (256, 256) and bool(torch.isfinite(out).all()), "int8 path: bad output")
@@ -388,7 +427,7 @@ def phase_full_width(dev, kernels):
     M.Mission(space, ground, pcfg("targetfuse"), device=dev).run(frames)  # warm-up
     torch.cuda.synchronize()
     for k in kernels:
-        k.launches = 0
+        k.reset()
     per_policy = {}
     for method in POLICIES:
         before = {k.name: k.launches for k in kernels}
@@ -504,13 +543,14 @@ def phase_lm_serving(dev, flash):
     be downloaded): prefill of LM_BATCH prompts of LM_PROMPT seeded
     tokens, then LM_STEPS greedy decode steps on a cache of
     LM_PROMPT + LM_STEPS positions. Cut from ``LM_SHAPES`` prefill_32k
-    (B 32, S 32768): at B 32 the KV cache alone is 155 GB in bf16, and a
-    CUDA-core attention kernel at 32k takes too long for the time limit.
+    (B 32, S 32768): at B 32 the KV cache alone is 155 GB in bf16, more
+    than the card holds.
 
-    Checks: ``flash_attention`` launches once a layer in the prefill and
-    not in the decode; the logits of the prefill's last position and of
-    every decode step agree with ``forward_train`` over prompt and
-    generated tokens within LM_DECODE_RTOL (relative norm per position).
+    Checks: ``flash_attention`` launches once a layer in the prefill, every
+    launch on its tensor-core entry, and not in the decode; the logits of
+    the prefill's last position and of every decode step agree with
+    ``forward_train`` over prompt and generated tokens within
+    LM_DECODE_RTOL (relative norm per position).
     -> flash_attention launches in the serving run.
     """
     import torch
@@ -535,11 +575,14 @@ def phase_lm_serving(dev, flash):
           f"{kv_gb:.1f} GB)", flush=True)
 
     torch.cuda.reset_peak_memory_stats()
-    flash.launches = 0
+    flash.reset()
     (logits, pre), prefill_s = synced(lambda: lm.prefill(params, cfg, prompt))
     prefill_launches = flash.launches
+    routes = dict(flash.symbol_launches)
     check(prefill_launches == cfg.n_layers,
           f"prefill launched flash_attention {prefill_launches} times, not {cfg.n_layers}")
+    check(routes[TC_SYMBOL] == cfg.n_layers,
+          f"prefill's flash_attention launches by entry {routes}: not all on {TC_SYMBOL}")
     cache = lm.init_cache(cfg, b, s + steps, device=dev)
     for kk in ("k", "v"):
         cache["blocks_dense"][kk][:, :, :s] = pre["blocks_dense"][kk]
@@ -552,12 +595,13 @@ def phase_lm_serving(dev, flash):
         outs.append(log)
         step_s.append(dt)
     launches = flash.launches
-    check(launches == prefill_launches, "decode launched flash_attention")
+    check(launches == prefill_launches and flash.symbol_launches == routes,
+          "decode launched flash_attention")
     profile_decode(lambda: lm.decode_step(params, cfg, tokens[-1], cache, s + steps - 1))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_ms = 1e3 * sum(step_s) / steps
     print(f"lm prefill: {prefill_s:.4f} s, {b * s / prefill_s:.1f} tokens/s; flash_attention "
-          f"launches {prefill_launches} ({cfg.n_layers} layers)", flush=True)
+          f"launches {prefill_launches} ({cfg.n_layers} layers), by entry {routes}", flush=True)
     print(f"lm decode: {decode_ms:.4f} ms/step (first {1e3 * step_s[0]:.4f}, median "
           f"{1e3 * sorted(step_s)[steps // 2]:.4f}), {1e3 * b / decode_ms:.1f} tokens/s; "
           f"peak memory {peak_gb:.2f} GB", flush=True)
@@ -642,9 +686,9 @@ def phase_lm_cuda_vs_cpu(dev, flash):
     runs = {}
     for device, p in (("cpu", p_cpu), (dev, lm.from_numpy(p_cpu, cfg, dev))):
         t = torch.from_numpy(tokens).to(device)
-        before = flash.launches
+        before = flash.symbol_launches["flash_attention_f32"]
         log, pre = lm.prefill(p, cfg, t[:, :6])
-        launched = flash.launches - before
+        launched = flash.symbol_launches["flash_attention_f32"] - before
         cache = lm.init_cache(cfg, 2, 9, device=device)
         for kk in ("k", "v"):
             cache["blocks_dense"][kk][:, :, :6] = pre["blocks_dense"][kk]
@@ -656,8 +700,8 @@ def phase_lm_cuda_vs_cpu(dev, flash):
     (want, cpu_launched), (got, gpu_launched) = runs["cpu"], runs[str(dev)]
     err = (got - want).abs().max().item()
     print(f"lm cuda vs cpu: reduced qwen3 prefill + 3 decode steps, logits max_abs_err "
-          f"{err:.3e}; flash_attention launches on the card {gpu_launched}, on the CPU "
-          f"{cpu_launched}", flush=True)
+          f"{err:.3e}; flash_attention_f32 (CUDA-core) launches on the card {gpu_launched}, "
+          f"on the CPU {cpu_launched}", flush=True)
     check(gpu_launched == cfg.n_layers and cpu_launched == 0, "flash_attention dispatch")
     check(torch.allclose(got, want, atol=1e-4, rtol=1e-4), f"CUDA and CPU logits differ by {err}")
 

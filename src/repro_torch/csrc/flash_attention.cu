@@ -1,5 +1,7 @@
 // Flash attention (online softmax, GQA, optional causal mask) for Hopper
-// (sm_90a), on the CUDA cores.
+// (sm_90a): float32, and bf16 of other head dims, on the CUDA cores
+// (flash_attention_f32, flash_attention_bf16); bf16 with D 64 or 128 on
+// the tensor cores (flash_attention_bf16_sm90, below).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py
 // (flash_attention, _flash_kernel): for q (B, Sq, Hq, D) and k, v
@@ -28,10 +30,49 @@
 // kernel their p is exp(-1e30 - m) = 0 and alpha is 1, so skipping them
 // is exact and halves the work. Query tiles are issued longest first.
 // Products and exponentials are plain float32 FMAs and expf (no fast
-// math); tensor cores (wgmma) are later work: TF32 would break the
-// float32 contract.
+// math); float32 stays off the tensor cores: TF32 would break its 2e-5
+// contract.
+//
+// bf16 with D 64 or 128 on the tensor cores: flash_attention_bf16_sm90
+// (the rule is kernels/flash_attention.py:choose_route) replaces the same
+// Pallas kernel and computes the same function, except that s = q . k is
+// taken exactly from the bf16 inputs and scaled after the product (one
+// float32 ulp from the Pallas order), and that sm_scale carries log2(e)
+// so the exponentials are exp2f (no fast math).
+// Bound: operations, 4*B*Hq*Sq*Skv*D/2 at 989 TFLOP/s of bf16 wgmma.
+// Design: a block owns 128 query rows of one (batch, head): two consumer
+// warpgroups of 64 rows and one producer warp. The producer's lane 0
+// issues TMA loads (4-D maps (D, H, S, B) encoded per call, boxes of 64 x
+// rows under the 128-byte swizzle; a 128-wide head is two boxes) of Q
+// once and of K and V tiles into a two-stage ring, with full and empty
+// mbarriers. Each consumer computes s = Q K^T with wgmma m64nBKk16 (both
+// operands from shared memory, K-major), the online softmax in registers
+// (row max and sum over the four lanes of an accumulator row, shuffles),
+// then acc += P V with wgmma m64nDk16, P from registers and V from shared
+// memory, N-major (the transpose bit). P is split into two bf16 halves,
+// hi = bf16(p) and lo = bf16(p - hi), and multiplied by the same V tile
+// twice: chip_smoke.py holds every bf16 output against the plain version
+// on float32 inputs at rtol 2^-7, atol 1e-5, and one bf16 p (what SDPA
+// and FA3 feed the second product) misses that for outputs near zero,
+// where hi + lo keeps ~16 bits. It costs 1.5x the tensor-core work.
+// Keys past Skv (zeros from TMA) get s = -1e30; with a causal mask only
+// tiles that reach past a warpgroup's first row are masked and tiles past
+// its last row are skipped; rows past Sq are not stored; query tiles go
+// longest first (the grid's slowest axis).
+// Tile: BK = 64 keys (FLASH_TC_BK). scripts/flash_tile_sweep.py builds 64
+// and 128: at the prefill's shape 128 is about 3% faster, but a block of
+// nine warps puts three on one of the SM's four register files, which
+// caps a thread at 168 registers, and at 128 keys ptxas spills there;
+// 64 keys take 159 registers at D 128 (128 at D 64), no spills. A whole
+// producer warpgroup with setmaxnreg (24 registers there, 240 in the
+// consumers) would lift the cap.
+// Later work: ping-pong between the two consumer warpgroups, setmaxnreg,
+// a persistent grid, and the GQA heads of one kv head packed in a block.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
+
+#include <cstdint>
 
 namespace {
 
@@ -255,6 +296,431 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b, int sq
   return launch<T, 256>(q, k, v, o, b, sq, skv, hq, hkv, d, causal, sm_scale, s);
 }
 
+
+// ---------------------------------------------------------------------------
+// bf16 on the tensor cores (flash_attention_bf16_sm90)
+// ---------------------------------------------------------------------------
+
+constexpr int kTcBQ = 128;             // query rows a block: two consumer warpgroups of 64
+constexpr int kTcThreads = 288;        // warps 0-7 consume (wgmma), warp 8 loads (TMA)
+constexpr int kTcStages = 2;           // ring of K and V tiles
+#ifndef FLASH_TC_BK
+#define FLASH_TC_BK 64
+#endif
+constexpr int kTcBK = FLASH_TC_BK;     // keys a tile (see the note at the top)
+constexpr float kLog2e = 1.4426950408889634f;
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done)
+      : "r"(bar), "r"(parity)
+      : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t global_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// wait until the phase of parity `parity` has completed. A phase that is
+// not done after 4 s (a load that never lands) traps: the launch fails
+// with an error instead of holding the card
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = global_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (global_ns() - t0 > 4000000000ull) __trap();
+}
+
+// one box of a 4-D tensor map (D, H, S, B) into shared memory, completing
+// on `bar`
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
+      : "memory");
+}
+
+// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
+  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait_all() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+// keep the compiler from moving reads or writes of accumulator registers
+// across the asynchronous products
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
+}
+template <int N>
+__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
+}
+
+#define WG_F8(i)                                                                          \
+  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
+      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+#define WG_ACC32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
+#define WG_ACC64 WG_ACC32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+
+// wgmma m64nNk16, bf16 in, float32 accumulate, scale-d = 1:
+// ss: d (64 x N) += a (64 x 16) . b (16 x N), both from shared memory,
+//     K-major (no transpose);
+// rs: the same with a from registers and b N-major (transposed)
+template <int N>
+struct Wgmma;
+
+template <>
+struct Wgmma<64> {
+  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "%32, %33, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC32
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[32], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+        : WG_ACC32
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+template <>
+struct Wgmma<128> {
+  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "%64, %65, p, 1, 1, 0, 0;\n}\n"
+        : WG_ACC64
+        : "l"(a), "l"(b), "r"(1));
+  }
+  static __device__ __forceinline__ void rs(float (&d)[64], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+        : WG_ACC64
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
+__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
+  return *reinterpret_cast<uint32_t*>(&x);
+}
+
+// the four lanes that share an accumulator row
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+template <int D, int BK>
+constexpr int tc_smem_bytes() {
+  // Q, then per stage K and V, each D/64 boxes of rows x 128 bytes; the
+  // barriers; 1024 bytes to align the base for the 128-byte swizzle
+  return (kTcBQ + 2 * kTcStages * BK) * D * 2 + 8 * (1 + 2 * kTcStages) + 1024;
+}
+
+template <int D, int BK>
+__global__ void __launch_bounds__(kTcThreads, 1)
+flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int sq,
+                int skv, int hq, int hkv, int causal, float scale_log2) {
+  constexpr int DB = D / 64;                      // 64-wide boxes of the head dim
+  constexpr uint32_t kQBox = kTcBQ * 128;         // bytes of one Q box
+  constexpr uint32_t kKVBox = BK * 128;           // bytes of one K or V box
+  constexpr uint32_t kQBytes = DB * kQBox, kKVBytes = DB * kKVBox;
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t base = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  const uint32_t s_q = base;
+  const uint32_t s_kv = base + kQBytes;           // stage st: K at st * 2 * kKVBytes, V after
+  const uint32_t bar_q = s_kv + kTcStages * 2 * kKVBytes;
+  const uint32_t bar_full = bar_q + 8, bar_empty = bar_full + 8 * kTcStages;
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kTcBQ;  // longest causal rows first
+  const int hk = h / (hq / hkv);
+  const int kv_end = causal ? min(skv, q0 + kTcBQ) : skv;
+  const int n_tiles = (kv_end + BK - 1) / BK;
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+
+  if (threadIdx.x == 0) {
+    mbar_init(bar_q, 1);
+    for (int st = 0; st < kTcStages; ++st) {
+      mbar_init(bar_full + 8 * st, 1);
+      mbar_init(bar_empty + 8 * st, 256);  // every consumer thread
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 8) {  // producer: one lane issues every load
+    if (lane == 0) {
+      mbar_expect_tx(bar_q, kQBytes);
+      for (int db = 0; db < DB; ++db) tma_load(s_q + db * kQBox, &tm_q, bar_q, db * 64, h, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int st = t % kTcStages;
+        if (t >= kTcStages) mbar_wait(bar_empty + 8 * st, (t / kTcStages - 1) & 1);
+        const uint32_t k_dst = s_kv + st * 2 * kKVBytes, v_dst = k_dst + kKVBytes;
+        mbar_expect_tx(bar_full + 8 * st, 2 * kKVBytes);
+        for (int db = 0; db < DB; ++db) {
+          tma_load(k_dst + db * kKVBox, &tm_k, bar_full + 8 * st, db * 64, hk, t * BK, b);
+          tma_load(v_dst + db * kKVBox, &tm_v, bar_full + 8 * st, db * 64, hk, t * BK, b);
+        }
+      }
+    }
+    return;
+  }
+
+  // consumer warpgroup wg owns query rows q0 + 64 wg .. + 63; this thread
+  // holds rows row0 and row0 + 8 of every accumulator
+  const int wg = warp / 4;
+  const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+  const int col = 2 * (lane % 4);  // first of this thread's two columns in each 8
+  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // m in log2 units
+
+  mbar_wait(bar_q, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int st = t % kTcStages, k0 = t * BK;
+    const uint32_t s_k = s_kv + st * 2 * kKVBytes, s_v = s_k + kKVBytes;
+    mbar_wait(bar_full + 8 * st, (t / kTcStages) & 1);
+    if (causal && k0 > wg_last) {  // every key of the tile is masked for these rows
+      mbar_arrive(bar_empty + 8 * st);
+      continue;
+    }
+
+    // s = q . k^T: D/16 steps of 16 along the head dim
+    float s[BK / 2];
+#pragma unroll
+    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+    fence_regs(s);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // 16 bf16 along the 128-byte row
+      Wgmma<BK>::ss(s, sw128_desc(s_q + (kk / 4) * kQBox + wg * 64 * 128 + off, 16, 1024),
+               sw128_desc(s_k + (kk / 4) * kKVBox + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // scale (log2 units), mask, online softmax. s[4i + e] is (row0, key
+    // k0 + 8i + col + e), s[4i + 2 + e] is (row0 + 8, same key)
+    const bool mask = k0 + BK > skv || (causal && k0 + BK - 1 > wg_first);
+    float mx0 = m0, mx1 = m1;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float x0 = s[4 * i + e] * scale_log2, x1 = s[4 * i + 2 + e] * scale_log2;
+        if (mask) {
+          const int key = k0 + 8 * i + col + e;
+          if (key >= skv || (causal && key > row0)) x0 = kNegInf;
+          if (key >= skv || (causal && key > row0 + 8)) x1 = kNegInf;
+        }
+        s[4 * i + e] = x0;
+        s[4 * i + 2 + e] = x1;
+        mx0 = fmaxf(mx0, x0);
+        mx1 = fmaxf(mx1, x1);
+      }
+    mx0 = quad_max(mx0);
+    mx1 = quad_max(mx1);
+    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+    float rs0 = 0.f, rs1 = 0.f;
+#pragma unroll
+    for (int i = 0; i < BK / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        s[4 * i + e] = exp2f(s[4 * i + e] - mx0);
+        s[4 * i + 2 + e] = exp2f(s[4 * i + 2 + e] - mx1);
+        rs0 += s[4 * i + e];
+        rs1 += s[4 * i + 2 + e];
+      }
+    l0 = l0 * alpha0 + quad_sum(rs0);
+    l1 = l1 * alpha1 + quad_sum(rs1);
+    m0 = mx0;
+    m1 = mx1;
+#pragma unroll
+    for (int i = 0; i < D / 8; ++i) {
+      acc[4 * i + 0] *= alpha0;
+      acc[4 * i + 1] *= alpha0;
+      acc[4 * i + 2] *= alpha1;
+      acc[4 * i + 3] *= alpha1;
+    }
+
+    // p as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi), in the
+    // A-operand layout: for keys 16j..16j+15, registers 4j..4j+3 hold
+    // (row0, 2 keys), (row0 + 8, 2 keys), then the same 8 keys on
+    uint32_t p_hi[BK / 4], p_lo[BK / 4];
+#pragma unroll
+    for (int i = 0; i < BK / 4; ++i) {
+      const float a = s[2 * i], c = s[2 * i + 1];
+      const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+      const float2 hf = __bfloat1622float2(hi);
+      p_hi[i] = bf16x2_bits(hi);
+      p_lo[i] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, c - hf.y));
+    }
+
+    // acc += p_hi . v + p_lo . v: BK/16 steps of 16 keys; V is (keys x D),
+    // D contiguous, so N-major (transposed), its D boxes BK * 128 bytes apart
+    fence_regs(p_hi);
+    fence_regs(p_lo);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < BK / 16; ++j) {
+      const uint64_t dv = sw128_desc(s_v + j * 16 * 128, kKVBox, 1024);
+      Wgmma<D>::rs(acc, p_hi[4 * j], p_hi[4 * j + 1], p_hi[4 * j + 2], p_hi[4 * j + 3], dv);
+      Wgmma<D>::rs(acc, p_lo[4 * j], p_lo[4 * j + 1], p_lo[4 * j + 2], p_lo[4 * j + 3], dv);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    mbar_arrive(bar_empty + 8 * st);
+  }
+
+  // acc[4i + e] is (row0, column 8i + col + e), acc[4i + 2 + e] row0 + 8
+  const long long row_stride = (long long)hq * D;
+  __nv_bfloat16* ob = o + (long long)b * sq * row_stride + (long long)h * D;
+  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    if (row0 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * row_stride + 8 * i + col) =
+          __floats2bfloat162_rn(acc[4 * i] / den0, acc[4 * i + 1] / den0);
+    if (row0 + 8 < sq)
+      *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * row_stride + 8 * i + col) =
+          __floats2bfloat162_rn(acc[4 * i + 2] / den1, acc[4 * i + 3] / den1);
+  }
+}
+
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                       cudaEnableDefault, &found);
+#else
+    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                              &found);
+#endif
+    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
+  }
+  return fn;
+}
+
+// (B, S, H, D) contiguous bf16 as a 4-D map (D, H, S, B), box (64, 1, rows,
+// 1) under the 128-byte swizzle; rows past S read as zeros
+bool encode_bshd(EncodeTiled fn, CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
+                 int rows) {
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
+                                 (cuuint64_t)s * h * d * 2};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
+            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
+int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
+              int hq, int hkv, int causal, float sm_scale, cudaStream_t stream) {
+  EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  CUtensorMap tq, tk, tv;
+  if (!encode_bshd(fn, &tq, q, b, sq, hq, D, kTcBQ) ||
+      !encode_bshd(fn, &tk, k, b, skv, hkv, D, kTcBK) ||
+      !encode_bshd(fn, &tv, v, b, skv, hkv, D, kTcBK))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = flash_tc_kernel<D, kTcBK>;
+  constexpr int bytes = tc_smem_bytes<D, kTcBK>();
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(hq, b, (sq + kTcBQ - 1) / kTcBQ);
+  kernel<<<grid, kTcThreads, bytes, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, sq, skv, hq, hkv,
+                                              causal, sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 // q: (b, sq, hq, d), k and v: (b, skv, hkv, d), o: (b, sq, hq, d), all
@@ -271,4 +737,21 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
                                     int sq, int skv, int hq, int hkv, int d, int causal,
                                     float sm_scale, void* stream) {
   return dispatch<__nv_bfloat16>(q, k, v, o, b, sq, skv, hq, hkv, d, causal, sm_scale, stream);
+}
+
+// The tensor-core route: q: (b, sq, hq, d), k and v: (b, skv, hkv, d), o:
+// (b, sq, hq, d), contiguous bf16 with 16-byte aligned data, d 64 or 128,
+// hq % hkv == 0, skv >= 1. Returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments it refuses or a tensor map that
+// cuTensorMapEncodeTiled refuses).
+extern "C" int flash_attention_bf16_sm90(const void* q, const void* k, const void* v, void* o,
+                                         int b, int sq, int skv, int hq, int hkv, int d,
+                                         int causal, float sm_scale, void* stream) {
+  if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
+  if (skv <= 0 || (d != 64 && d != 128) || hkv <= 0 || hq % hkv != 0 || b > 65535 ||
+      (sq + kTcBQ - 1) / kTcBQ > 65535)
+    return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d == 64) return launch_tc<64>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
+  return launch_tc<128>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
 }

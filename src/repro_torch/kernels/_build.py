@@ -56,11 +56,13 @@ class _Build:
 
 
 class CudaKernel:
-    """One kernel's source, its built library and its launch count.
+    """One kernel's source, its built library and its launch counts.
 
     ``launches`` is a plain integer that :meth:`launch` raises by one
-    each time the kernel is launched, so a run can show that it went
-    through the kernel; a caller may reset it to 0.
+    each time any entry point of the library is launched, and
+    ``symbol_launches`` counts each entry point on its own, so a run can
+    show which of a library's kernels it went through; :meth:`reset`
+    sets both to 0.
     """
 
     def __init__(self, name: str, symbols: dict):
@@ -68,7 +70,12 @@ class CudaKernel:
         self.source = CSRC / f"{name}.cu"
         self.symbols = symbols  # C symbol -> ctypes argtypes
         self.launches = 0
+        self.symbol_launches = dict.fromkeys(symbols, 0)
         self._lib = None
+
+    def reset(self) -> None:
+        self.launches = 0
+        self.symbol_launches = dict.fromkeys(self.symbols, 0)
 
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
@@ -104,6 +111,7 @@ class CudaKernel:
             raise RuntimeError(f"{self.name}: {symbol} failed with CUDA "
                                f"error {err}")
         self.launches += 1
+        self.symbol_launches[symbol] += 1
 
 
 def build_all(kernels) -> dict:

@@ -1,47 +1,70 @@
-"""Wrapper of the hand-written CUDA ``flash_attention`` kernel.
+"""Wrapper of the hand-written CUDA ``flash_attention`` kernels.
 
 Replaces the Pallas kernel ``repro/kernels/flash_attention.py``
 (``flash_attention`` / ``_flash_kernel``): online-softmax GQA attention,
-float32 inside, ``sm_scale = 1/sqrt(D)`` on q, an optional causal mask by
+float32 inside, ``sm_scale = 1/sqrt(D)``, an optional causal mask by
 absolute position, output in q's dtype. Operations-bound at the LM's
-prefill shapes. One block per 64 query rows of a (batch, head), 64-key
-tiles of its kv head read in place, float32 FMAs on the CUDA cores, and
-key tiles past a causal block's diagonal skipped (see
-``csrc/flash_attention.cu``).
+prefill shapes. One source, ``csrc/flash_attention.cu``, holds two
+routes, and :func:`choose_route` is the rule between them:
 
-Unlike the Pallas kernel it takes any Sq, Skv (the ragged tail is
-masked) and any D up to 256, so ``ops.attention`` sends every CUDA
-tensor here, where the reference's dispatch sends shapes that are not
-multiples of 128 to its oracle. Against the plain version
-(``ref.attention``) it agrees within 2e-5 in float32 and 3e-2 in bf16,
-the contract of tests/test_kernels.py: in bf16 the plain version rounds
-the scaled q and the softmax weights to bf16, the kernel keeps them in
-float32. It takes CUDA tensors only.
+- ``"tensor_core"`` (``flash_attention_bf16_sm90``): bf16 with D 64 or
+  128. 128 query rows a block, TMA loads of K and V tiles, both products
+  on wgmma with float32 accumulation, p fed to the second product as two
+  bf16 halves (hi + lo), so the result is the float32 algorithm's.
+- ``"cuda_core"`` (``flash_attention_f32``, ``flash_attention_bf16``):
+  float32, and bf16 of any other head dim. 64 query rows a block,
+  float32 FMAs on the CUDA cores (TF32 would break float32's contract).
+
+Both skip key tiles past a causal block's diagonal, take any Sq, Skv
+(the ragged tail is masked), and read the kv head in place. The CUDA-core
+route takes any D up to 256, so ``ops.attention`` sends every CUDA tensor
+here, where the reference's dispatch sends shapes that are not multiples
+of 128 to its oracle. Against the plain version (``ref.attention``) both
+agree within 2e-5 in float32 and 3e-2 in bf16, the contract of
+tests/test_kernels.py: in bf16 the plain version rounds the scaled q and
+the softmax weights to bf16, the kernels keep them in float32. A CUDA
+tensor launches the kernel its route names or raises; there is no
+fallback between routes. ``KERNEL.symbol_launches`` counts each route's
+entry point.
 """
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional
 
 import torch
 
 from repro_torch.kernels._build import I, P, CudaKernel
 
+TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
+TENSOR_CORE_D = (64, 128)
+SYMBOLS = {(TENSOR_CORE, torch.bfloat16): "flash_attention_bf16_sm90",
+           (CUDA_CORE, torch.float32): "flash_attention_f32",
+           (CUDA_CORE, torch.bfloat16): "flash_attention_bf16"}
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P]
-KERNEL = CudaKernel("flash_attention", {"flash_attention_f32": _ARGS,
-                                        "flash_attention_bf16": _ARGS})
-_SYMBOL = {torch.float32: "flash_attention_f32", torch.bfloat16: "flash_attention_bf16"}
+KERNEL = CudaKernel("flash_attention", {sym: _ARGS for sym in SYMBOLS.values()})
 MAX_D = 256
 MAX_GRID_YZ = 65535
 
 
+def choose_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route of a CUDA call: ``"tensor_core"`` for bf16 with D 64 or
+    128, ``"cuda_core"`` for everything else."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_D:
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = False) -> torch.Tensor:
+                    causal: bool = False, route: Optional[str] = None) -> torch.Tensor:
     """q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), contiguous, float32 or
-    bf16, on one CUDA device -> (B, Sq, Hq, D) in q's dtype."""
+    bf16, on one CUDA device -> (B, Sq, Hq, D) in q's dtype. ``route``
+    defaults to :func:`choose_route`; naming one forces it (a benchmark
+    times the CUDA-core route at a tensor-core shape)."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
         raise ValueError("flash_attention kernel takes CUDA tensors on one device")
-    if q.dtype not in _SYMBOL or k.dtype != q.dtype or v.dtype != q.dtype:
+    if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
         raise ValueError(f"flash_attention takes float32 or bf16 of one dtype, got "
                          f"{q.dtype}, {k.dtype}, {v.dtype}")
     if q.dim() != 4 or k.dim() != 4 or k.shape != v.shape:
@@ -55,10 +78,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"need one batch and head dim D <= {MAX_D}, Hq % Hkv == 0, Skv > 0")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous tensors")
+    route = choose_route(q.dtype, d) if route is None else route
+    symbol = SYMBOLS.get((route, q.dtype))
+    if symbol is None or (route == TENSOR_CORE and d not in TENSOR_CORE_D):
+        raise ValueError(f"flash_attention: no {route!r} kernel for {q.dtype} with D {d}")
+    if route == TENSOR_CORE and any(t.data_ptr() % 16 for t in (q, k, v)):
+        raise ValueError("flash_attention's tensor-core route reads 16-byte aligned data "
+                         "(its TMA maps)")
     out = torch.empty_like(q)
     if out.numel():
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        KERNEL.launch(_SYMBOL[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        KERNEL.launch(symbol, q.data_ptr(), k.data_ptr(), v.data_ptr(),
                       out.data_ptr(), b, sq, skv, hq, hkv, d, int(causal),
                       1.0 / math.sqrt(d), stream)
     return out

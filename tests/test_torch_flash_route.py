@@ -1,0 +1,166 @@
+"""The two routes of the port's ``flash_attention``, on the CPU.
+
+The tensor-core kernel (``flash_attention_bf16_sm90`` in
+``csrc/flash_attention.cu``) runs only on a card; ``chip_smoke.py``
+holds it against the plain version there. Here: the route rule and the
+per-entry launch counts, and a plain emulation of the tensor-core
+kernel's arithmetic (exact bf16 products, the scale applied after the
+product, online softmax over key tiles, p fed to the second product as
+two bf16 halves) held against the reference's Pallas kernel (interpret
+mode) and its oracle on float32-upcast inputs, within the tolerance
+``chip_smoke.py`` applies on the card (rtol 2^-7, atol 1e-5). The same
+emulation with one bf16 p misses that tolerance: the reason for the
+split. Inputs are made from a seed with numpy.
+"""
+import math
+from types import SimpleNamespace
+
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.kernels.flash_attention import flash_attention as pallas_flash
+from repro_torch.kernels import _build
+from repro_torch.kernels import flash_attention as flash
+
+# one intra-op thread, as in the other port tests run by parallel workers
+torch.set_num_threads(1)
+
+RTOL, ATOL = 2.0 ** -7, 1e-5  # chip_smoke.FLASH_BF16_RTOL / FLASH_BF16_ATOL
+LOG2E = 1.4426950408889634
+
+
+# ---------------------------------------------------------------------------
+# the route rule and the launch counts
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("dtype,d,route", [
+    (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 96, "cuda_core"),
+    (torch.bfloat16, 100, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
+    (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
+    (torch.float32, 256, "cuda_core"),
+])
+def test_choose_route(dtype, d, route):
+    assert flash.choose_route(dtype, d) == route
+    assert flash.SYMBOLS[route, dtype] in flash.KERNEL.symbols
+
+
+def test_every_route_has_one_entry_in_one_library():
+    assert flash.SYMBOLS == {("tensor_core", torch.bfloat16): "flash_attention_bf16_sm90",
+                             ("cuda_core", torch.float32): "flash_attention_f32",
+                             ("cuda_core", torch.bfloat16): "flash_attention_bf16"}
+    assert set(flash.KERNEL.symbols) == set(flash.SYMBOLS.values())
+    assert flash.KERNEL.source.name == "flash_attention.cu"
+    assert set(flash.KERNEL.symbol_launches) == set(flash.SYMBOLS.values())
+
+
+def test_launches_are_counted_per_entry():
+    """``launches`` counts every entry of a library, ``symbol_launches``
+    each one; ``reset`` zeroes both (a library stand-in whose entry
+    points return 0, cudaSuccess)."""
+    kernel = _build.CudaKernel("flash_attention", {"a": [], "b": []})
+    kernel._lib = SimpleNamespace(a=lambda *args: 0, b=lambda *args: 0)
+    for sym in ("a", "a", "b"):
+        kernel.launch(sym)
+    assert kernel.launches == 3 and kernel.symbol_launches == {"a": 2, "b": 1}
+    kernel.reset()
+    assert kernel.launches == 0 and kernel.symbol_launches == {"a": 0, "b": 0}
+    kernel._lib = SimpleNamespace(a=lambda *args: 700, b=lambda *args: 0)
+    with pytest.raises(RuntimeError, match="CUDA error 700"):
+        kernel.launch("a")
+    assert kernel.launches == 0 and kernel.symbol_launches == {"a": 0, "b": 0}
+
+
+# ---------------------------------------------------------------------------
+# the tensor-core kernel's arithmetic, emulated
+# ---------------------------------------------------------------------------
+
+def emulate(q, k, v, *, causal, split=True, bk=64):
+    """The tensor-core kernel's arithmetic on bf16 q (B, Sq, Hq, D) and
+    k, v (B, Skv, Hkv, D) -> bf16 (B, Sq, Hq, D): s = q . k in float32
+    (products of bf16 are exact), times sm_scale * log2(e) after the
+    product; masked s = -1e30; over key tiles of ``bk``, the running max
+    m and sum l with alpha = exp2(m_prev - m_new); p as bf16(p) plus
+    bf16(p - bf16(p)) (or one bf16 p without ``split``); acc / max(l,
+    1e-30) rounded once to bf16."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = hq // hkv
+    qf = q.float().transpose(1, 2)
+    kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
+    c = torch.tensor(1 / math.sqrt(d), dtype=torch.float32) * torch.tensor(LOG2E)
+    m = torch.full((b, hq, sq), -1e30)
+    l = torch.zeros((b, hq, sq))
+    acc = torch.zeros((b, hq, sq, d))
+    qpos = torch.arange(sq)[:, None]
+    for k0 in range(0, skv, bk):
+        x = (qf @ kf[:, :, k0:k0 + bk].transpose(-1, -2)) * c
+        if causal:
+            x = x.masked_fill(torch.arange(k0, min(k0 + bk, skv))[None, :] > qpos, -1e30)
+        mx = torch.maximum(m, x.amax(-1))
+        alpha = torch.exp2(m - mx)
+        p = torch.exp2(x - mx[..., None])
+        l = l * alpha + p.sum(-1)
+        m = mx
+        vt = vf[:, :, k0:k0 + bk]
+        hi = p.bfloat16().float()
+        pv = hi @ vt
+        if split:
+            pv = pv + (p - hi).bfloat16().float() @ vt
+        acc = acc * alpha[..., None] + pv
+    return (acc / l.clamp(min=1e-30)[..., None]).bfloat16().transpose(1, 2)
+
+
+def _qkv(seed, b, sq, skv, hq, hkv, d):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, sq, hq, d), dtype=np.float32)
+    k = rng.standard_normal((b, skv, hkv, d), dtype=np.float32)
+    v = rng.standard_normal((b, skv, hkv, d), dtype=np.float32)
+    return tuple(torch.from_numpy(a).bfloat16() for a in (q, k, v))
+
+
+# (b, sq, skv, hq, hkv, d, causal): the prefill's GQA and head dim,
+# ragged lengths, D 64, Hq = Hkv, Sq < Skv
+SHAPES = [(1, 256, 256, 4, 2, 128, True), (1, 200, 200, 4, 2, 128, True),
+          (2, 256, 256, 4, 2, 64, False), (1, 256, 256, 4, 4, 128, True),
+          (1, 128, 384, 4, 2, 128, False)]
+
+
+def _upcast(t):
+    return t.float().numpy()
+
+
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_emulated_kernel_matches_reference_on_upcast_inputs(shape, bk):
+    """Within one bf16 rounding of the float32 algorithm: the reference's
+    oracle on float32-upcast inputs, and its Pallas kernel in interpret
+    mode where the lengths are multiples of its 128-row blocks."""
+    *dims, causal = shape
+    q, k, v = _qkv(sum(dims), *dims)
+    got = emulate(q, k, v, causal=causal, bk=bk).float().numpy()
+    up = [_upcast(t) for t in (q, k, v)]
+    np.testing.assert_allclose(got, np.asarray(jref.attention(*up, causal=causal)),
+                               rtol=RTOL, atol=ATOL)
+    if dims[1] % 128 == 0 and dims[2] % 128 == 0:
+        np.testing.assert_allclose(
+            got, np.asarray(pallas_flash(*up, causal=causal, interpret=True)),
+            rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "x".join(map(str, s)))
+def test_one_bf16_p_misses_the_tolerance(shape):
+    """What SDPA and FA3 do, one bf16 p into the second product, leaves
+    ~10% of the outputs outside rtol 2^-7, atol 1e-5 (the outputs near
+    zero, where p's rounding is not relative to the output)."""
+    *dims, causal = shape
+    q, k, v = _qkv(sum(dims), *dims)
+    want = np.asarray(jref.attention(*[_upcast(t) for t in (q, k, v)], causal=causal))
+    one = emulate(q, k, v, causal=causal, split=False).float().numpy()
+    outside = np.abs(one - want) > ATOL + RTOL * np.abs(want)
+    assert outside.mean() > 0.05, outside.mean()
+    two = emulate(q, k, v, causal=causal).float().numpy()
+    assert not (np.abs(two - want) > ATOL + RTOL * np.abs(want)).any()
