@@ -14,17 +14,20 @@ nothing of JAX or of the reference package ``repro``. Phases:
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at ragged ones (a bf16
    ``flash_attention`` also against the plain version on its inputs
-   upcast to float32, within one bf16 rounding; each flash case checks
-   which entry, tensor-core or CUDA-core, it launched, and the prefill's
-   shape runs on both), timed with CUDA events beside the plain version,
-   the least time the card could take (``bound_ms``) and, where one
-   PyTorch call computes the same function, that call (``library_ms``, a
-   yardstick the port never calls); and ``int8_matmul``'s one path,
-   ``ops.int8_matmul`` at the kernel bench's shape;
+   upcast to float32, within one bf16 rounding; every case checks which
+   entry of its library it launched; the prefill's attention and a
+   qwen3-8b projection's int8 product run on both routes; the dedup's
+   k-means++ seeding gives the plain version's centroids and picks),
+   timed with CUDA events beside the plain version, the least time the
+   card could take (``bound_ms``) and, where one PyTorch call computes
+   the same function, that call (``library_ms``, a yardstick the port
+   never calls); and ``int8_matmul``'s one path, ``ops.int8_matmul`` at
+   the kernel bench's shape, on the tensor-core entry;
 3. the Mission at full width: the ``targetfuse-space`` and
    ``targetfuse-ground`` counters (seeded random weights) on xview-like
-   traffic, every selection policy, with every kernel's launch count
-   from this run;
+   traffic, every selection policy, with every kernel's launch count by
+   entry and the dedup stage's time from this run (one seeding launch a
+   dedup, checked);
 4. CUDA against CPU: the same reduced-config Mission on the card
    (kernels) and on the CPU (plain versions), per-tile predictions equal;
 5. LM serving at full width: qwen3-8b (36 layers, d_model 4096, seeded
@@ -41,6 +44,7 @@ exits non-zero before that last line.
 """
 from __future__ import annotations
 
+import inspect
 import json
 import subprocess
 import sys
@@ -122,6 +126,7 @@ def kernel_cases(dev):
     main-path shape, the one the ``kernels`` line reports."""
     import torch
     import torch.nn.functional as F
+    from repro_torch import random as jrandom
     from repro_torch.kernels import (flash_attention, int8_matmul, iou, kmeans_assign, ref,
                                      tile_moments)
 
@@ -132,9 +137,36 @@ def kernel_cases(dev):
         t = torch.rand(shape, generator=g, device=dev)
         n, h, w, c = shape
         cases["tile_moments"].append(dict(
-            shape=str(shape), kernel=lambda t=t: tile_moments.tile_moments(t),
+            shape=str(shape), entry=(tile_moments.KERNEL, "tile_moments_f32"),
+            kernel=lambda t=t: tile_moments.tile_moments(t),
             plain=lambda t=t: ref.tile_moments(t), atol=1e-4,
             bytes=t.numel() * 4 + n * 3 * c * 4, flops=7 * t.numel()))
+    # the dedup's k-means++ seeding first (one launch of kmeanspp_seed_f32 a
+    # dedup): (n_pad, n, k, k_pad, D, distinct rows or None)
+    seed_entry = (kmeans_assign.KERNEL, "kmeanspp_seed_f32")
+    for n_pad, n, k, k_pad, d, distinct in [
+            (1024, 1024, 512, 512, 9, None),   # the main path's shape
+            (1024, 1000, 500, 512, 9, None),   # pad rows zeroed, as _dedup_core leaves them
+            (128, 128, 64, 64, 9, None),
+            (256, 250, 64, 64, 9, 20),          # 20 distinct rows: ties, then all d2 0
+            (8192, 8192, 256, 256, 9, None),    # past shared memory: rows from L2
+            (4096, 4000, 128, 128, 16, None)]:  # D 16 past shared memory: rows from L2
+        x = torch.randn((n_pad if distinct is None else distinct, d), generator=g, device=dev)
+        if distinct is not None:
+            x = x[torch.randint(0, distinct, (n_pad,), generator=g, device=dev)]
+        x[n:] = 0.0
+        x = x.contiguous()
+        first = jrandom.randint(SEED + n, n)
+        picks = min(k, k_pad) - 1
+        cases["kmeans_assign"].append(dict(
+            shape=f"kmeanspp_seed x({n_pad}, {d}) n {n} k {k} k_pad {k_pad}"
+                  + ("" if distinct is None else f" {distinct} distinct rows"),
+            entry=seed_entry, exact=True, chain=picks,
+            kernel=lambda x=x, a=(n, first, k, k_pad): kmeans_assign.kmeanspp_seed(x, *a),
+            plain=lambda x=x, a=(n, first, k, k_pad): ref.kmeanspp_seed(x, *a),
+            # x read once, the table and picks written once; a pick takes
+            # a dot, the distance, a min and a compare a row
+            bytes=n * d * 4 + k_pad * (d + 1) * 4, flops=picks * n * (2 * d + 6)))
     for n, k in [(1024, 512), (1024, 1), (1024, 64), (1000, 1), (1000, 64),
                  (1000, 512), (128, 1), (128, 64), (128, 512)]:
         x = torch.randn((n, 9), generator=g, device=dev)
@@ -144,7 +176,7 @@ def kernel_cases(dev):
             cent[-1] = x[3]          # an exact hit
         x[5] = x[3]
         cases["kmeans_assign"].append(dict(
-            shape=f"x({n}, 9) c({k}, 9)",
+            shape=f"x({n}, 9) c({k}, 9)", entry=(kmeans_assign.KERNEL, "kmeans_assign_f32"),
             kernel=lambda x=x, c=cent: kmeans_assign.kmeans_assign(x, c),
             plain=lambda x=x, c=cent: ref.kmeans_assign(x, c), atol=1e-4,
             bytes=(n + k) * 9 * 4 + n * 8, flops=2 * n * k * 9 + 3 * n * k))
@@ -158,7 +190,7 @@ def kernel_cases(dev):
             m = n
         bs = b or 1
         cases["iou_matrix"].append(dict(
-            shape=f"{tuple(a.shape)} x {tuple(bb.shape)}",
+            shape=f"{tuple(a.shape)} x {tuple(bb.shape)}", entry=(iou.KERNEL, "iou_matrix_f32"),
             kernel=lambda a=a, bb=bb: iou.iou_matrix(a, bb),
             plain=lambda a=a, bb=bb: ref.iou_matrix(a, bb), atol=1e-5,
             bytes=bs * (n + m) * 16 + bs * n * m * 4, flops=12 * bs * n * m))
@@ -193,7 +225,7 @@ def kernel_cases(dev):
         cases["flash_attention"].append(dict(
             shape=f"q{(b, sq, hq, d)} kv{(b, skv, hkv, d)} {str(dt)[6:]} causal={causal} "
                   f"route={route}",
-            symbol=flash_attention.SYMBOLS[route, dt],
+            entry=(flash_attention.KERNEL, flash_attention.SYMBOLS[route, dt]),
             kernel=lambda q=q, k=k, v=v, c=causal, r=route: flash_attention.flash_attention(
                 q, k, v, causal=c, route=r),
             plain=lambda q=q, k=k, v=v, c=causal: ref.attention(q, k, v, causal=c),
@@ -205,23 +237,29 @@ def kernel_cases(dev):
                                                               causal=c)),
             atol=tol, rtol=tol, bytes=2 * (q.numel() + k.numel()) * q.element_size(),
             flops=flops, rate=BF16_FLOPS if dt == bf16 else FP32_FLOPS))
-    # the kernel bench's shape first, then those of tests/test_kernels.py,
-    # then every product at +-127 * -127 over K 4096: |acc| = 66,064,384,
-    # past float32's 24-bit integers, so only an exact int32 sum agrees
-    extreme = (torch.full((3, 4096), -127, dtype=torch.int8, device=dev),
-               torch.full((4096, 2), -127, dtype=torch.int8, device=dev),
-               torch.ones(3, device=dev), torch.ones(2, device=dev))
-    extreme[0][1] = 127
-    extreme[1][::3, 1] = 126
-    for m, k, n in [(256, 512, 256), (128, 128, 128), (100, 200, 150), (256, 512, 384),
-                    (1, 64, 1), (3, 4096, 2)]:
-        args = extreme if k == 4096 else int8_args(g, dev, m, k, n)
+    # a qwen3-8b gate/up projection over one 4096-token prompt first, on
+    # both routes (the CUDA-core one forced), the kernel bench's shape on
+    # both, those of tests/test_kernels.py, a ragged M with K and N off
+    # the 128 tiles, then every product at +-127 * -127 over K 4096:
+    # |acc| = 66,064,384, past float32's 24-bit integers, so only an exact
+    # int32 sum agrees (N 2 on the CUDA cores, N 16 on the tensor cores)
+    tc8, cc8 = int8_matmul.TENSOR_CORE, int8_matmul.CUDA_CORE
+    for (m, k, n), route in [((4096, 4096, 12288), tc8), ((4096, 4096, 12288), cc8),
+                             ((256, 512, 256), tc8), ((256, 512, 256), cc8),
+                             ((128, 128, 128), tc8), ((100, 200, 150), cc8),
+                             ((256, 512, 384), tc8), ((100, 208, 144), tc8),
+                             ((1, 64, 1), cc8), ((3, 4096, 2), cc8), ((3, 4096, 16), tc8)]:
+        check(route == cc8 or int8_matmul.choose_route(m, k, n) == route,
+              f"int8 case {(m, k, n)}: not a {route} shape")
+        args = int8_extreme(dev, n) if k == 4096 and m == 3 else int8_args(g, dev, m, k, n)
         cases["int8_matmul"].append(dict(
-            shape=f"({m}, {k}) x ({k}, {n})",
-            kernel=lambda a=args: int8_matmul.int8_matmul(*a),
+            shape=f"({m}, {k}) x ({k}, {n}) route={route}",
+            entry=(int8_matmul.KERNEL, int8_matmul.SYMBOLS[route]),
+            kernel=lambda a=args, r=route: int8_matmul.int8_matmul(*a, route=r),
             plain=lambda a=args: ref.int8_matmul(*a),
             library=lambda a=args: torch._int_mm(a[0], a[1]), exact=True,
             bytes=m * k + k * n + 4 * (m + n) + 4 * m * n, flops=2 * m * k * n, rate=INT8_OPS))
+        del args
     return cases
 
 
@@ -241,13 +279,14 @@ def check_upcast(name, case, got):
 
 TC_ENTRY = "flash_tc_kernel"  # the tensor-core flash_attention kernels
 TC_SYMBOL = "flash_attention_bf16_sm90"  # and their C entry point
+INT8_TC_ENTRY = "int8_tc_kernel"  # the tensor-core int8_matmul kernel
 
 
 def ptxas_report(logs: dict):
     """Registers, spills and shared memory of every kernel entry, from
-    ptxas's report in this run's build. Fails if an entry of the
-    tensor-core ``flash_attention`` spills, or if ptxas serializes a
-    ``wgmma`` of it."""
+    ptxas's report in this run's build. Fails if a tensor-core entry of
+    ``flash_attention`` or ``int8_matmul`` spills, or if ptxas serializes
+    a ``wgmma``."""
     if "flash_attention" not in logs:
         print("ptxas: flash_attention was built by an earlier run, no report to check", flush=True)
     for name, log in logs.items():
@@ -260,13 +299,17 @@ def ptxas_report(logs: dict):
                 spill = line
             elif line.startswith("ptxas info") and ": Used " in line:
                 print(f"ptxas {name} {entry}: {line.split(': ', 1)[1]}; {spill}", flush=True)
-                if TC_ENTRY in entry:
+                if TC_ENTRY in entry or INT8_TC_ENTRY in entry:
                     check("0 bytes spill stores, 0 bytes spill loads" in spill,
                           f"ptxas: {entry} spills ({spill})")
             if "wgmma" in line and "serializ" in line:
                 fail(f"ptxas serializes wgmma: {line}")
+            if "warning" in line.lower():
+                print(f"ptxas {name} {entry}: {line}", flush=True)
     if "flash_attention" in logs:
         check(TC_ENTRY in logs["flash_attention"], "ptxas reported no tensor-core entry")
+    if "int8_matmul" in logs:
+        check(INT8_TC_ENTRY in logs["int8_matmul"], "ptxas reported no int8 tensor-core entry")
 
 
 def int8_args(g, dev, m, k, n):
@@ -277,9 +320,21 @@ def int8_args(g, dev, m, k, n):
             torch.rand(n, generator=g, device=dev) + 0.1)
 
 
+def int8_extreme(dev, n):
+    """(3, 4096) x (4096, n) at +-127 * -127: |acc| up to 66,064,384."""
+    import torch
+    x = torch.full((3, 4096), -127, dtype=torch.int8, device=dev)
+    w = torch.full((4096, n), -127, dtype=torch.int8, device=dev)
+    x[1] = 127
+    w[::3, 1] = 126
+    return x, w, torch.ones(3, device=dev), torch.ones(n, device=dev)
+
+
 LIBRARY_NOTE = {
     "tile_moments": "null: no one PyTorch call computes mean, stddev and cube-root skew",
-    "kmeans_assign": "null: torch.cdist gives the distances but not the argmin (two calls)",
+    "kmeans_assign": "null: no PyTorch call seeds k-means++ (the plain version is ~6 calls a "
+                     "pick); for kmeans_assign_f32, torch.cdist gives the distances but not "
+                     "the argmin",
     "iou_matrix": "null: no batched box IoU in PyTorch (torchvision's box_iou is 2-D and "
                   "not installed)",
     "flash_attention": "scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, D) "
@@ -290,27 +345,26 @@ LIBRARY_NOTE = {
 
 def phase_kernels(dev):
     import torch
-    from repro_torch.kernels import flash_attention
     rows = {}
     for name, cases in kernel_cases(dev).items():
         for i, case in enumerate(cases):
-            before = dict(flash_attention.KERNEL.symbol_launches)
+            lib, symbol = case["entry"]
+            before = dict(lib.symbol_launches)
             got, want = case["kernel"](), case["plain"]()
             torch.cuda.synchronize()
-            if "symbol" in case:
-                took = {k: n - before[k] for k, n in flash_attention.KERNEL.symbol_launches.items()
-                        if n != before[k]}
-                check(took == {case["symbol"]: 1},
-                      f"{name} {case['shape']}: launched {took}, not {case['symbol']}")
-            if name == "kmeans_assign":
+            took = {k: n - before[k] for k, n in lib.symbol_launches.items() if n != before[k]}
+            check(took == {symbol: 1}, f"{name} {case['shape']}: launched {took}, not {symbol}")
+            if case.get("exact"):
+                pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
+                err = max((g.double() - w.double()).abs().max().item() for g, w in pairs)
+                check(all(torch.equal(g, w) for g, w in pairs),
+                      f"{name} {case['shape']}: not bit-equal ({err})")
+            elif name == "kmeans_assign":
                 check(torch.equal(got[0], want[0]),
                       f"{name} {case['shape']}: assignments differ")
                 err = (got[1] - want[1]).abs().max().item()
                 check(torch.allclose(got[1], want[1], atol=case["atol"], rtol=1e-4),
                       f"{name} {case['shape']}: distances off by {err}")
-            elif case.get("exact"):
-                err = (got - want).abs().max().item()
-                check(torch.equal(got, want), f"{name} {case['shape']}: not bit-equal ({err})")
             else:
                 err = (got.float() - want.float()).abs().max().item()
                 check(torch.allclose(got.float(), want.float(), atol=case["atol"],
@@ -324,11 +378,14 @@ def phase_kernels(dev):
             plain_ms = cuda_ms(case["plain"], reps=5, warmup=1)
             b_ms, b_by = bound_ms(case["bytes"], case["flops"], case.get("rate", FP32_FLOPS))
             lib_ms = cuda_ms(case["library"], reps=20) if i == 0 and "library" in case else None
+            chain = "" if "chain" not in case else (
+                f" chain of {case['chain']} dependent block reductions, "
+                f"{1e3 * ms / max(case['chain'], 1):.4f} us a pick")
             print(f"kernel {name} {case['shape']}: max_abs_err {err:.3e} "
                   f"ms {ms:.4f} (with host launch {host_ms:.4f}) "
                   f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} "
                   f"({b_by}) share {b_ms / ms:.3f}"
-                  + ("" if lib_ms is None else f" library_ms {lib_ms:.4f}"), flush=True)
+                  + ("" if lib_ms is None else f" library_ms {lib_ms:.4f}") + chain, flush=True)
             if i == 0:
                 rows[name] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms)
@@ -340,7 +397,8 @@ def phase_kernels(dev):
 
 def int8_path(dev, kernel):
     """``int8_matmul``'s one path, as the reference's kernel bench drives
-    it: ``ops.int8_matmul`` at 256 x 512 x 256 -> launches in that run."""
+    it: ``ops.int8_matmul`` at 256 x 512 x 256, which the route rule sends
+    to the tensor cores -> launches in that run."""
     import torch
     from repro_torch.kernels import ops
     args = int8_args(torch.Generator(device=dev).manual_seed(SEED + 1), dev, 256, 512, 256)
@@ -348,8 +406,10 @@ def int8_path(dev, kernel):
     out = ops.int8_matmul(*args)
     torch.cuda.synchronize()
     check(out.shape == (256, 256) and bool(torch.isfinite(out).all()), "int8 path: bad output")
-    print(f"int8 path: ops.int8_matmul (256, 512) x (512, 256), {kernel.launches} launch",
-          flush=True)
+    check(kernel.symbol_launches == {"int8_matmul_s8_sm90": 1, "int8_matmul_s8": 0},
+          f"int8 path: launched {kernel.symbol_launches}, not the tensor-core entry once")
+    print(f"int8 path: ops.int8_matmul (256, 512) x (512, 256), {kernel.launches} launch, "
+          f"by entry {kernel.symbol_launches}", flush=True)
     return kernel.launches
 
 
@@ -409,6 +469,7 @@ def phase_full_width(dev, kernels):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
+    from repro_torch.core import dedup as dd
     from repro_torch.core import mission as M
     from repro_torch.core.pipeline import PipelineConfig
     from repro_torch.data.synthetic import DATASETS
@@ -429,8 +490,10 @@ def phase_full_width(dev, kernels):
     for k in kernels:
         k.reset()
     per_policy = {}
+    iters = inspect.signature(dd.dedup_from_moments).parameters["iters"].default
     for method in POLICIES:
         before = {k.name: k.launches for k in kernels}
+        before_entry = {s: n for k in kernels for s, n in k.symbol_launches.items()}
         torch.cuda.reset_peak_memory_stats()
         stages = {}
         m = M.Mission(space, ground, pcfg(method), device=dev,
@@ -443,19 +506,25 @@ def phase_full_width(dev, kernels):
         t2 = time.perf_counter()
         r = m.result()
         launches = {k.name: k.launches - before[k.name] for k in kernels}
+        entries = {s: n - before_entry[s] for k in kernels for s, n in k.symbol_launches.items()}
         check(r.tiles_total == n_tiles, f"{method}: {r.tiles_total} tiles")
+        # one seeding launch a dedup, then the Lloyd steps and the final
+        # assignment: no launch a k-means++ pick
+        check(entries["kmeans_assign_f32"] == (iters + 1) * entries["kmeanspp_seed_f32"],
+              f"{method}: kmeans_assign launches by entry {entries}")
         check(np.isfinite(r.per_tile_pred).all() and r.per_tile_pred.shape == (n_tiles,),
               f"{method}: bad predictions")
         per_policy[method] = dict(
             ingest_s=t1 - t0, contact_s=t2 - t1,
             tiles_per_s=n_tiles / (t2 - t0),
             max_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-            launches=launches, stages_s=stages, cmae=r.cmae,
+            launches=launches, launches_by_entry=entries,
+            dedup_s=stages.get("dedup", 0.0), stages_s=stages, cmae=r.cmae,
             total_pred=r.total_pred, total_true=r.total_true,
             processed=r.tiles_processed_space, downlinked=r.tiles_downlinked)
         print(f"mission {method}: " + json.dumps(per_policy[method]), flush=True)
-    tf = per_policy["targetfuse"]["launches"]
-    check(all(v > 0 for v in tf.values()), f"targetfuse missed a kernel: {tf}")
+    tf = per_policy["targetfuse"]["launches_by_entry"]
+    check(all(v > 0 for v in tf.values()), f"targetfuse missed a kernel entry: {tf}")
     check(per_policy["targetfuse"]["downlinked"] > 0, "targetfuse downlinked nothing")
     return {k.name: k.launches for k in kernels}
 

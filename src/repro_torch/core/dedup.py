@@ -3,10 +3,12 @@
 Counterpart of ``repro/core/dedup.py``: the color moments of the active
 tiles are normalized, clustered by masked k-means++ and Lloyd on
 power-of-two padded shapes, and the tile nearest each centroid stands
-for its cluster. Every distance goes through ``ops.kmeans_assign``: the
-CUDA kernel on the card, the plain version on the CPU. The first
-centroid is JAX's own draw (:func:`repro_torch.random.randint`), so the
-port picks the same one as the reference from the same seed.
+for its cluster. The k-means++ seeding is one call of
+``ops.kmeanspp_seed`` and every other distance goes through
+``ops.kmeans_assign``: the CUDA kernels on the card, the plain versions
+on the CPU. The first centroid is JAX's own draw
+(:func:`repro_torch.random.randint`), so the port picks the same one as
+the reference from the same seed.
 """
 from __future__ import annotations
 
@@ -20,7 +22,6 @@ from repro_torch.kernels import ops as kops
 
 _N_BUCKET = 64
 _K_BUCKET = 16
-_FAR = 1e15  # sentinel for unused centroid slots (d2 stays finite in f32)
 
 
 def bucket_size(v: int, floor: int = _N_BUCKET) -> int:
@@ -74,17 +75,8 @@ def _dedup_core(m_pad: torch.Tensor, n: int, k: int, seed: int, *,
     scale = torch.sqrt(var) + 1e-6
     x = torch.where(maskc, (m_pad - mu) / scale, 0.0)
 
-    # incremental k-means++ (greedy farthest point), one distance per pick
-    cents = x[jrandom.randint(seed, n)].repeat(k_pad, 1)
-    _, d2 = kops.kmeans_assign(x, cents[:1])
-    for i in range(1, min(k, k_pad)):
-        nxt = torch.argmax(torch.where(mask, d2, -torch.inf)).reshape(1)
-        c = x.index_select(0, nxt)
-        cents[i] = c[0]
-        _, d2n = kops.kmeans_assign(x, c)
-        d2 = torch.minimum(d2, d2n)
-    if k < k_pad:
-        cents[k:] = _FAR
+    # k-means++ seeding (greedy farthest point): one launch on the card
+    cents, _ = kops.kmeanspp_seed(x, n, jrandom.randint(seed, n), k, k_pad)
 
     # Lloyd iterations; pad rows carry weight 0
     for _ in range(iters):

@@ -1,28 +1,54 @@
-// Nearest-centroid assignment for k-means, for Hopper (sm_90a).
+// Nearest-centroid assignment and k-means++ seeding, for Hopper (sm_90a).
 //
 // Replaces the Pallas kernel repro/kernels/kmeans_assign.py
 // (kmeans_assign, _kernel): for x (N, D) and centroids c (K, D),
 // d2 = sum(x^2) - 2 x.c + sum(c^2); the argmin as int32 (first index on
-// ties) and max(min d2, 0).
+// ties) and max(min d2, 0). Two entries, one per caller in the dedup:
 //
-// Bound: at the dedup's shapes (D = 9, N <= 1024, K <= 512) the work is
-// a few MFLOP and a few tens of KB, far below a microsecond of either
-// rate, so the launch itself bounds it. The roofline counts
-// (N*D + K*D)*4 bytes read, N*8 written, and 2*N*K*D operations.
+// kmeans_assign_f32: the Lloyd steps and the final assignment (K =
+// k_pad). Bound: at the dedup's shapes (D = 9, N <= 1024, K <= 512) a
+// few MFLOP and a few tens of KB, far below a microsecond of either
+// rate; the roofline counts (N*D + K*D)*4 bytes read, N*8 written, and
+// 2*N*K*D operations. Design: one thread per row of x, its row in
+// registers. The centroid table and each centroid's sum of squares sit
+// in shared memory, loaded in chunks when K*D is large; every thread of a
+// warp reads the same centroid word at once (a broadcast). fp32 on the
+// CUDA cores: D = 9 is too thin for the tensor cores, and TF32 would move
+// assignments. The distance is evaluated as the reference writes it,
+// x2 - 2*dot + c2, with the last three roundings pinned by
+// __fmul_rn/__fsub_rn/__fadd_rn so the compiler cannot contract them;
+// (x - c)^2 would round differently and move argmins on near-ties. A
+// strict < keeps the first index.
 //
-// Design: one thread per row of x, its row in registers. The centroid
-// table and each centroid's sum of squares sit in shared memory, loaded
-// in chunks when K*D is large; every thread of a warp reads the same
-// centroid word at once (a broadcast). fp32 on the CUDA cores: D = 9 is
-// too thin for the tensor cores, and TF32 would move assignments. The
-// distance is evaluated as the reference writes it, x2 - 2*dot + c2, with
-// the last three roundings pinned by __fmul_rn/__fsub_rn/__fadd_rn so
-// the compiler cannot contract them; (x - c)^2 would round differently
-// and move argmins on near-ties. A strict < keeps the first index.
+// kmeanspp_seed_f32: the whole k-means++ seeding of one dedup lane,
+// where the reference (repro/core/dedup.py, _dedup_core_body) scans
+// k - 1 greedy farthest-point picks, each a one-centroid kmeans_assign,
+// an argmax and a min. Bound: a chain of k - 1 dependent block-wide
+// reductions, each a few hundred nanoseconds of latency; the bytes (x
+// once, the table once) and operations (~3*N*D a pick) are microseconds.
+// Design: one block, the loop of picks inside it, as a TPU's sequential
+// scan becomes a loop inside one block. x and each row's sum of squares
+// stay in shared memory for the whole seeding (N * (D + 1) * 4 bytes: 40
+// KB at the dedup's N 1024, D 9); up to 512 threads, each with the running
+// d2 of its (at most 16) rows in registers. A pick: every thread updates
+// d2 = min(d2, max(x2 - 2*dot + c2, 0)) with the same arithmetic as
+// kmeans_assign_kernel and keeps its best (d2, row) with a strict >; a
+// warp takes the largest d2 and then the lowest row holding it
+// (__reduce_max_sync on the bits of a non-negative float, then
+// __reduce_min_sync), so ties go to the first index, as torch.argmax and
+// jnp.argmax; after one __syncthreads every warp reduces the warps'
+// results the same way (double-buffered, so one barrier a pick), and the
+// winner's row is the next centroid, with c2 its own sum of squares. Rows
+// past n never win. Centroids are copies of rows of x, so the table
+// equals the plain version's bit for bit. When x does not fit (more than
+// 16 rows a thread, or more shared memory than a block may hold), a block
+// of 1024 threads reads the rows from L2 each pick and keeps d2 in a
+// scratch buffer of its own.
 #include <cuda_runtime.h>
 #include <math.h>
 
 #include <algorithm>
+#include <climits>
 
 namespace {
 
@@ -96,6 +122,158 @@ int launch(const float* x, const float* c, int* assign, float* dist, int n,
   return (int)cudaGetLastError();
 }
 
+
+// ---------------------------------------------------------------------------
+// k-means++ seeding (kmeanspp_seed_f32)
+// ---------------------------------------------------------------------------
+
+constexpr float kFar = 1e15f;              // unused slots, as ref.FAR
+constexpr int kSeedThreads = 512;      // x in shared memory: at most 16 rows a thread
+constexpr int kSeedL2Threads = 1024;   // x from L2
+constexpr int kSeedMaxRows = 16;       // rows a thread holds in registers
+constexpr int kSeedMaxD = 16;
+constexpr size_t kSeedSmemMax = 232448 - 1024;  // opt-in limit, less static smem
+
+// The first row of the block's largest d2 (d2 >= 0), returned to every
+// thread. Each thread passes its best (d2, row), or row INT_MAX if it has
+// none. A non-negative float orders as its bits do, so a warp takes the
+// largest bits and then the smallest row among the lanes that hold them
+// (__reduce_max_sync, __reduce_min_sync); after one barrier every warp
+// does the same over the warps' results. The results alternate between
+// two buffers by `parity`, so the next pick's writes cannot meet this
+// pick's reads, and one barrier a pick is enough.
+__device__ __forceinline__ int block_argmax(float v, int i, int parity) {
+  __shared__ unsigned red_v[2][32];
+  __shared__ int red_i[2][32];
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  unsigned vb = i == INT_MAX ? 0u : (__float_as_uint(v) & 0x7fffffffu);  // -0 as +0
+  unsigned top = __reduce_max_sync(0xffffffffu, vb);
+  i = __reduce_min_sync(0xffffffffu, vb == top ? i : INT_MAX);
+  if (lane == 0) {
+    red_v[parity][warp] = top;
+    red_i[parity][warp] = i;
+  }
+  __syncthreads();
+  const bool have = lane < (int)(blockDim.x / 32);
+  vb = have ? red_v[parity][lane] : 0u;
+  i = have ? red_i[parity][lane] : INT_MAX;
+  top = __reduce_max_sync(0xffffffffu, vb);
+  return __reduce_min_sync(0xffffffffu, vb == top ? i : INT_MAX);
+}
+
+// fills the slots past min(k, k_pad) -> the number of picks
+__device__ __forceinline__ int seed_tail(float* cents, int* picks, int d, int k, int k_pad) {
+  const int kk = max(0, min(k, k_pad));
+  for (int i = threadIdx.x; i < (k_pad - kk) * d; i += blockDim.x)
+    cents[(long long)kk * d + i] = kFar;
+  for (int i = kk + threadIdx.x; i < k_pad; i += blockDim.x) picks[i] = -1;
+  return kk;
+}
+
+// sum of squares of a row, as kmeans_assign_kernel's x2 and c2
+template <int MAXD>
+__device__ __forceinline__ float row_x2(const float* r, int d) {
+  float s = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXD; ++j)
+    if (j < d) s = fmaf(r[j], r[j], s);
+  return s;
+}
+
+// max(x2 - 2*dot + c2, 0), the one-centroid kmeans_assign distance
+template <int MAXD>
+__device__ __forceinline__ float one_d2(const float* r, float x2, const float (&c)[MAXD],
+                                        float c2, int d) {
+  float dot = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXD; ++j)
+    if (j < d) dot = fmaf(r[j], c[j], dot);
+  return fmaxf(__fadd_rn(__fsub_rn(x2, __fmul_rn(2.f, dot)), c2), 0.f);
+}
+
+// x in shared memory, R rows a thread (tid + r * blockDim.x) with their
+// running d2 in registers
+template <int R>
+__global__ void __launch_bounds__(kSeedThreads)
+kmeanspp_smem_kernel(const float* __restrict__ x, float* __restrict__ cents,
+                     int* __restrict__ picks, int n, int d, int first, int k, int k_pad) {
+  extern __shared__ float smem[];
+  float* xs = smem;          // (n, d)
+  float* x2s = smem + n * d;  // (n,)
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int kk = seed_tail(cents, picks, d, k, k_pad);
+  if (kk == 0) return;
+  for (int i = tid; i < n * d; i += nt) xs[i] = x[i];
+  __syncthreads();
+  for (int r = tid; r < n; r += nt) x2s[r] = row_x2<kSeedMaxD>(xs + r * d, d);
+  __syncthreads();
+
+  float d2[R];
+#pragma unroll
+  for (int r = 0; r < R; ++r) d2[r] = INFINITY;
+  int nxt = first;
+  for (int i = 0;; ++i) {
+    if (tid < d) cents[(long long)i * d + tid] = xs[nxt * d + tid];
+    if (tid == 0) picks[i] = nxt;
+    if (i + 1 >= kk) break;
+    float c[kSeedMaxD];
+#pragma unroll
+    for (int j = 0; j < kSeedMaxD; ++j) c[j] = j < d ? xs[nxt * d + j] : 0.f;
+    const float c2 = x2s[nxt];
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+#pragma unroll
+    for (int r = 0; r < R; ++r) {
+      const int row = tid + r * nt;
+      if (row < n) {
+        d2[r] = fminf(d2[r], one_d2<kSeedMaxD>(xs + row * d, x2s[row], c, c2, d));
+        if (d2[r] > bv) {
+          bv = d2[r];
+          bi = row;
+        }
+      }
+    }
+    nxt = block_argmax(bv, bi, i & 1);
+  }
+}
+
+// x read from L2 each pick, d2 in the scratch buffer (each thread reads
+// and writes only its own rows)
+__global__ void __launch_bounds__(kSeedL2Threads)
+kmeanspp_l2_kernel(const float* __restrict__ x, float* __restrict__ cents,
+                   int* __restrict__ picks, float* __restrict__ d2g, int n, int d, int first,
+                   int k, int k_pad) {
+  const int tid = threadIdx.x, nt = blockDim.x;
+  const int kk = seed_tail(cents, picks, d, k, k_pad);
+  if (kk == 0) return;
+  for (int r = tid; r < n; r += nt) d2g[r] = INFINITY;
+  int nxt = first;
+  for (int i = 0;; ++i) {
+    const float* xc = x + (long long)nxt * d;
+    if (tid < d) cents[(long long)i * d + tid] = xc[tid];
+    if (tid == 0) picks[i] = nxt;
+    if (i + 1 >= kk) break;
+    float c[kSeedMaxD];
+#pragma unroll
+    for (int j = 0; j < kSeedMaxD; ++j) c[j] = j < d ? __ldg(xc + j) : 0.f;
+    const float c2 = row_x2<kSeedMaxD>(c, d);
+    float bv = -INFINITY;
+    int bi = INT_MAX;
+    for (int row = tid; row < n; row += nt) {
+      float xr[kSeedMaxD];
+#pragma unroll
+      for (int j = 0; j < kSeedMaxD; ++j) xr[j] = j < d ? __ldg(x + (long long)row * d + j) : 0.f;
+      const float v = fminf(d2g[row], one_d2<kSeedMaxD>(xr, row_x2<kSeedMaxD>(xr, d), c, c2, d));
+      d2g[row] = v;
+      if (v > bv) {
+        bv = v;
+        bi = row;
+      }
+    }
+    nxt = block_argmax(bv, bi, i & 1);
+  }
+}
+
 }  // namespace
 
 // x: (n, d) float32, c: (k, d) float32, both contiguous; assign: (n,) int32;
@@ -110,4 +288,39 @@ extern "C" int kmeans_assign_f32(const void* x, const void* c, void* assign,
   if (d <= 16) return launch<16, 256>(xf, cf, (int*)assign, (float*)dist, n, k, d, s);
   if (d <= 128) return launch<128, 128>(xf, cf, (int*)assign, (float*)dist, n, k, d, s);
   return (int)cudaErrorInvalidValue;
+}
+
+// x: (n_pad, d) float32 contiguous with the real rows in [:n]; cents:
+// (k_pad, d) float32; picks: (k_pad,) int32; scratch: (n,) float32, used
+// only when x does not fit in shared memory. Requires 1 <= n, 1 <= d <=
+// 16, 0 <= first < n, k_pad >= 0. One block. Returns cudaGetLastError()
+// (or cudaErrorInvalidValue for arguments it refuses).
+extern "C" int kmeanspp_seed_f32(const void* x, void* cents, void* picks, void* scratch, int n,
+                                 int d, int first, int k, int k_pad, void* stream) {
+  if (n < 1 || d < 1 || d > kSeedMaxD || first < 0 || first >= n || k_pad < 0)
+    return (int)cudaErrorInvalidValue;
+  if (k_pad == 0) return (int)cudaGetLastError();
+  const float* xf = (const float*)x;
+  float* cf = (float*)cents;
+  int* pi = (int*)picks;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int threads = std::min(kSeedThreads, (n + 31) / 32 * 32);
+  const int rows = (n + threads - 1) / threads;
+  const size_t smem = (size_t)n * (d + 1) * sizeof(float);
+  if (rows <= kSeedMaxRows && smem <= kSeedSmemMax) {
+    void (*kernel)(const float*, float*, int*, int, int, int, int, int) =
+        rows == 1   ? kmeanspp_smem_kernel<1>
+        : rows == 2 ? kmeanspp_smem_kernel<2>
+        : rows <= 4 ? kmeanspp_smem_kernel<4>
+        : rows <= 8 ? kmeanspp_smem_kernel<8>
+                    : kmeanspp_smem_kernel<16>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<1, threads, smem, s>>>(xf, cf, pi, n, d, first, k, k_pad);
+  } else {
+    kmeanspp_l2_kernel<<<1, kSeedL2Threads, 0, s>>>(xf, cf, pi, (float*)scratch, n, d, first, k,
+                                                  k_pad);
+  }
+  return (int)cudaGetLastError();
 }

@@ -2,10 +2,23 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain PyTorch version in :mod:`ref`. There is
-no switch and no fallback: the device of the data decides. Unlike the
-reference's dispatch, no shape falls back either: ``attention`` sends
-every CUDA tensor to the kernel, which takes ragged lengths and any head
-dim up to 256 (see :mod:`repro_torch.kernels.flash_attention`).
+no switch and no fallback: the device of the data decides. Two kernels
+have two entries in their one source:
+
+- ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``kmeans_assign`` runs
+  the dedup's Lloyd steps and final assignment (``kmeans_assign_f32``);
+  ``kmeanspp_seed`` runs its whole k-means++ seeding in one launch
+  (``kmeanspp_seed_f32``). The seeding kernel holds a row's features in
+  a fixed register array of 16 and raises above that: the dedup's D is
+  3C = 9, and no caller has more.
+- ``int8_matmul`` (``csrc/int8_matmul.cu``): the s8 tensor cores where
+  K and N are multiples of 16, dp4a on the CUDA cores otherwise (the
+  rule is :func:`repro_torch.kernels.int8_matmul.choose_route`).
+
+Unlike the reference's dispatch, no shape falls back either:
+``attention`` sends every CUDA tensor to the kernel, which takes ragged
+lengths and any head dim up to 256 (see
+:mod:`repro_torch.kernels.flash_attention`).
 """
 from __future__ import annotations
 
@@ -39,6 +52,14 @@ def kmeans_assign(x, centroids):
     if _on_cuda(x):
         return _kmeans.kmeans_assign(x, centroids)
     return ref.kmeans_assign(x, centroids)
+
+
+def kmeanspp_seed(x, n, first, k, k_pad):
+    """The dedup's k-means++ seeding -> (centroids (k_pad, D), picks
+    (k_pad,) int32); see :func:`ref.kmeanspp_seed`."""
+    if _on_cuda(x):
+        return _kmeans.kmeanspp_seed(x, n, first, k, k_pad)
+    return ref.kmeanspp_seed(x, n, first, k, k_pad)
 
 
 def iou_matrix(a, b):

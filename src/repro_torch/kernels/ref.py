@@ -102,6 +102,37 @@ def kmeans_assign(x: torch.Tensor, centroids: torch.Tensor):
     return a.to(torch.int32), torch.clamp(mn, min=0.0)
 
 
+FAR = 1e15  # unused centroid slots of the seeding (d2 stays finite in f32)
+
+
+def kmeanspp_seed(x: torch.Tensor, n: int, first: int, k: int, k_pad: int):
+    """Greedy farthest-point k-means++ seeding of one dedup lane.
+
+    x (n_pad, D) float32 with the real rows in [:n]; ``first`` the first
+    pick (< n). Pick i >= 1 is the argmax, first index on ties, over the
+    real rows of the running ``d2 = min(d2, kmeans_assign(x, c_{i-1}))``.
+    -> (centroids (k_pad, D) with rows past k set to :data:`FAR`, picked
+    row indices (k_pad,) int32, -1 past k).
+    """
+    n_pad = x.shape[0]
+    mask = torch.arange(n_pad, device=x.device) < n
+    cents = x[first].repeat(k_pad, 1)
+    picks = torch.full((k_pad,), -1, dtype=torch.int32, device=x.device)
+    if k >= 1 and k_pad >= 1:
+        picks[0] = first
+    _, d2 = kmeans_assign(x, x[first:first + 1])
+    for i in range(1, min(k, k_pad)):
+        nxt = torch.argmax(torch.where(mask, d2, -torch.inf)).reshape(1)
+        c = x.index_select(0, nxt)
+        cents[i] = c[0]
+        picks[i] = nxt[0]
+        _, d2n = kmeans_assign(x, c)
+        d2 = torch.minimum(d2, d2n)
+    if k < k_pad:
+        cents[max(k, 0):] = FAR
+    return cents, picks
+
+
 def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     """xyxy boxes (..., N, 4), (..., M, 4) -> IoU (..., N, M) float32,
     with box areas clamped at 0 and the union at 1e-9. A leading batch
