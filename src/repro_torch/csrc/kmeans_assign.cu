@@ -9,16 +9,37 @@
 // k_pad). Bound: at the dedup's shapes (D = 9, N <= 1024, K <= 512) a
 // few MFLOP and a few tens of KB, far below a microsecond of either
 // rate; the roofline counts (N*D + K*D)*4 bytes read, N*8 written, and
-// 2*N*K*D operations. Design: one thread per row of x, its row in
-// registers. The centroid table and each centroid's sum of squares sit
-// in shared memory, loaded in chunks when K*D is large; every thread of a
-// warp reads the same centroid word at once (a broadcast). fp32 on the
-// CUDA cores: D = 9 is too thin for the tensor cores, and TF32 would move
-// assignments. The distance is evaluated as the reference writes it,
-// x2 - 2*dot + c2, with the last three roundings pinned by
+// 2*N*K*D operations. What is left is latency: the launch, loading the
+// table, and each centroid's chain of D dependent FMAs. Design: one warp
+// per row of x, eight rows a block (1024 rows: 128 blocks, about one a
+// SM), the row in every lane's registers. The centroid table and each
+// centroid's sum of squares sit in shared memory, loaded in chunks when
+// K*D is large (by cp.async, so a chunk's loads are all in flight at
+// once: loaded one a loop turn, each cost a memory latency, ~0.3 us a
+// turn on an H100), rows padded to an odd stride so the 32 lanes reading 32
+// centroids hit 32 banks. Lane l takes centroids l, l + 32, l + 64, ...
+// (16 each at K 512, so the 16 FMA chains of a lane overlap) and keeps
+// its best (d2, index) with a strict <, as the sequential scan does over
+// all K. The warp then takes the lexicographic minimum of (d2 under the
+// float <, index) with __shfl_xor_sync. Why that is the sequential
+// first-index scan: the scan (best = +inf, replace on d2 < best) ends at
+// the lowest index of the least class of d2, where two values are in one
+// class when neither is < the other (equal values, and -0 with +0); a NaN
+// is never < anything and is never taken. A lane's scan over its own
+// centroids, in increasing index, ends at the lowest index of its least
+// class, or at (+inf, none) if it took nothing. Taking the least class
+// and then the lowest index is associative and commutative over such
+// pairs (without NaN, "neither is <" is an equivalence), so the butterfly
+// gives every lane the least class over all K and its lowest index: the
+// sequential result, with the d2 of that index, bit for bit (-0 or +0 as
+// it was, negative values from rounding included). If no lane took any
+// centroid (every d2 NaN or +inf) the index is 0, as the scan's initial
+// one. fp32 on the CUDA cores: D = 9 is too thin for the tensor cores,
+// and TF32 would move assignments. The distance is evaluated as the
+// reference writes it, x2 - 2*dot + c2, each sum a chain of fmaf in index
+// order, with the last three roundings pinned by
 // __fmul_rn/__fsub_rn/__fadd_rn so the compiler cannot contract them;
-// (x - c)^2 would round differently and move argmins on near-ties. A
-// strict < keeps the first index.
+// (x - c)^2 would round differently and move argmins on near-ties.
 //
 // kmeanspp_seed_f32: the whole k-means++ seeding of one dedup lane,
 // where the reference (repro/core/dedup.py, _dedup_core_body) scans
@@ -44,6 +65,7 @@
 // 16 rows a thread, or more shared memory than a block may hold), a block
 // of 1024 threads reads the rows from L2 each pick and keeps d2 in a
 // scratch buffer of its own.
+#include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
 
@@ -53,18 +75,19 @@
 namespace {
 
 constexpr int kChunkFloats = 8192;  // 32 KB of centroids (+ norms) per chunk
+constexpr int kAssignWarps = 8;     // rows a block, one a warp
 
 template <int MAXD>
-__global__ void kmeans_assign_kernel(const float* __restrict__ x,
-                                     const float* __restrict__ c,
-                                     int* __restrict__ assign,
-                                     float* __restrict__ dist,
-                                     int n, int k, int d, int kc) {
+__global__ void __launch_bounds__(kAssignWarps * 32)
+kmeans_assign_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                     int* __restrict__ assign, float* __restrict__ dist, int n, int k,
+                     int d, int ld, int kc) {
   extern __shared__ float smem[];
-  float* cs = smem;            // (kc, d) centroids of this chunk
-  float* c2s = smem + kc * d;  // (kc,) their sums of squares
-  const int row = blockIdx.x * blockDim.x + threadIdx.x;
-  const bool live = row < n;
+  float* cs = smem;             // (kc, ld) centroids of this chunk, ld = d | 1
+  float* c2s = smem + kc * ld;  // (kc,) their sums of squares
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kAssignWarps + threadIdx.x / 32;
+  const bool live = row < n;  // the same for the whole warp
 
   float xr[MAXD];
   float x2 = 0.f;
@@ -75,23 +98,27 @@ __global__ void kmeans_assign_kernel(const float* __restrict__ x,
   }
 
   float best = INFINITY;
-  int best_j = 0;
+  int best_j = INT_MAX;  // none yet
   for (int k0 = 0; k0 < k; k0 += kc) {
     const int rows = min(kc, k - k0);
     __syncthreads();  // the previous chunk is no longer read
+    // cp.async: every load of the chunk in flight at once, not one a loop turn
     for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
-      cs[i] = c[(long long)k0 * d + i];
+      __pipeline_memcpy_async(cs + (i / d) * ld + i % d, c + (long long)k0 * d + i,
+                              sizeof(float));
     }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
     __syncthreads();
     for (int i = threadIdx.x; i < rows; i += blockDim.x) {
       float s = 0.f;
-      for (int j = 0; j < d; ++j) s = fmaf(cs[i * d + j], cs[i * d + j], s);
+      for (int j = 0; j < d; ++j) s = fmaf(cs[i * ld + j], cs[i * ld + j], s);
       c2s[i] = s;
     }
     __syncthreads();
     if (live) {
-      for (int i = 0; i < rows; ++i) {
-        const float* ci = cs + i * d;
+      for (int i = lane; i < rows; i += 32) {
+        const float* ci = cs + i * ld;
         float dot = 0.f;
 #pragma unroll
         for (int j = 0; j < MAXD; ++j) {
@@ -105,20 +132,31 @@ __global__ void kmeans_assign_kernel(const float* __restrict__ x,
       }
     }
   }
-  if (live) {
-    assign[row] = best_j;
+  // the least (d2, index): the lower index where neither d2 is < the other
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, best_j, off);
+    if (ov < best || (!(best < ov) && oj < best_j)) {
+      best = ov;
+      best_j = oj;
+    }
+  }
+  if (live && lane == 0) {
+    assign[row] = best_j == INT_MAX ? 0 : best_j;
     dist[row] = fmaxf(best, 0.f);
   }
 }
 
-template <int MAXD, int THREADS>
+template <int MAXD>
 int launch(const float* x, const float* c, int* assign, float* dist, int n,
            int k, int d, cudaStream_t stream) {
-  const int kc = std::max(1, std::min(k, kChunkFloats / (d + 1)));
-  const size_t smem = (size_t)kc * (d + 1) * sizeof(float);
-  const int blocks = (n + THREADS - 1) / THREADS;
-  kmeans_assign_kernel<MAXD><<<blocks, THREADS, smem, stream>>>(
-      x, c, assign, dist, n, k, d, kc);
+  const int ld = d | 1;  // an odd stride: 32 lanes on 32 centroids hit 32 banks
+  const int kc = std::max(1, std::min(k, kChunkFloats / (ld + 1)));
+  const size_t smem = (size_t)kc * (ld + 1) * sizeof(float);
+  const int blocks = (n + kAssignWarps - 1) / kAssignWarps;
+  kmeans_assign_kernel<MAXD><<<blocks, kAssignWarps * 32, smem, stream>>>(
+      x, c, assign, dist, n, k, d, ld, kc);
   return (int)cudaGetLastError();
 }
 
@@ -285,8 +323,8 @@ extern "C" int kmeans_assign_f32(const void* x, const void* c, void* assign,
   const float* xf = (const float*)x;
   const float* cf = (const float*)c;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d <= 16) return launch<16, 256>(xf, cf, (int*)assign, (float*)dist, n, k, d, s);
-  if (d <= 128) return launch<128, 128>(xf, cf, (int*)assign, (float*)dist, n, k, d, s);
+  if (d <= 16) return launch<16>(xf, cf, (int*)assign, (float*)dist, n, k, d, s);
+  if (d <= 128) return launch<128>(xf, cf, (int*)assign, (float*)dist, n, k, d, s);
   return (int)cudaErrorInvalidValue;
 }
 

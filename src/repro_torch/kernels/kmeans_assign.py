@@ -6,9 +6,11 @@ holds two entries, each with its caller:
 
 - ``kmeans_assign_f32`` (:func:`kmeans_assign`): nearest centroid of
   every row, for the dedup's Lloyd steps and its final assignment
-  (K = k_pad centroids). One thread per row, the centroid table in
-  shared memory; the roofline counts (N + K)·D·4 bytes read, N·8
-  written and 2·N·K·D operations.
+  (K = k_pad centroids). One warp per row, its lanes splitting the K
+  centroids, the centroid table in shared memory; each lane keeps its
+  first best (d2, index) and the warp takes their lexicographic minimum
+  with shuffles, which is the sequential first-index scan. The roofline
+  counts (N + K)·D·4 bytes read, N·8 written and 2·N·K·D operations.
 - ``kmeanspp_seed_f32`` (:func:`kmeanspp_seed`): the dedup's whole
   k-means++ seeding in one launch, where the reference scans k - 1
   greedy farthest-point picks, each a one-centroid ``kmeans_assign``.

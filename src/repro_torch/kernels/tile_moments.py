@@ -3,9 +3,15 @@
 Replaces the Pallas kernel ``repro/kernels/tile_moments.py``
 (``tile_moments`` / ``_kernel``). Memory-bound: the least time is the
 input's N·H·W·C·4 bytes over the card's memory rate. The kernel reads
-each element once, one block per tile, keeping shifted power sums in
-double (see ``csrc/tile_moments.cu``). It takes CUDA tensors only; the
-plain version is ``ref.tile_moments`` and ``ops`` picks between them.
+each element once with 16-byte loads, keeping shifted power sums in
+double; each tile is split across a thread-block cluster of up to 8
+CTAs (as many as fit the call on the card in one wave while each thread
+keeps a whole batch of loads), each CTA's sums are added with warp
+shuffles (through shared memory for C > 4), and the cluster's leader
+adds the CTAs' through distributed shared memory (see
+``csrc/tile_moments.cu``). One launch a call. It takes CUDA tensors
+only; the plain version is ``ref.tile_moments`` and ``ops`` picks
+between them.
 """
 from __future__ import annotations
 
