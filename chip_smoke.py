@@ -20,7 +20,11 @@ nothing of JAX or of the reference package ``repro``. Phases:
    k-means++ seeding gives the plain version's centroids and picks, and
    ``kmeans_assign_f32`` its assignments and distances bit for bit;
    ``tile_moments`` runs at C 1, 3, 5 and 64, ragged and misaligned
-   tiles, constant and offset data, and every cluster size),
+   tiles, constant and offset data, and every cluster size; the NMS
+   entry ``nms_keep_f32`` gives the plain loop's keep masks bit for bit
+   at a counter chunk's shape, unbatched, N < 128, k 1000, all boxes but
+   one suppressed, none above the score threshold and a NaN box, and
+   ``iou_matrix_f32`` the plain IoU bit for bit, NaN boxes included),
    timed with CUDA events beside the plain version, the least time the
    card could take (``bound_ms``) and, where one PyTorch call computes
    the same function, that call (``library_ms``, a yardstick the port
@@ -30,9 +34,12 @@ nothing of JAX or of the reference package ``repro``. Phases:
    ``targetfuse-ground`` counters (seeded random weights) on xview-like
    traffic, every selection policy, with every kernel's launch count by
    entry, the dedup stage's time from this run (one seeding launch a
-   dedup, checked) and the device time of the capture stage's
-   ``tile_moments`` calls (CUDA events the script records around
-   ``ops.tile_moments``);
+   dedup, checked; one ``nms_keep_f32`` launch a counter chunk and no
+   ``iou_matrix_f32``, checked), the device time of the capture stage's
+   ``tile_moments`` calls and, in each counting stage, of its counter
+   chunks and their NMS (CUDA events the script records around
+   ``ops.tile_moments``, ``cascade.count_tiles`` and
+   ``detector.nms_keep``);
 4. CUDA against CPU: the same reduced-config Mission on the card
    (kernels) and on the CPU (plain versions), per-tile predictions equal;
 5. LM serving at full width: qwen3-8b (36 layers, d_model 4096, seeded
@@ -106,6 +113,37 @@ TILE_MOMENTS_CASES = [
 KMEANS_CASES = [(1024, 512, 9), (1024, 1, 9), (1024, 64, 9), (1000, 1, 9), (1000, 64, 9),
                 (1000, 512, 9), (128, 1, 9), (128, 64, 9), (128, 512, 9), (1024, 33, 9),
                 (300, 1000, 9), (1000, 45, 16), (256, 100, 128)]
+# phase 2's nms_keep_f32 cases, (case, B or None for unbatched (N, 4)
+# boxes, N, max_det); the first is a counter chunk's: 64 tiles of 13 x 13
+# cells x 3 anchors at 416 px, k = 128, the Mission's thresholds
+NMS_CASES = [("main", 64, 507, 128), ("unbatched", None, 507, 128), ("n_37", 64, 37, 128),
+             ("all_suppressed", 64, 507, 128), ("none_above", 64, 507, 128),
+             ("nan_box", 64, 507, 128), ("k_1000", 4, 1000, 1000)]
+NMS_IOU, NMS_SCORE = 0.25, 0.25  # count_tiles_batched's nms_iou, phase 3's score_thresh
+
+
+def nms_args(g, dev, case, b, n):
+    """(boxes (B, N, 4) or (N, 4), scores) on the card for an NMS_CASES
+    row, shaped like the counters' decode: centres across a 416 px tile,
+    sides up to 4 cells of 32 px, scores in [0, 0.6)."""
+    import torch
+    lead = (1 if b is None else b, n)
+    c = torch.rand((*lead, 2), generator=g, device=dev) * 416
+    wh = torch.rand((*lead, 2), generator=g, device=dev) * (48 if case == "k_1000" else 128)
+    boxes = torch.cat([c - wh / 2, c + wh / 2], -1)
+    scores = torch.rand(lead, generator=g, device=dev) * 0.6
+    if case == "all_suppressed":     # every box the same: one kept an image
+        boxes[:] = boxes[:, :1].clone()
+        scores += 0.3
+    elif case == "none_above":
+        scores *= 0.4
+    elif case == "nan_box":          # among the first candidates: suppresses nothing
+        boxes[:, 5] = torch.tensor([float("nan"), 10, 200, 300], device=dev)
+        boxes[:, 6, 3] = float("nan")
+        scores[:, 5:7] = 0.59
+    if b is None:
+        boxes, scores = boxes[0], scores[0]
+    return boxes.contiguous(), scores.contiguous()
 
 
 def moment_tiles(g, dev, shape, data):
@@ -136,6 +174,15 @@ def kmeans_args(g, dev, n, k, d):
     x[5] = x[3]
     x[7] = -0.0
     return x, cent
+
+
+def bit_equal(got, want) -> bool:
+    """Equal in every element, NaN where the other has NaN."""
+    import torch
+    if not got.is_floating_point():
+        return torch.equal(got, want)
+    nan = torch.isnan(got)
+    return torch.equal(nan, torch.isnan(want)) and torch.equal(got[~nan], want[~nan])
 
 
 def fail(msg: str):
@@ -222,7 +269,7 @@ def kernel_cases(dev):
         cases["kmeans_assign"].append(dict(
             shape=f"kmeanspp_seed x({n_pad}, {d}) n {n} k {k} k_pad {k_pad}"
                   + ("" if distinct is None else f" {distinct} distinct rows"),
-            entry=seed_entry, exact=True, chain=picks,
+            entry=seed_entry, exact=True, chain=(picks, "dependent block reductions"),
             kernel=lambda x=x, a=(n, first, k, k_pad): kmeans_assign.kmeanspp_seed(x, *a),
             plain=lambda x=x, a=(n, first, k, k_pad): ref.kmeanspp_seed(x, *a),
             # x read once, the table and picks written once; a pick takes
@@ -235,19 +282,42 @@ def kernel_cases(dev):
             kernel=lambda x=x, c=cent: kmeans_assign.kmeans_assign(x, c),
             plain=lambda x=x, c=cent: ref.kmeans_assign(x, c), exact=True,
             bytes=(n + k) * d * 4 + n * 8, flops=2 * n * k * d + 3 * n * k))
-    for b, n, m in [(64, 128, 128), (None, 200, 300)]:
+    # the counter chunk's NMS first (one nms_keep_f32 launch a chunk), on
+    # the sort's top k as detector.nms_keep gives them; then iou_matrix_f32
+    # at its earlier main shape, a ragged unbatched one and NaN boxes
+    for case, b, n, max_det in NMS_CASES:
+        boxes, scores = nms_args(g, dev, case, b, n)
+        k = min(max_det, n)
+        top_s, top_i = torch.sort(scores, dim=-1, descending=True, stable=True)
+        args = (boxes, top_i[..., :k], top_s[..., :k], NMS_IOU, NMS_SCORE)
+        # the work these inputs need: each kept candidate's IoU with every
+        # later one (~14 operations); the scan's chain is one step a kept
+        # box of the longest image
+        kept = ref.nms_keep(*args).gather(-1, args[1]).reshape(-1, k)
+        ious = int((kept * (k - 1 - torch.arange(k, device=dev))).sum())
+        bs = b or 1
+        cases["iou_matrix"].append(dict(
+            shape=f"nms_keep {case}: boxes {tuple(boxes.shape)} k {k}",
+            entry=(iou.KERNEL, "nms_keep_f32"), exact=True,
+            chain=(int(kept.sum(-1).max()), "scan steps (kept boxes of the longest image)"),
+            kernel=lambda a=args: iou.nms_keep(*a), plain=lambda a=args: ref.nms_keep(*a),
+            bytes=bs * k * (16 + 8 + 4) + bs * n, flops=14 * ious))
+    for b, n, m, nan in [(64, 128, 128, False), (None, 200, 300, False), (64, 128, 128, True)]:
         lead = () if b is None else (b,)
         bx = torch.rand((*lead, n + m, 4), generator=g, device=dev) * 50
         bx[..., 2:] = bx[..., :2] + bx[..., 2:].abs() + 0.01
+        if nan:     # a coordinate, a whole box, and inf - inf
+            bx[:, 3, 2], bx[:, 17], bx[:, 25, 0] = float("nan"), float("nan"), float("inf")
         a, bb = bx[..., :n, :].contiguous(), bx[..., n:, :].contiguous()
         if b is not None:
             bb = a           # NMS: the candidates against themselves
             m = n
         bs = b or 1
         cases["iou_matrix"].append(dict(
-            shape=f"{tuple(a.shape)} x {tuple(bb.shape)}", entry=(iou.KERNEL, "iou_matrix_f32"),
+            shape=f"{tuple(a.shape)} x {tuple(bb.shape)}" + (" NaN boxes" if nan else ""),
+            entry=(iou.KERNEL, "iou_matrix_f32"), exact=True,
             kernel=lambda a=a, bb=bb: iou.iou_matrix(a, bb),
-            plain=lambda a=a, bb=bb: ref.iou_matrix(a, bb), atol=1e-5,
+            plain=lambda a=a, bb=bb: ref.iou_matrix(a, bb),
             bytes=bs * (n + m) * 16 + bs * n * m * 4, flops=12 * bs * n * m))
 
     # the LM prefill's shape first (qwen3-8b, B 2, S 4096: the tensor-core
@@ -390,8 +460,8 @@ LIBRARY_NOTE = {
     "kmeans_assign": "null: no PyTorch call seeds k-means++ (the plain version is ~6 calls a "
                      "pick); for kmeans_assign_f32, torch.cdist gives the distances but not "
                      "the argmin",
-    "iou_matrix": "null: no batched box IoU in PyTorch (torchvision's box_iou is 2-D and "
-                  "not installed)",
+    "iou_matrix": "null: no PyTorch call does greedy NMS (torchvision's nms is not "
+                  "installed); for iou_matrix_f32, no batched box IoU in PyTorch",
     "flash_attention": "scaled_dot_product_attention(is_causal, enable_gqa) on (B, H, S, D) "
                        "views, at the first shape",
     "int8_matmul": "torch._int_mm, the int32 product without the scales, at the first shape",
@@ -411,8 +481,9 @@ def phase_kernels(dev):
             check(took == {symbol: 1}, f"{name} {case['shape']}: launched {took}, not {symbol}")
             if case.get("exact"):
                 pairs = list(zip(got, want)) if isinstance(got, tuple) else [(got, want)]
-                err = max((g.double() - w.double()).abs().max().item() for g, w in pairs)
-                check(all(torch.equal(g, w) for g, w in pairs),
+                err = max((g.double() - w.double()).abs().nan_to_num(0.0).max().item()
+                          for g, w in pairs)
+                check(all(bit_equal(g, w) for g, w in pairs),
                       f"{name} {case['shape']}: not bit-equal ({err})")
             else:
                 err = (got.float() - want.float()).abs().max().item()
@@ -428,8 +499,8 @@ def phase_kernels(dev):
             b_ms, b_by = bound_ms(case["bytes"], case["flops"], case.get("rate", FP32_FLOPS))
             lib_ms = cuda_ms(case["library"], reps=20) if i == 0 and "library" in case else None
             chain = "" if "chain" not in case else (
-                f" chain of {case['chain']} dependent block reductions, "
-                f"{1e3 * ms / max(case['chain'], 1):.4f} us a pick")
+                f" chain of {case['chain'][0]} {case['chain'][1]}, "
+                f"{1e3 * ms / max(case['chain'][0], 1):.4f} us a step")
             print(f"kernel {name} {case['shape']}: max_abs_err {err:.3e} "
                   f"ms {ms:.4f} (with host launch {host_ms:.4f}) "
                   f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} "
@@ -504,10 +575,13 @@ def scene_frames(spec, n_scenes, n_revisits, seed):
 
 class Timed:
     """A Mission stage with a wall-clock timer around it; the card is
-    synchronized on both sides, so the time is the stage's own."""
+    synchronized on both sides, so the time is the stage's own. After
+    the stage, each of ``events`` (:class:`EventTimes`) gives the device
+    ms of the calls it recorded in it, kept by stage in ``device_ms``."""
 
-    def __init__(self, stage, times: dict):
+    def __init__(self, stage, times: dict, events=(), device_ms=None):
         self.stage, self.times, self.name = stage, times, stage.name
+        self.events, self.device_ms = events, device_ms
 
     def run(self, mission, seg, window=None):
         import torch
@@ -516,6 +590,8 @@ class Timed:
         self.stage.run(mission, seg, window)
         torch.cuda.synchronize()
         self.times[self.name] = self.times.get(self.name, 0.0) + time.perf_counter() - t0
+        for ev in self.events:
+            self.device_ms.setdefault(self.name, {}).setdefault(ev.attr, []).extend(ev.take())
 
 
 class EventTimes:
@@ -553,15 +629,49 @@ class EventTimes:
         return ms
 
 
+def run_mission(space, ground, frames, method, dev):
+    """One full-width Mission of ``method`` -> (its result, a dict of:
+    ingest_s, contact_s, tiles_per_s, stages_s (each stage's wall time),
+    the device ms of capture's ``ops.tile_moments`` calls, and by stage
+    the device ms of each counter chunk (``cascade.count_tiles``) and of
+    its NMS (``detector.nms_keep``)). Events wrap the functions by name,
+    so the same measurement runs on any checkout of the port."""
+    from repro_torch.core import cascade
+    from repro_torch.core import mission as M
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.kernels import ops
+    from repro_torch.models import detector
+
+    stages, device_ms = {}, {}
+    chunk, nms = EventTimes(cascade, "count_tiles"), EventTimes(detector, "nms_keep")
+
+    def timed(sts):
+        return [Timed(st, stages, (chunk, nms), device_ms) for st in sts]
+    pcfg = PipelineConfig(method=method, score_thresh=NMS_SCORE, seed=SEED)
+    m = M.Mission(space, ground, pcfg, device=dev,
+                  ingest_stages=timed(M.default_ingest_stages()),
+                  contact_stages=timed(M.default_contact_stages()))
+    with EventTimes(ops, "tile_moments") as moments, chunk, nms:
+        t0 = time.perf_counter()
+        m.ingest(frames)
+        t1 = time.perf_counter()
+        m.contact_window()
+        t2 = time.perf_counter()
+    r = m.result()
+
+    def by_stage(attr):
+        return {st: d[attr] for st, d in device_ms.items() if d[attr]}
+    return r, dict(ingest_s=t1 - t0, contact_s=t2 - t1, tiles_per_s=r.tiles_total / (t2 - t0),
+                   stages_s=stages, capture_tile_moments_ms=moments.take(),
+                   chunk_ms=by_stage("count_tiles"), nms_ms=by_stage("nms_keep"))
+
+
 def phase_full_width(dev, kernels):
     import numpy as np
     import torch
     from repro_torch.configs import get_config
     from repro_torch.core import dedup as dd
-    from repro_torch.core import mission as M
-    from repro_torch.core.pipeline import PipelineConfig
     from repro_torch.data.synthetic import DATASETS
-    from repro_torch.kernels import ops
 
     cfgs = (get_config("targetfuse-space"), get_config("targetfuse-ground"))
     space, ground = counters(cfgs, dev)
@@ -571,10 +681,7 @@ def phase_full_width(dev, kernels):
           f"space {cfgs[0].widths} ground {cfgs[1].widths} at "
           f"{cfgs[0].input_size} px", flush=True)
 
-    def pcfg(method):
-        return PipelineConfig(method=method, score_thresh=0.25, seed=SEED)
-
-    M.Mission(space, ground, pcfg("targetfuse"), device=dev).run(frames)  # warm-up
+    run_mission(space, ground, frames, "targetfuse", dev)  # warm-up
     torch.cuda.synchronize()
     for k in kernels:
         k.reset()
@@ -584,18 +691,7 @@ def phase_full_width(dev, kernels):
         before = {k.name: k.launches for k in kernels}
         before_entry = {s: n for k in kernels for s, n in k.symbol_launches.items()}
         torch.cuda.reset_peak_memory_stats()
-        stages = {}
-        m = M.Mission(space, ground, pcfg(method), device=dev,
-                      ingest_stages=[Timed(st, stages) for st in M.default_ingest_stages()],
-                      contact_stages=[Timed(st, stages) for st in M.default_contact_stages()])
-        with EventTimes(ops, "tile_moments") as moments:
-            t0 = time.perf_counter()
-            m.ingest(frames)
-            t1 = time.perf_counter()
-            m.contact_window()
-            t2 = time.perf_counter()
-        moments_ms = moments.take()
-        r = m.result()
+        r, run = run_mission(space, ground, frames, method, dev)
         launches = {k.name: k.launches - before[k.name] for k in kernels}
         entries = {s: n - before_entry[s] for k in kernels for s, n in k.symbol_launches.items()}
         check(r.tiles_total == n_tiles, f"{method}: {r.tiles_total} tiles")
@@ -603,24 +699,40 @@ def phase_full_width(dev, kernels):
         # assignment: no launch a k-means++ pick
         check(entries["kmeans_assign_f32"] == (iters + 1) * entries["kmeanspp_seed_f32"],
               f"{method}: kmeans_assign launches by entry {entries}")
+        # one NMS launch a counter chunk, and no IoU matrix
+        chunks = sum(len(v) for v in run["chunk_ms"].values())
+        check(entries["nms_keep_f32"] == chunks == sum(len(v) for v in run["nms_ms"].values())
+              and entries["iou_matrix_f32"] == 0,
+              f"{method}: {chunks} counter chunks, iou launches by entry {entries}")
         check(np.isfinite(r.per_tile_pred).all() and r.per_tile_pred.shape == (n_tiles,),
               f"{method}: bad predictions")
+        stages = run["stages_s"]
         per_policy[method] = dict(
-            ingest_s=t1 - t0, contact_s=t2 - t1,
-            tiles_per_s=n_tiles / (t2 - t0),
+            ingest_s=run["ingest_s"], contact_s=run["contact_s"], tiles_per_s=run["tiles_per_s"],
             max_mem_gb=torch.cuda.max_memory_allocated() / 1e9,
-            launches=launches, launches_by_entry=entries,
+            launches=launches, launches_by_entry=entries, counter_chunks=chunks,
             dedup_s=stages.get("dedup", 0.0), stages_s=stages,
-            capture_tile_moments_ms=moments_ms, cmae=r.cmae,
-            total_pred=r.total_pred, total_true=r.total_true,
+            capture_tile_moments_ms=run["capture_tile_moments_ms"],
+            nms_ms_by_stage={st: sum(v) for st, v in run["nms_ms"].items()},
+            chunk_ms_by_stage={st: sum(v) for st, v in run["chunk_ms"].items()},
+            cmae=r.cmae, total_pred=r.total_pred, total_true=r.total_true,
             processed=r.tiles_processed_space, downlinked=r.tiles_downlinked)
         print(f"mission {method}: " + json.dumps(per_policy[method]), flush=True)
-        cap_ms = 1e3 * stages.get("capture", 0.0)
+        cap_ms, moments_ms = 1e3 * stages.get("capture", 0.0), run["capture_tile_moments_ms"]
         print(f"mission {method} capture: {cap_ms:.4f} ms, of which ops.tile_moments "
               f"{sum(moments_ms):.4f} ms of device time in {len(moments_ms)} calls "
               f"({sum(moments_ms) / max(cap_ms, 1e-9):.4f})", flush=True)
+        for st, ms in run["nms_ms"].items():
+            chunk_ms = sum(run["chunk_ms"][st])
+            print(f"mission {method} {st}: {1e3 * stages[st]:.4f} ms; {len(ms)} counter chunks "
+                  f"of {chunk_ms:.4f} ms device time, of which detector.nms_keep "
+                  f"{sum(ms):.4f} ms ({sum(ms) / max(chunk_ms, 1e-9):.4f}; "
+                  f"{sum(ms) / len(ms):.4f} ms a chunk)", flush=True)
+    # every kernel entry of the Mission ran in targetfuse, but iou_matrix_f32,
+    # whose IoU matrix the NMS keeps in shared memory now
     tf = per_policy["targetfuse"]["launches_by_entry"]
-    check(all(v > 0 for v in tf.values()), f"targetfuse missed a kernel entry: {tf}")
+    check(all(v > 0 for e, v in tf.items() if e != "iou_matrix_f32") and tf["iou_matrix_f32"] == 0,
+          f"targetfuse missed a kernel entry, or launched iou_matrix_f32: {tf}")
     check(per_policy["targetfuse"]["downlinked"] > 0, "targetfuse downlinked nothing")
     return {k.name: k.launches for k in kernels}
 

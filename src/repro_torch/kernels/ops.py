@@ -2,7 +2,7 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain PyTorch version in :mod:`ref`. There is
-no switch and no fallback: the device of the data decides. Two kernels
+no switch and no fallback: the device of the data decides. Three kernels
 have two entries in their one source:
 
 - ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``kmeans_assign`` runs
@@ -11,6 +11,11 @@ have two entries in their one source:
   (``kmeanspp_seed_f32``). The seeding kernel holds a row's features in
   a fixed register array of 16 and raises above that: the dedup's D is
   3C = 9, and no caller has more.
+- ``iou_matrix`` (``csrc/iou.cu``): ``iou_matrix`` gives the IoU
+  matrix (``iou_matrix_f32``); ``nms_keep`` runs the detector's whole
+  NMS of a counting batch in one launch (``nms_keep_f32``), the matrix
+  kept in shared memory as a bitmask. It takes k <= 1024 candidates an
+  image; the detector's is 128.
 - ``int8_matmul`` (``csrc/int8_matmul.cu``): the s8 tensor cores where
   K and N are multiples of 16, dp4a on the CUDA cores otherwise (the
   rule is :func:`repro_torch.kernels.int8_matmul.choose_route`).
@@ -66,6 +71,14 @@ def iou_matrix(a, b):
     if _on_cuda(a):
         return _iou.iou_matrix(a, b)
     return ref.iou_matrix(a, b)
+
+
+def nms_keep(boxes, top_i, top_s, iou_thresh, score_thresh):
+    """Greedy NMS over the top-k candidates -> keep mask; see
+    :func:`ref.nms_keep`."""
+    if _on_cuda(boxes):
+        return _iou.nms_keep(boxes, top_i, top_s, iou_thresh, score_thresh)
+    return ref.nms_keep(boxes, top_i, top_s, iou_thresh, score_thresh)
 
 
 def attention(q, k, v, *, causal: bool = False):

@@ -150,6 +150,28 @@ def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     return inter / torch.clamp(union, min=1e-9)
 
 
+
+def nms_keep(boxes: torch.Tensor, top_i: torch.Tensor, top_s: torch.Tensor,
+             iou_thresh: float, score_thresh: float) -> torch.Tensor:
+    """Greedy NMS over the top-k candidates: boxes (..., N, 4), top_i and
+    top_s (..., k) the first k indices and scores of a descending sort ->
+    keep mask (..., N) bool. The candidates' IoU matrix, then the
+    reference's ``fori_loop`` in steps of every image at once: candidate
+    i, while kept, suppresses each later candidate j with
+    ``iou[i, j] > iou_thresh``; a candidate starts kept if its score is
+    above ``score_thresh``."""
+    k = top_i.shape[-1]
+    top_b = torch.gather(boxes, -2, top_i[..., None].expand(*top_i.shape, 4))
+    iou = iou_matrix(top_b, top_b)
+    keep = top_s > score_thresh
+    ar = torch.arange(k, device=boxes.device)
+    later = ar[None, :] > ar[:, None]  # later[i, j]: j after i
+    over = iou > iou_thresh
+    for i in range(k):
+        keep = keep & ~(over[..., i, :] & later[i] & keep[..., i:i + 1])
+    return torch.zeros(boxes.shape[:-1], dtype=torch.bool,
+                       device=boxes.device).scatter(-1, top_i, keep)
+
 def int8_matmul(x_q: torch.Tensor, w_q: torch.Tensor, x_scale: torch.Tensor,
                 w_scale: torch.Tensor) -> torch.Tensor:
     """x_q (M, K) int8 @ w_q (K, N) int8, scaled per row by x_scale (M,)

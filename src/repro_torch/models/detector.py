@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/models/detector.py``: stride-2 conv stages and a
 1x1 head emitting (box4, obj1, class C) per cell and anchor; counting is
-decode -> NMS (the ``iou_matrix`` kernel, batched over the counting
-batch) -> count above threshold, with the mean kept score as the tile's
-confidence. Parameters are a dict of tensors in the reference's layout
+decode -> NMS (the ``iou_matrix`` library's ``nms_keep_f32``, one launch
+a counting batch) -> count above threshold, with the mean kept score as
+the tile's confidence. Parameters are a dict of tensors in the reference's layout
 (HWIO conv weights), so :func:`params_from_jax` carries the reference's
 weights over as they are.
 """
@@ -155,24 +155,13 @@ def nms_keep(boxes: torch.Tensor, scores: torch.Tensor, iou_thresh=0.5,
     """Greedy NMS: (..., N, 4), (..., N) -> keep mask (..., N) bool.
 
     The top ``max_det`` candidates by a stable descending sort (ties to
-    the lower index, as ``lax.top_k``), their IoU matrix from the kernel
-    in one batched launch, then the greedy suppression over all images
-    of the batch at once.
+    the lower index, as ``lax.top_k``), then the suppression over all
+    images of the batch at once: on the card one ``nms_keep_f32`` launch,
+    on the CPU the plain loop (``ref.nms_keep``).
     """
-    n = boxes.shape[-2]
-    k = min(max_det, n)
+    k = min(max_det, boxes.shape[-2])
     top_s, top_i = torch.sort(scores, dim=-1, descending=True, stable=True)
-    top_s, top_i = top_s[..., :k], top_i[..., :k]
-    top_b = torch.gather(boxes, -2, top_i[..., None].expand(*top_i.shape, 4))
-    iou = kops.iou_matrix(top_b.contiguous(), top_b.contiguous())
-    keep = top_s > score_thresh
-    ar = torch.arange(k, device=boxes.device)
-    later = ar[None, :] > ar[:, None]  # later[i, j]: j after i
-    over = iou > iou_thresh
-    for i in range(k):
-        keep = keep & ~(over[..., i, :] & later[i] & keep[..., i:i + 1])
-    return torch.zeros(scores.shape, dtype=torch.bool,
-                       device=scores.device).scatter(-1, top_i, keep)
+    return kops.nms_keep(boxes, top_i[..., :k], top_s[..., :k], iou_thresh, score_thresh)
 
 
 def count_and_confidence(raw: torch.Tensor, cfg: DetectorConfig,
