@@ -24,7 +24,11 @@ nothing of JAX or of the reference package ``repro``. Phases:
    entry ``nms_keep_f32`` gives the plain loop's keep masks bit for bit
    at a counter chunk's shape, unbatched, N < 128, k 1000, all boxes but
    one suppressed, none above the score threshold and a NaN box, and
-   ``iou_matrix_f32`` the plain IoU bit for bit, NaN boxes included),
+   ``iou_matrix_f32`` the plain IoU bit for bit, NaN boxes included;
+   the fleet dedup's lane entries ``kmeanspp_seed_lanes_f32`` and
+   ``kmeans_assign_lanes_f32`` bit-equal to their plain versions and,
+   lane by lane, to the one-lane entries, at 32 lanes of the Mission
+   dedup's shape, a ragged bucket of 32 lanes and one lane),
    timed with CUDA events beside the plain version, the least time the
    card could take (``bound_ms``) and, where one PyTorch call computes
    the same function, that call (``library_ms``, a yardstick the port
@@ -47,12 +51,22 @@ nothing of JAX or of the reference package ``repro``. Phases:
    greedy tokens; ``flash_attention`` launches once a layer in the
    prefill, every launch on its tensor-core entry; decode logits are held
    against ``forward_train`` over prompt and generated tokens;
-6. CUDA against CPU: reduced qwen3 in float32, prefill and 3 decode
+6. the constellation at full width: ``run_scenario`` of targetfuse (a
+   ``Fleet``; each round's contacts a ``ContactPlan`` at ground-segment
+   depth 0) over benchmarks/fleet_bench.py's contact cell (32 satellites,
+   8 stations, 3 rounds of 1 frame a pass) with phase 3's counters;
+   per-satellite results equal 32 looped Missions on the card, one
+   ``kmeanspp_seed_lanes_f32`` launch a shape bucket a round and no
+   one-lane k-means launch in ``Fleet.ingest`` (checked); tiles/s,
+   windows/s, the stages' wall times and the launches by entry;
+7. CUDA against CPU: reduced qwen3 in float32, prefill and 3 decode
    steps on the card (the CUDA-core kernel) and on the CPU (plain version).
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
-first phase 2 case and its launches on the main paths), then the
+first phase 2 case and its launches on the main paths: the Mission's
+runs of phase 3, the fleet's of phase 6, qwen3-8b's of phase 5 and
+``int8_matmul``'s one path), then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
 """
@@ -113,6 +127,20 @@ TILE_MOMENTS_CASES = [
 KMEANS_CASES = [(1024, 512, 9), (1024, 1, 9), (1024, 64, 9), (1000, 1, 9), (1000, 64, 9),
                 (1000, 512, 9), (128, 1, 9), (128, 64, 9), (128, 512, 9), (1024, 33, 9),
                 (300, 1000, 9), (1000, 45, 16), (256, 100, 128)]
+# phase 2's lane cases of kmeans_assign, (n_pad, k_pad, n of each lane, k
+# of each lane): first phase 6's bucket, 32 ragged lanes (9-tile passes: n
+# 5-9, k n // 2 or an odd k), then 32 lanes at the Mission dedup's shape
+# and one lane. The plain seeding of 32 lanes at 1024 rows takes 22-36 s on
+# the card (a loop of 32 x 511 picks of ~30 small launches each), so that
+# case times its plain version by the one call the comparison makes
+LANE_CASES = [(128, 64, [5 + i % 5 for i in range(32)], [max(2, (5 + i % 5) // 2) + i % 3
+                                                         for i in range(32)]),
+              (1024, 512, [1024] * 32, [512] * 32),
+              (1024, 512, [1000], [500])]
+LANE_ENTRIES = ("kmeans_assign_lanes_f32", "kmeanspp_seed_lanes_f32")
+# phase 6: benchmarks/fleet_bench.py's contact cell, _contact_spec(32, 8,
+# seed=6) at its default knobs (3 rounds, 1 frame a pass)
+FLEET_SATS, FLEET_STATIONS, FLEET_SEED, FLEET_ROUNDS, FLEET_FRAMES = 32, 8, 6, 3, 1
 # phase 2's nms_keep_f32 cases, (case, B or None for unbatched (N, 4)
 # boxes, N, max_det); the first is a counter chunk's: 64 tiles of 13 x 13
 # cells x 3 anchors at 416 px, k = 128, the Mission's thresholds
@@ -282,6 +310,43 @@ def kernel_cases(dev):
             kernel=lambda x=x, c=cent: kmeans_assign.kmeans_assign(x, c),
             plain=lambda x=x, c=cent: ref.kmeans_assign(x, c), exact=True,
             bytes=(n + k) * d * 4 + n * 8, flops=2 * n * k * d + 3 * n * k))
+    # the lane entries of the fleet's dedup (dedup_multi): L lanes of one
+    # (n_pad, k_pad) bucket, each held bit-equal to the plain version and,
+    # lane by lane, to the one-lane entry. LANE_CASES: 32 lanes at the
+    # Mission dedup's shape, a ragged bucket at phase 6's (n and k differ
+    # by lane, pad rows zeroed), one lane
+    for n_pad, k_pad, ns, ks in LANE_CASES:
+        lanes, d = len(ns), 9
+        x = torch.randn((lanes, n_pad, d), generator=g, device=dev)
+        for i, n in enumerate(ns):
+            x[i, n:] = 0.0
+        x[:, 5] = x[:, 3]                      # a duplicate row a lane: ties
+        firsts = [jrandom.randint(SEED + i, n) for i, n in enumerate(ns)]
+        args = (ns, firsts, ks, k_pad)
+        picks = [min(k, k_pad) - 1 for k in ks]
+        shape = f"x({lanes}, {n_pad}, {d}) k_pad {k_pad}" + (
+            "" if len(set(ns)) == 1 else f" ragged n {min(ns)}-{max(ns)} k {min(ks)}-{max(ks)}")
+        cases["kmeans_assign"].append(dict(
+            shape=f"kmeanspp_seed_lanes {shape}",
+            entry=(kmeans_assign.KERNEL, "kmeanspp_seed_lanes_f32"), exact=True,
+            plain_once=lanes * n_pad > 4096,
+            chain=(max(picks), "dependent block reductions (lanes side by side)"),
+            kernel=lambda x=x, a=args: kmeans_assign.kmeanspp_seed_lanes(x, *a),
+            plain=lambda x=x, a=args: ref.kmeanspp_seed_lanes(x, *a),
+            lanewise=lambda x=x, a=args: [kmeans_assign.kmeanspp_seed(
+                x[i].contiguous(), a[0][i], a[1][i], a[2][i], a[3]) for i in range(len(a[0]))],
+            bytes=sum(n * d * 4 + k_pad * (d + 1) * 4 for n in ns),
+            flops=sum(p * n * (2 * d + 6) for p, n in zip(picks, ns))))
+        cent = ref.kmeanspp_seed_lanes(x, *args)[0]
+        cases["kmeans_assign"].append(dict(
+            shape=f"kmeans_assign_lanes {shape}",
+            entry=(kmeans_assign.KERNEL, "kmeans_assign_lanes_f32"), exact=True,
+            kernel=lambda x=x, c=cent: kmeans_assign.kmeans_assign_lanes(x, c),
+            plain=lambda x=x, c=cent: ref.kmeans_assign_lanes(x, c),
+            lanewise=lambda x=x, c=cent: [kmeans_assign.kmeans_assign(
+                x[i].contiguous(), c[i].contiguous()) for i in range(x.shape[0])],
+            bytes=lanes * ((n_pad + k_pad) * d * 4 + n_pad * 8),
+            flops=lanes * (2 * n_pad * k_pad * d + 3 * n_pad * k_pad)))
     # the counter chunk's NMS first (one nms_keep_f32 launch a chunk), on
     # the sort's top k as detector.nms_keep gives them; then iou_matrix_f32
     # at its earlier main shape, a ragged unbatched one and NaN boxes
@@ -475,7 +540,12 @@ def phase_kernels(dev):
         for i, case in enumerate(cases):
             lib, symbol = case["entry"]
             before = dict(lib.symbol_launches)
-            got, want = case["kernel"](), case["plain"]()
+            got = case["kernel"]()
+            t_plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            torch.cuda.synchronize()
+            t_plain[0].record()
+            want = case["plain"]()
+            t_plain[1].record()
             torch.cuda.synchronize()
             took = {k: n - before[k] for k, n in lib.symbol_launches.items() if n != before[k]}
             check(took == {symbol: 1}, f"{name} {case['shape']}: launched {took}, not {symbol}")
@@ -492,10 +562,20 @@ def phase_kernels(dev):
                       f"{name} {case['shape']}: off by {err}")
             if case.get("upcast") is not None:
                 check_upcast(name, case, got)
+            if case.get("lanewise") is not None:
+                # lane by lane against the one-lane entry (not counted)
+                lanes = case["lanewise"]()
+                torch.cuda.synchronize()
+                check(all(bit_equal(g[i], w) for g, ws in zip(got, zip(*lanes))
+                          for i, w in enumerate(ws)),
+                      f"{name} {case['shape']}: a lane differs from the one-lane entry")
+                print(f"kernel {name} {case['shape']}: each of {len(lanes)} lanes bit-equal "
+                      f"to the one-lane entry", flush=True)
             del got, want
             ms = cuda_ms(case["kernel"], reps=20)
             host_ms = cuda_ms(case["kernel"], reps=20, hold=False)
-            plain_ms = cuda_ms(case["plain"], reps=5, warmup=1)
+            plain_ms = (t_plain[0].elapsed_time(t_plain[1]) if case.get("plain_once")
+                        else cuda_ms(case["plain"], reps=5, warmup=1))
             b_ms, b_by = bound_ms(case["bytes"], case["flops"], case.get("rate", FP32_FLOPS))
             lib_ms = cuda_ms(case["library"], reps=20) if i == 0 and "library" in case else None
             chain = "" if "chain" not in case else (
@@ -729,10 +809,12 @@ def phase_full_width(dev, kernels):
                   f"{sum(ms):.4f} ms ({sum(ms) / max(chunk_ms, 1e-9):.4f}; "
                   f"{sum(ms) / len(ms):.4f} ms a chunk)", flush=True)
     # every kernel entry of the Mission ran in targetfuse, but iou_matrix_f32,
-    # whose IoU matrix the NMS keeps in shared memory now
+    # whose IoU matrix the NMS keeps in shared memory now, and the fleet's
+    # lane entries
     tf = per_policy["targetfuse"]["launches_by_entry"]
-    check(all(v > 0 for e, v in tf.items() if e != "iou_matrix_f32") and tf["iou_matrix_f32"] == 0,
-          f"targetfuse missed a kernel entry, or launched iou_matrix_f32: {tf}")
+    idle = ("iou_matrix_f32",) + LANE_ENTRIES
+    check(all(v > 0 for e, v in tf.items() if e not in idle) and not any(tf[e] for e in idle),
+          f"targetfuse missed a kernel entry, or launched {idle}: {tf}")
     check(per_policy["targetfuse"]["downlinked"] > 0, "targetfuse downlinked nothing")
     return {k.name: k.launches for k in kernels}
 
@@ -801,7 +883,170 @@ def phase_cuda_vs_cpu(dev):
 
 
 # ---------------------------------------------------------------------------
-# phases 5 and 6: LM serving
+# phase 6: the constellation
+# ---------------------------------------------------------------------------
+
+def contact_spec(n_sats, n_stations, seed):
+    """The port's copy of ``benchmarks/fleet_bench.py:_contact_spec``: every
+    round offers ``n_stations`` rotating windows at staggered bandwidths,
+    so passes pile up between a satellite's contacts and windows drain
+    several segments."""
+    from repro_torch.data.scenarios import FleetScenarioSpec, GroundStation
+    from repro_torch.data.synthetic import SceneSpec
+    scene = SceneSpec("contact", 384, (10, 20), (10, 24), cloud_fraction=0.25)
+    stations = tuple(GroundStation(f"gs{k}", bandwidth_mbps=30.0 + 5.0 * (k % 5),
+                                   contact_s=240.0 + 30.0 * (k % 3))
+                     for k in range(n_stations))
+    return FleetScenarioSpec(n_sats=n_sats, n_rounds=FLEET_ROUNDS,
+                             frames_per_pass=FLEET_FRAMES, stations=stations,
+                             scene_mix=(scene,), seed=seed)
+
+
+class WallTimes:
+    """Synchronized host wall time of every call of ``owner.attr`` while
+    the context is open, summed into ``times[name]`` (the script wraps
+    the function; the package is not changed)."""
+
+    def __init__(self, owner, attr: str, name: str, times: dict):
+        self.owner, self.attr, self.name, self.times = owner, attr, name, times
+        self.fn = getattr(owner, attr)
+
+    def __enter__(self):
+        import torch
+
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = self.fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            self.times[self.name] = self.times.get(self.name, 0.0) + time.perf_counter() - t0
+            return out
+        setattr(self.owner, self.attr, timed)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.owner, self.attr, self.fn)
+
+
+def phase_fleet(dev, kernels):
+    """The constellation at full width: ``run_scenario`` (a Fleet, each
+    round's contacts a ContactPlan at ground-segment depth 0) of
+    targetfuse over benchmarks/fleet_bench.py's contact cell, with the
+    full-width counters of phase 3. Checks: per-satellite results equal
+    FLEET_SATS looped Missions on the card, and so do a second run and an
+    ``ingest_overlap`` run's; one kmeanspp_seed_lanes_f32
+    launch a shape bucket a round, (iters + 1) kmeans_assign_lanes_f32
+    launches each, and no one-lane kmeans_assign launch inside
+    Fleet.ingest. Prints tiles/s, windows/s, the stages' synchronized
+    wall times (a second run) and the launches by entry -> the launches
+    by kernel name and by entry."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import contact, dedup as dd, engine, fleet as F
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.scenarios import generate_scenario
+
+    cfgs = (get_config("targetfuse-space"), get_config("targetfuse-ground"))
+    space, ground = counters(cfgs, dev)
+    sc = generate_scenario(contact_spec(FLEET_SATS, FLEET_STATIONS, FLEET_SEED))
+    n_tiles = sum(len(p.frames) * 9 for r in sc.rounds for p in r.passes)
+    pcfg = PipelineConfig(method="targetfuse", score_thresh=NMS_SCORE, seed=SEED)
+    iters = inspect.signature(dd.dedup_multi).parameters["iters"].default
+    print(f"fleet: {FLEET_SATS} satellites, {FLEET_STATIONS} stations, {len(sc.rounds)} rounds "
+          f"of {FLEET_FRAMES} frame a pass (no round cut), {n_tiles} tiles; targetfuse, "
+          f"space {cfgs[0].widths} ground {cfgs[1].widths} at {cfgs[0].input_size} px",
+          flush=True)
+    F.run_scenario(space, ground, pcfg, sc, device=dev)  # warm-up, dropped
+    torch.cuda.synchronize()
+
+    buckets, in_ingest = [], {}
+    multi, ingest = dd.dedup_multi, F.Fleet.ingest
+
+    def counted_multi(parts, *a, **kw):
+        buckets.append(len({dd._buckets_for(int(m.shape[0]) if n is None else n, k)
+                            for m, k, _, n in parts}))
+        return multi(parts, *a, **kw)
+
+    def counted_ingest(self, *a, **kw):
+        before = {s: n for k in kernels for s, n in k.symbol_launches.items()}
+        out = ingest(self, *a, **kw)
+        for k in kernels:
+            for s, n in k.symbol_launches.items():
+                in_ingest[s] = in_ingest.get(s, 0) + n - before[s]
+        return out
+    dd.dedup_multi, F.Fleet.ingest = counted_multi, counted_ingest
+    for k in kernels:
+        k.reset()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        got, fl = F.run_scenario(space, ground, pcfg, sc, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        dd.dedup_multi, F.Fleet.ingest = multi, ingest
+    launches = {k.name: k.launches for k in kernels}
+    entries = {s: n for k in kernels for s, n in k.symbol_launches.items()}
+    summ = fl.summary()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # every segment keeps its two tile tensors (a 64-row bucket of 416 px
+    # tiles each, ~0.27 GB a pass), so each run's driver is dropped
+    # before the next run and only its host results are kept
+    del fl
+
+    stages = {}
+    with WallTimes(engine, "prepare_frames_multi", "capture", stages), \
+            WallTimes(F.Fleet, "_dedup_batched", "dedup", stages), \
+            WallTimes(F.Fleet, "_onboard_count_batched", "onboard_count", stages), \
+            WallTimes(contact, "_select_downlink", "select_downlink", stages), \
+            WallTimes(contact, "_recount_aggregate", "ground_recount_aggregate", stages):
+        timed = F.run_scenario(space, ground, pcfg, sc, device=dev)[0]
+    overlap = F.run_scenario(space, ground, pcfg, sc, ingest_overlap=True, device=dev)[0]
+    want = F.run_scenario(space, ground, pcfg, sc, fleet=False, device=dev)[0]
+
+    def equal(xs, ys):
+        return [np.array_equal(a.per_tile_pred, b.per_tile_pred) and a.summary() == b.summary()
+                for a, b in zip(xs, ys)]
+    same = equal(got, want)
+    print(f"fleet vs {FLEET_SATS} looped Missions: {sum(same)} of {len(same)} satellites equal "
+          f"(per-tile predictions and summaries); the staged run and the ingest_overlap run "
+          f"equal the fleet: {all(equal(timed, got))}, {all(equal(overlap, got))}", flush=True)
+    check(all(same), f"fleet: satellites {[i for i, e in enumerate(same) if not e]} differ "
+                     f"from their looped Missions")
+    check(all(equal(timed, got)) and all(equal(overlap, got)),
+          "fleet: a second run or the ingest_overlap run differs")
+    check(sum(r.tiles_total for r in got) == n_tiles and summ["windows_served"] > 0
+          and all(np.isfinite(r.per_tile_pred).all() for r in got)
+          and sum(r.tiles_downlinked for r in got) > 0, f"fleet: bad results {summ}")
+    # one seeding launch a shape bucket a round, the Lloyd steps and the
+    # final assignment on the lane entry, no one-lane k-means launch
+    check(len(buckets) == len(sc.rounds)
+          and entries["kmeanspp_seed_lanes_f32"] == in_ingest["kmeanspp_seed_lanes_f32"]
+          == sum(buckets)
+          and entries["kmeans_assign_lanes_f32"] == (iters + 1) * sum(buckets)
+          and in_ingest["kmeans_assign_f32"] == in_ingest["kmeanspp_seed_f32"] == 0
+          and entries["kmeans_assign_f32"] == entries["kmeanspp_seed_f32"] == 0
+          and entries["iou_matrix_f32"] == 0 and entries["nms_keep_f32"] > 0
+          and entries["tile_moments_f32"] > 0,
+          f"fleet: launches by entry {entries}, in ingest {in_ingest}, buckets {buckets}")
+    row = dict(sats=FLEET_SATS, stations=FLEET_STATIONS, rounds=len(sc.rounds),
+               tiles=n_tiles, tiles_per_s=summ["tiles_per_s"], ingest_s=summ["ingest_s"],
+               contact_s=summ["contact_s"], windows_served=summ["windows_served"],
+               windows_per_s=summ["windows_per_s"], peak_gb=peak_gb,
+               buckets_per_round=buckets,
+               launches_by_entry=entries, stages_s=stages,
+               total_pred=sum(r.total_pred for r in got), total_true=summ["total_true"],
+               downlinked=summ["tiles_downlinked"], processed=summ["tiles_processed_space"])
+    print("fleet targetfuse: " + json.dumps(row), flush=True)
+    print(f"fleet tiles/s {summ['tiles_per_s']:.1f} (ingest {summ['ingest_s']:.4f} s), "
+          f"windows/s {summ['windows_per_s']:.1f} ({summ['windows_served']} windows in "
+          f"{summ['contact_s']:.4f} s); stages (synchronized, second run): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items()), flush=True)
+    print(f"fleet launches by entry: {entries}", flush=True)
+    return launches, entries
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 7: LM serving
 # ---------------------------------------------------------------------------
 
 def synced(fn):
@@ -1026,6 +1271,13 @@ def main():
     launches["flash_attention"], flash_entries = phase_lm_serving(dev, kernel["flash_attention"])
     entry_launches.update(flash_entries)
     print(f"phase lm serving: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    fleet_launches, fleet_entries = phase_fleet(dev, mission_kernels)
+    for name, n in fleet_launches.items():   # both main paths: Mission and fleet
+        launches[name] += n
+    for sym, n in fleet_entries.items():
+        entry_launches[sym] += n
+    print(f"phase fleet: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_lm_cuda_vs_cpu(dev, kernel["flash_attention"])
     print(f"phase lm cuda vs cpu: {time.perf_counter() - t0:.1f} s", flush=True)

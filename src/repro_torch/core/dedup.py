@@ -144,3 +144,96 @@ def expanded_counts(rep_counts: torch.Tensor, res: DedupResult) -> torch.Tensor:
     """Counts measured on representatives only -> per-tile estimated counts
     (each tile inherits its cluster representative's count)."""
     return rep_counts[res.rep_idx.long()][res.assign.long()]
+
+
+# --- the fleet's dedup: one lane a satellite, a launch a bucket ---
+
+def _normalize_lane(m_pad: torch.Tensor, n: int) -> torch.Tensor:
+    """The masked normalization of :func:`_dedup_core`, the same
+    operations on the same (n_pad, D) shape, so a lane's features equal
+    the one-lane dedup's bit for bit."""
+    n_pad, d = m_pad.shape
+    mask = torch.arange(n_pad, device=m_pad.device) < n
+    maskc = mask[:, None]
+    nf = float(n)
+    m0 = torch.where(maskc, m_pad, 0.0)
+    mu = m0.sum(0, keepdim=True) / nf
+    gmu = m0.sum() / (nf * d)
+    var = torch.where(maskc, (m_pad - gmu).square(), 0.0).sum() / (nf * d)
+    scale = torch.sqrt(var) + 1e-6
+    return torch.where(maskc, (m_pad - mu) / scale, 0.0)
+
+
+def _dedup_finalize_lanes(x: torch.Tensor, cent: torch.Tensor, ns: torch.Tensor):
+    """:func:`_dedup_finalize` over a lane axis: one assignment launch,
+    then the same scatter-min / scatter-max / scatter-add along each lane
+    (min, max and integer sums, so the order of the updates is moot)."""
+    lanes, n_pad = x.shape[:2]
+    k_pad = cent.shape[1]
+    dev = x.device
+    assign, d2 = kops.kmeans_assign_lanes(x, cent)
+    a = assign.long()
+    mask = torch.arange(n_pad, device=dev)[None, :] < ns[:, None]
+    big = 1e30
+    d2m = torch.where(mask, d2, big)
+    per_cluster = torch.full((lanes, k_pad), big, device=dev).scatter_reduce(
+        1, a, d2m, "amin")
+    is_min = d2m <= per_cluster.gather(1, a)
+    idxs = torch.arange(n_pad, device=dev, dtype=torch.int32).expand(lanes, n_pad)
+    rep_idx = torch.full((lanes, k_pad), n_pad, dtype=torch.int32, device=dev)
+    rep_idx = rep_idx.scatter_reduce(
+        1, a, torch.where(is_min & mask, idxs, n_pad).to(torch.int32), "amin")
+    rep_found = rep_idx < ns[:, None]
+    rep_clip = torch.minimum(rep_idx.clamp(min=0), (ns - 1)[:, None].to(torch.int32))
+    rep_mask = torch.zeros((lanes, n_pad), dtype=torch.int32, device=dev).scatter_reduce(
+        1, rep_clip.long(), rep_found.to(torch.int32), "amax").bool()
+    sizes = torch.zeros((lanes, k_pad), dtype=torch.int32, device=dev).scatter_add(
+        1, a, mask.to(torch.int32))
+    return assign, rep_mask, sizes, rep_clip
+
+
+def dedup_multi(parts, iters: int = 10):
+    """The dedup of many satellites, a lane each, batched by shape bucket.
+
+    Counterpart of ``repro/core/dedup.py``'s ``dedup_multi``. ``parts``:
+    list of ``(moments, k, seed, n)``, one a satellite, as
+    :func:`dedup_from_moments` takes them (``n`` None: all rows real).
+    Satellites are grouped by their (n_pad, k_pad) bucket, and each group
+    runs as one lane batch: one ``ops.kmeanspp_seed_lanes`` call for its
+    seeding, one ``ops.kmeans_assign_lanes`` call a Lloyd step and one for
+    the final assignment. The normalization and each Lloyd step's
+    centroid sums run lane by lane, with :func:`dedup_from_moments`'s
+    operations on its shapes, so every lane equals the one-lane dedup
+    bit for bit (a batched reduction could sum in another order). The
+    reference pads the lane count to a power of two to bound its
+    compiles; nothing here compiles, so lanes are not padded.
+
+    -> a :class:`DedupResult` a part, aligned with ``parts``.
+    """
+    groups: dict = {}
+    for slot, (moments, k, seed, n) in enumerate(parts):
+        n = int(moments.shape[0]) if n is None else int(n)
+        groups.setdefault(_buckets_for(n, k), []).append(
+            (slot, moments, int(k), int(seed), n))
+    out = [None] * len(parts)
+    for (n_pad, k_pad), items in groups.items():
+        ns = [n for *_, n in items]
+        x = torch.stack([_normalize_lane(_pad_rows(mo.to(torch.float32), n, n_pad), n)
+                         for _, mo, _, _, n in items])
+        dev = x.device
+        ns_t = torch.tensor(ns, device=dev)
+        maskc = (torch.arange(n_pad, device=dev)[None, :] < ns_t[:, None])[..., None]
+        cents, _ = kops.kmeanspp_seed_lanes(
+            x, ns, [jrandom.randint(seed, n) for _, _, _, seed, n in items],
+            [k for _, _, k, _, _ in items], k_pad)
+        for _ in range(iters):
+            assign, _ = kops.kmeans_assign_lanes(x, cents)
+            one = F.one_hot(assign.long(), k_pad).to(x.dtype) * maskc
+            tot = torch.stack([one[i].T @ x[i] for i in range(len(items))])
+            cnt = one.sum(1)[..., None]
+            cents = torch.where(cnt > 0, tot / torch.clamp(cnt, min=1), cents)
+        assign, rep_mask, sizes, rep_clip = _dedup_finalize_lanes(x, cents, ns_t)
+        for i, (slot, _, k, _, n) in enumerate(items):
+            out[slot] = DedupResult(assign[i, :n], cents[i, :k], rep_mask[i, :n],
+                                    sizes[i, :k], rep_clip[i, :k])
+    return out

@@ -155,3 +155,97 @@ def prepare_frames(frames, tile_size: int, sp_size: int, gd_size: int,
     parts = _per_frame_pieces(frames, tile_size, sp_size, gd_size,
                               frame_bucket, device, with_stats=with_stats)
     return _assemble(parts, frames, tile_size)
+
+
+def _assemble_lane(parts, frames, tile_size: int, roi_std=None,
+                   defer_stats: bool = False) -> PreparedFrames:
+    """One workload's exact pieces (no pad frames) -> a bucket-padded
+    PreparedFrames, as :func:`_assemble`, with the ROI rows given:
+    ``roi_std`` is this workload's slice of a fleet-wide host copy (or a
+    device slice under ``defer_stats``), or None to take them from the
+    pieces (a device slice under ``defer_stats``, else one host copy)."""
+    n = sum(p[0].shape[0] for p in parts)
+
+    def cat(j):
+        return parts[0][j] if len(parts) == 1 else torch.cat([p[j] for p in parts])
+
+    n_pad = bucket_size(n)
+
+    def pad(a):
+        if a.shape[0] >= n_pad:
+            return a[:n_pad]
+        return torch.cat([a, a.new_zeros((n_pad - a.shape[0], *a.shape[1:]))])
+
+    with_stats = len(parts[0]) == 4
+    tiles_sp = pad(cat(0))
+    tiles_gd = pad(cat(1))
+    moments = pad(cat(2)) if with_stats else None
+    if roi_std is None and with_stats:
+        rs = cat(3)[:n]
+        roi_std = rs if defer_stats else rs.cpu().numpy()
+    true = np.concatenate([
+        tile_counts(boxes, np.shape(img)[0], tile_size)
+        for img, boxes, _ in frames
+    ]).astype(np.float64)
+    return PreparedFrames(tiles_sp, tiles_gd, moments, roi_std, true, n)
+
+
+def prepare_frames_multi(workloads, tile_size: int, sp_size: int,
+                         gd_size: int, frame_bucket: int = FRAME_BUCKET,
+                         with_stats: bool = True, defer_stats: bool = False,
+                         device="cuda"):
+    """Constellation-batched capture: the frames of many workloads (one a
+    satellite) share frame buckets, and the outputs split back into one
+    :class:`PreparedFrames` a workload.
+
+    Counterpart of ``repro/core/engine.py``'s ``prepare_frames_multi``.
+    The frame program is per-sample and every bucket has the same shape,
+    so each workload's real rows equal :func:`prepare_frames` on it
+    alone, while the fleet pays the padded bucket once: 8 satellites of
+    2 frames run 4 full buckets, not 8 half-empty ones. With one frame
+    resolution the fleet's ROI rows come to the host in one copy.
+
+    ``defer_stats=True`` skips that copy: each workload's ``roi_std`` is
+    then a device slice (the same values), fetched by the caller when a
+    policy reads it. ``device`` is "cuda" (the default; raises without a
+    card) or "cpu".
+    """
+    device = resolve_device(device)
+    flat = [f for w in workloads for f in w]
+    if not flat:
+        return [_empty_prepared(sp_size, gd_size, device, with_stats)
+                for _ in workloads]
+    shapes = {np.shape(img) for img, _, _ in flat}
+    out, pos = [], 0
+    if len(shapes) == 1:
+        # one resolution: the buckets hold the workloads back to back,
+        # each a contiguous slice of the concatenated outputs
+        (shape,) = shapes
+        chunks = _bucketed_chunks([img for img, _, _ in flat], shape,
+                                  tile_size, sp_size, gd_size, frame_bucket,
+                                  device, with_stats=with_stats)
+        ntile = chunks[0][0].shape[0] // frame_bucket
+        cat = (list(chunks[0]) if len(chunks) == 1 else
+               [torch.cat([ck[j] for ck in chunks]) for j in range(len(chunks[0]))])
+        roi_all = cat[3] if with_stats else None
+        if with_stats and not defer_stats:
+            roi_all = roi_all.cpu().numpy()  # one copy for the fleet
+        for w in workloads:
+            if not w:
+                out.append(_empty_prepared(sp_size, gd_size, device, with_stats))
+                continue
+            rows = slice(pos * ntile, (pos + len(w)) * ntile)
+            pos += len(w)
+            out.append(_assemble_lane([tuple(a[rows] for a in cat)], w, tile_size,
+                                      roi_std=roi_all[rows] if with_stats else None))
+        return out
+    per_frame = _per_frame_pieces(flat, tile_size, sp_size, gd_size,
+                                  frame_bucket, device, with_stats=with_stats)
+    for w in workloads:
+        if not w:
+            out.append(_empty_prepared(sp_size, gd_size, device, with_stats))
+            continue
+        parts = per_frame[pos:pos + len(w)]
+        pos += len(w)
+        out.append(_assemble_lane(parts, w, tile_size, defer_stats=defer_stats))
+    return out

@@ -61,6 +61,12 @@ class Segment:
     bytes_requested: float = 0.0
     bytes_spent: float = 0.0
     pred: Optional[np.ndarray] = None
+    # fault state (repro_torch.core.faults): failed transmission attempts,
+    # the retry backoff, and whether the last attempt was discarded
+    retries: int = 0
+    eligible_round: int = 0
+    requeued: bool = False
+    corrupted: bool = False
 
 
 @dataclass
@@ -125,13 +131,25 @@ class Capture(Stage):
         seg.true, seg.n = prep.true, prep.n
 
     def admit(self, mission, seg):
+        energy = self.entitle(mission, seg)
+        mission.ledger.grant(energy)
+        mission.ledger.charge_capture(len(seg.frames))
+        self.init_state(mission, seg)
+
+    @staticmethod
+    def entitle(mission, seg) -> float:
+        """Record the slice's day-fraction entitlements on the segment ->
+        its energy grant (the fleet grants a whole constellation's in one
+        ledger op)."""
         energy, byte_budget, _ = budgets_for(mission.pcfg, seg.n)
         if seg.energy_grant_override is not None:
             energy = float(seg.energy_grant_override)
         seg.energy_granted_j = energy
         seg.byte_entitlement = byte_budget
-        mission.ledger.grant(energy)
-        mission.ledger.charge_capture(len(seg.frames))
+        return energy
+
+    @staticmethod
+    def init_state(mission, seg):
         seg.active = np.ones(seg.n, bool)
         seg.rep_of = np.arange(seg.n)
         seg.conf = np.full(seg.n, -1.0)
@@ -341,13 +359,24 @@ class Mission:
 
     # -- streaming API ------------------------------------------------------
 
-    def ingest(self, frames, energy_budget_j: float = None) -> IngestReport:
+    def ingest(self, frames, energy_budget_j: float = None, *,
+               blackout: bool = False) -> IngestReport:
         """Run the onboard stages over one frame batch (an orbital pass).
 
         Grants the slice's day-fraction energy budget (or an explicit
         ``energy_budget_j``) to the persistent ledger first; onboard
         counting then runs under whatever energy remains mission-wide.
+
+        ``blackout=True`` skips the pass (a satellite brownout injected by
+        :mod:`repro_torch.core.faults`): no segment, nothing granted or
+        charged, the stream state untouched.
         """
+        if blackout:
+            return IngestReport(
+                n_frames=0, n_tiles=0, tiles_processed_space=0,
+                energy_granted_j=0.0,
+                energy_remaining_j=self.ledger.remaining,
+                byte_entitlement=0.0)
         self._finalized = False
         seg = Segment(frames=list(frames),
                       energy_grant_override=energy_budget_j)
@@ -368,19 +397,44 @@ class Mission:
         accumulated entitlement); unspent budget flows to later segments.
         After :meth:`finalize` (and before a new ingest) this is a no-op.
         """
-        if self._finalized and not self._pending:
-            return WindowReport(budget_bytes=0.0, bytes_requested=0.0,
-                                bytes_spent=0.0, tiles_downlinked=0,
-                                segments=0)
-        segs, self._pending = self._pending, []
-        if budget_bytes is None:
-            budget_bytes = sum(s.byte_entitlement for s in segs)
-        budget_bytes = clamp_budget_bytes(budget_bytes)
-        window = ContactWindow(budget=budget_bytes, remaining=budget_bytes)
-        self.bytes_ledger.budget += window.budget
+        if self._window_is_noop():
+            return self._drained_window_report()
+        segs, window = self._open_window(budget_bytes)
         for seg in segs:
             for stage in self.contact_stages:
                 stage.run(self, seg, window)
+        return self._window_report(window, segs)
+
+    # the window protocol's pieces, shared with the fleet's batched
+    # contact rounds (repro_torch.core.contact)
+
+    def _window_is_noop(self) -> bool:
+        return self._finalized and not self._pending
+
+    @staticmethod
+    def _drained_window_report() -> WindowReport:
+        return WindowReport(budget_bytes=0.0, bytes_requested=0.0,
+                            bytes_spent=0.0, tiles_downlinked=0, segments=0)
+
+    def _open_window(self, budget_bytes, accrue: bool = True):
+        """Pop the pending segments and open one window (default budget:
+        their entitlement). Re-queued segments (failed transmissions
+        awaiting a retry) accrued theirs in their first window and do
+        not count again. ``accrue=False`` leaves the byte ledger to the
+        caller (the batched contact round accrues all its windows in one
+        op)."""
+        segs, self._pending = self._pending, []
+        if budget_bytes is None:
+            budget_bytes = sum(s.byte_entitlement for s in segs
+                               if not s.requeued)
+        budget_bytes = clamp_budget_bytes(budget_bytes)
+        window = ContactWindow(budget=budget_bytes, remaining=budget_bytes)
+        if accrue:
+            self.bytes_ledger.budget += window.budget
+        return segs, window
+
+    @staticmethod
+    def _window_report(window: ContactWindow, segs) -> WindowReport:
         return WindowReport(
             budget_bytes=window.budget,
             bytes_requested=sum(s.bytes_requested for s in segs),

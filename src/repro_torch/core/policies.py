@@ -7,16 +7,22 @@ name. A policy declares which optional ingest stages apply to it
 onboard state of one segment plus a window's byte budget to a
 :class:`Selection`. ``PipelineConfig.method`` names the policy;
 ``PipelineConfig.policy`` is the throttle fill order.
+
+The batched contact tier (:mod:`repro_torch.core.contact`) hands a
+policy the lanes of one drain step at once (:class:`PolicyContextBatch`,
+one lane a window) through :meth:`SelectionPolicy.select_batch`: the
+two-threshold policies run every lane's throttle in one
+``throttle_padded_batch`` call; the others select lane by lane.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import TYPE_CHECKING, Dict, Type
+from dataclasses import dataclass, field
+from typing import TYPE_CHECKING, Dict, List, Sequence, Tuple, Type
 
 import numpy as np
 
 from repro_torch.core.dedup import bucket_size
-from repro_torch.core.throttle import throttle_padded
+from repro_torch.core.throttle import throttle_padded, throttle_padded_batch
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.pipeline import PipelineConfig
@@ -46,8 +52,83 @@ class Selection:
     #                            window budget; the ledger charges capped)
 
 
+@dataclass
+class PolicyContextBatch:
+    """Lane-stacked :class:`PolicyContext`: L windows' segments as
+    (L, n_max) padded arrays. Pad slots are inert (``active`` and
+    ``processed`` False, ``conf`` -1, ``rep_of`` -1); :meth:`lane` gives
+    back lane i's :class:`PolicyContext` (row slices equal to the
+    segment's arrays). ``policies`` holds each lane's own policy
+    instance."""
+
+    n: np.ndarray            # (L,) int64 per-lane tile counts
+    active: np.ndarray       # (L, n_max) bool
+    rep_of: np.ndarray       # (L, n_max) int64 (pad slots -1)
+    conf: np.ndarray         # (L, n_max) f64   (pad slots -1)
+    counts_sp: np.ndarray    # (L, n_max) f64
+    processed: np.ndarray    # (L, n_max) bool
+    tile_bytes: np.ndarray   # (L,) f64
+    pcfgs: Tuple             # per-lane PipelineConfig
+    policies: Tuple          # per-lane SelectionPolicy instances
+
+    @property
+    def n_lanes(self) -> int:
+        return len(self.pcfgs)
+
+    @classmethod
+    def stack(cls, ctxs: Sequence[PolicyContext],
+              policies: Sequence["SelectionPolicy"]) -> "PolicyContextBatch":
+        L = len(ctxs)
+        n = np.array([c.n for c in ctxs], np.int64)
+        n_max = max(int(n.max()) if L else 0, 1)
+
+        def pack(fld, dtype, fill):
+            out = np.full((L, n_max), fill, dtype)
+            for i, c in enumerate(ctxs):
+                out[i, :c.n] = getattr(c, fld)
+            return out
+
+        return cls(
+            n=n,
+            active=pack("active", bool, False),
+            rep_of=pack("rep_of", np.int64, -1),
+            conf=pack("conf", np.float64, -1.0),
+            counts_sp=pack("counts_sp", np.float64, 0.0),
+            processed=pack("processed", bool, False),
+            tile_bytes=np.array([c.tile_bytes for c in ctxs], np.float64),
+            pcfgs=tuple(c.pcfg for c in ctxs),
+            policies=tuple(policies))
+
+    def lane(self, i: int) -> PolicyContext:
+        """Lane ``i``'s :class:`PolicyContext` (unpadded row slices)."""
+        n = int(self.n[i])
+        return PolicyContext(
+            n=n, active=self.active[i, :n], rep_of=self.rep_of[i, :n],
+            conf=self.conf[i, :n], counts_sp=self.counts_sp[i, :n],
+            processed=self.processed[i, :n],
+            tile_bytes=float(self.tile_bytes[i]), pcfg=self.pcfgs[i])
+
+
+@dataclass
+class SelectionBatch:
+    """select_batch's output: a :class:`Selection` a lane, and the
+    lanes' requested bytes as one vector."""
+
+    selections: List[Selection]
+    bytes_requested: np.ndarray = field(default=None)  # (L,) f64
+
+    def __post_init__(self):
+        if self.bytes_requested is None:
+            self.bytes_requested = np.array(
+                [s.bytes_requested for s in self.selections], np.float64)
+
+
 class SelectionPolicy:
-    """Base plugin: stage wants + the selection decision."""
+    """Base plugin: stage wants + the selection decision.
+
+    :meth:`select` decides one segment under one budget;
+    :meth:`select_batch` decides the lanes of a drain step, by default
+    through each lane's own policy's :meth:`select`."""
 
     name = "?"
     wants_roi = False       # run the ROI variance filter for this policy
@@ -56,6 +137,14 @@ class SelectionPolicy:
 
     def select(self, ctx: PolicyContext, budget_bytes: float) -> Selection:
         raise NotImplementedError
+
+    def select_batch(self, batch: PolicyContextBatch,
+                     budgets: np.ndarray) -> SelectionBatch:
+        """Lane by lane :meth:`select`, through each lane's own policy
+        instance (the calls the window-by-window loop would make)."""
+        return SelectionBatch([
+            batch.policies[i].select(batch.lane(i), float(budgets[i]))
+            for i in range(batch.n_lanes)])
 
 
 _REGISTRY: Dict[str, Type[SelectionPolicy]] = {}
@@ -172,6 +261,67 @@ class TwoThresholdPolicy(SelectionPolicy):
         use_space = rep_space[ctx.rep_of] & ctx.processed & ~use_ground
         return Selection(use_space, down_all, use_ground,
                          len(down_all) * ctx.tile_bytes)
+
+
+    # the lane-stacked path: the same candidates, budget and tail as
+    # select, with every lane's throttle in one throttle_padded_batch call
+
+    @staticmethod
+    def _reps(ctx) -> np.ndarray:
+        """Processed dedup representatives: the throttle's candidates."""
+        rep_self = ctx.rep_of == np.arange(ctx.n)
+        return np.where(ctx.processed & rep_self)[0]
+
+    def _budget(self, budget_bytes) -> np.float64:
+        return (np.float64(1e18) if self.bandwidth_oblivious
+                else np.float64(budget_bytes))
+
+    @staticmethod
+    def _finish(ctx, rep_idx, budget, space_m, down_m):
+        """One lane's tail after the throttle: leftover-bandwidth raw
+        downlink of unprocessed reps, then the rep-expanded masks."""
+        n = ctx.n
+        rep_self = ctx.rep_of == np.arange(n)
+        down_reps = rep_idx[down_m]
+        unproc_reps = np.where(ctx.active & rep_self & ~ctx.processed)[0]
+        k_extra = int(max(budget - len(down_reps) * ctx.tile_bytes, 0.0)
+                      // ctx.tile_bytes)
+        down_all = np.concatenate([down_reps,
+                                   unproc_reps[:k_extra]]).astype(np.int64)
+        rep_space = np.zeros(n, bool)
+        rep_space[rep_idx[space_m]] = True
+        rep_down = np.zeros(n, bool)
+        rep_down[down_all] = True
+        use_ground = rep_down[ctx.rep_of] & ctx.active
+        use_space = rep_space[ctx.rep_of] & ctx.processed & ~use_ground
+        return Selection(use_space, down_all, use_ground,
+                         len(down_all) * ctx.tile_bytes)
+
+    def select_batch(self, batch, budgets):
+        """Every lane's candidates in one ``throttle_padded_batch`` call a
+        fill order, each padded to the bucket of the fill order's longest
+        candidate set (a lane's masks do not depend on its padding)."""
+        L = batch.n_lanes
+        ctxs = [batch.lane(i) for i in range(L)]
+        rep_idxs = [self._reps(c) for c in ctxs]
+        budget_eff = np.array([self._budget(float(budgets[i])) for i in range(L)],
+                              np.float64)
+        masks: list = [None] * L
+        by_fill: Dict[str, list] = {}
+        for i, c in enumerate(ctxs):
+            by_fill.setdefault(c.pcfg.policy, []).append(i)
+        for fill, ids in by_fill.items():
+            n_pad = bucket_size(max(max(len(rep_idxs[i]) for i in ids), 1))
+            res = throttle_padded_batch(
+                [ctxs[i].conf[rep_idxs[i]] for i in ids],
+                [ctxs[i].tile_bytes for i in ids], budget_eff[ids],
+                [ctxs[i].pcfg.conf_p for i in ids],
+                [ctxs[i].pcfg.conf_q for i in ids], fill, n_pad=n_pad)
+            for i, m in zip(ids, res):
+                masks[i] = m
+        return SelectionBatch(
+            [self._finish(ctxs[i], rep_idxs[i], np.float64(budget_eff[i]), *masks[i])
+             for i in range(L)])
 
 
 @register_policy("targetfuse")

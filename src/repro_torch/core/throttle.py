@@ -96,6 +96,74 @@ def throttle_padded(conf, tile_bytes: float, budget_bytes, conf_p: float,
     return tr.space.numpy()[:n], tr.downlink.numpy()[:n]
 
 
+def _throttle_lanes(conf, sizes, budgets, conf_p, conf_q, active, policy: str):
+    """:func:`throttle` over a leading lane axis: conf, sizes, active
+    (L, N); budgets, conf_p, conf_q (L,) -> (space, downlink) (L, N) bool.
+    Each row takes the one-lane arithmetic (float32, a stable sort and a
+    cumulative sum along the row), so a lane's masks equal
+    :func:`throttle` on that lane's row."""
+    if policy not in POLICIES:
+        raise ValueError(f"unknown policy {policy!r}")
+    conf, sizes = _f32(conf), _f32(sizes)
+    budget = _f32(budgets)[:, None]
+    conf_p, conf_q = _f32(conf_p)[:, None], _f32(conf_q)[:, None]
+    active = torch.as_tensor(active, dtype=torch.bool)
+    conf = torch.where(active, conf, -1.0)
+
+    discard = active & (conf < conf_p)
+    high = active & (conf > conf_q)
+    middle = active & ~discard & ~high
+
+    key = torch.where(middle, conf if policy == "low_conf_first" else -conf,
+                      torch.inf)
+    order = torch.argsort(key, dim=1, stable=True)       # middles first
+    sz = torch.where(middle, sizes, 0.0).gather(1, order)
+    fits = (torch.cumsum(sz, 1) <= budget) & middle.gather(1, order)
+    downlink = torch.zeros_like(active).scatter(1, order, fits)
+    leftover = middle & ~downlink
+    space = high if policy == "fixed_conf" else high | leftover
+    return space, downlink
+
+
+def throttle_padded_batch(conf, tile_bytes, budgets, conf_p, conf_q,
+                          policy: str = "dynamic_conf", n_pad: int = None):
+    """Lane-stacked :func:`throttle_padded`: the candidate sets of L
+    contact windows in one call.
+
+    Counterpart of ``repro/core/throttle.py``'s ``throttle_padded_batch``.
+    ``conf``: L host (n_l,) confidence vectors (ragged); ``tile_bytes``,
+    ``budgets``, ``conf_p``, ``conf_q``: (L,) per-lane scalars. Every lane
+    is padded to ``n_pad`` inactive slots (default: the longest lane), so
+    its masks equal the one-lane call's whatever its own bucket. The
+    reference also pads the lane count to a power of two to bound its
+    compiles; nothing compiles here, so it does not.
+
+    -> ``[(space, downlink), ...]`` host bool masks over each lane's real
+    slots.
+    """
+    ns = [int(np.shape(c)[0]) for c in conf]
+    if not ns:
+        return []
+    n_pad = max(ns + [1]) if n_pad is None else int(n_pad)
+    if n_pad < max(ns):
+        raise ValueError(
+            f"throttle_padded_batch: n_pad={n_pad} < max lane length "
+            f"{max(ns)} would drop real tiles")
+    conf_pad = np.full((len(ns), n_pad), -1.0)
+    act = np.zeros((len(ns), n_pad), bool)
+    for i, (c, n) in enumerate(zip(conf, ns)):
+        conf_pad[i, :n] = c
+        act[i, :n] = True
+    sizes = np.broadcast_to(np.asarray(tile_bytes, np.float64)[:, None],
+                            conf_pad.shape)
+    space, down = _throttle_lanes(conf_pad, np.ascontiguousarray(sizes),
+                                  np.asarray(budgets, np.float64),
+                                  np.asarray(conf_p, np.float64),
+                                  np.asarray(conf_q, np.float64), act, policy)
+    space, down = space.numpy(), down.numpy()
+    return [(space[i, :n], down[i, :n]) for i, n in enumerate(ns)]
+
+
 _BUDGET_TINY = float(np.finfo(np.float64).tiny)
 
 

@@ -65,6 +65,19 @@
 // 16 rows a thread, or more shared memory than a block may hold), a block
 // of 1024 threads reads the rows from L2 each pick and keeps d2 in a
 // scratch buffer of its own.
+//
+// Lane entries, for the fleet's dedup (repro/core/dedup.py, dedup_multi,
+// which vmaps the one-lane dedup over the satellites of one (n_pad, k_pad)
+// bucket): kmeans_assign_lanes_f32 is kmeans_assign_f32 over L lanes in
+// one launch, the lane from blockIdx.y (a copy of the kernel, the pointers
+// offset by the lane); kmeanspp_seed_lanes_f32 runs the seeding of L lanes
+// in one launch, one block a lane, through the same device function as
+// kmeanspp_seed_f32 (kmeanspp_smem_body / kmeanspp_l2_body), with each
+// lane's n, first pick and k read from a device vector. Lane l of either
+// equals the one-lane entry on lane l's inputs bit for bit. Bound: the
+// same as the one-lane entries, L times the bytes and operations; the
+// seeding's L blocks run their chains side by side on L SMs, so a bucket
+// of up to 132 lanes seeds in about one lane's latency.
 #include <cuda_pipeline.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -230,11 +243,14 @@ __device__ __forceinline__ float one_d2(const float* r, float x2, const float (&
 }
 
 // x in shared memory, R rows a thread (tid + r * blockDim.x) with their
-// running d2 in registers
+// running d2 in registers; the seeding of one lane by one block, shared
+// by kmeanspp_smem_kernel (one lane) and kmeanspp_smem_lanes_kernel (a
+// lane a block)
 template <int R>
-__global__ void __launch_bounds__(kSeedThreads)
-kmeanspp_smem_kernel(const float* __restrict__ x, float* __restrict__ cents,
-                     int* __restrict__ picks, int n, int d, int first, int k, int k_pad) {
+__device__ __forceinline__ void kmeanspp_smem_body(const float* __restrict__ x,
+                                                   float* __restrict__ cents,
+                                                   int* __restrict__ picks, int n, int d,
+                                                   int first, int k, int k_pad) {
   extern __shared__ float smem[];
   float* xs = smem;          // (n, d)
   float* x2s = smem + n * d;  // (n,)
@@ -275,12 +291,21 @@ kmeanspp_smem_kernel(const float* __restrict__ x, float* __restrict__ cents,
   }
 }
 
+template <int R>
+__global__ void __launch_bounds__(kSeedThreads)
+kmeanspp_smem_kernel(const float* __restrict__ x, float* __restrict__ cents,
+                     int* __restrict__ picks, int n, int d, int first, int k, int k_pad) {
+  kmeanspp_smem_body<R>(x, cents, picks, n, d, first, k, k_pad);
+}
+
 // x read from L2 each pick, d2 in the scratch buffer (each thread reads
-// and writes only its own rows)
-__global__ void __launch_bounds__(kSeedL2Threads)
-kmeanspp_l2_kernel(const float* __restrict__ x, float* __restrict__ cents,
-                   int* __restrict__ picks, float* __restrict__ d2g, int n, int d, int first,
-                   int k, int k_pad) {
+// and writes only its own rows); shared by kmeanspp_l2_kernel and
+// kmeanspp_l2_lanes_kernel as the shared-memory body is
+__device__ __forceinline__ void kmeanspp_l2_body(const float* __restrict__ x,
+                                                 float* __restrict__ cents,
+                                                 int* __restrict__ picks,
+                                                 float* __restrict__ d2g, int n, int d,
+                                                 int first, int k, int k_pad) {
   const int tid = threadIdx.x, nt = blockDim.x;
   const int kk = seed_tail(cents, picks, d, k, k_pad);
   if (kk == 0) return;
@@ -310,6 +335,135 @@ kmeanspp_l2_kernel(const float* __restrict__ x, float* __restrict__ cents,
     }
     nxt = block_argmax(bv, bi, i & 1);
   }
+}
+
+__global__ void __launch_bounds__(kSeedL2Threads)
+kmeanspp_l2_kernel(const float* __restrict__ x, float* __restrict__ cents,
+                   int* __restrict__ picks, float* __restrict__ d2g, int n, int d, int first,
+                   int k, int k_pad) {
+  kmeanspp_l2_body(x, cents, picks, d2g, n, d, first, k, k_pad);
+}
+
+// ---------------------------------------------------------------------------
+// lane entries (kmeans_assign_lanes_f32, kmeanspp_seed_lanes_f32): the
+// same work for L independent dedup lanes of one (n_pad, k_pad) bucket in
+// one launch, lane l's rows at x + l * n * d
+// ---------------------------------------------------------------------------
+
+// kmeans_assign_kernel with the lane taken from blockIdx.y: one warp a row,
+// the same table staging, arithmetic and lexicographic shuffle minimum, so
+// lane l equals kmeans_assign_f32 on (x[l], c[l]) bit for bit
+template <int MAXD>
+__global__ void __launch_bounds__(kAssignWarps * 32)
+kmeans_assign_lanes_kernel(const float* __restrict__ x, const float* __restrict__ c,
+                           int* __restrict__ assign, float* __restrict__ dist, int n, int k,
+                           int d, int ld, int kc) {
+  extern __shared__ float smem[];
+  float* cs = smem;             // (kc, ld) centroids of this chunk, ld = d | 1
+  float* c2s = smem + kc * ld;  // (kc,) their sums of squares
+  const long long lane_id = blockIdx.y;
+  x += lane_id * n * d;
+  c += lane_id * k * d;
+  assign += lane_id * n;
+  dist += lane_id * n;
+  const int lane = threadIdx.x % 32;
+  const int row = blockIdx.x * kAssignWarps + threadIdx.x / 32;
+  const bool live = row < n;  // the same for the whole warp
+
+  float xr[MAXD];
+  float x2 = 0.f;
+#pragma unroll
+  for (int j = 0; j < MAXD; ++j) {
+    xr[j] = (live && j < d) ? x[(long long)row * d + j] : 0.f;
+    x2 = fmaf(xr[j], xr[j], x2);
+  }
+
+  float best = INFINITY;
+  int best_j = INT_MAX;  // none yet
+  for (int k0 = 0; k0 < k; k0 += kc) {
+    const int rows = min(kc, k - k0);
+    __syncthreads();  // the previous chunk is no longer read
+    for (int i = threadIdx.x; i < rows * d; i += blockDim.x) {
+      __pipeline_memcpy_async(cs + (i / d) * ld + i % d, c + (long long)k0 * d + i,
+                              sizeof(float));
+    }
+    __pipeline_commit();
+    __pipeline_wait_prior(0);
+    __syncthreads();
+    for (int i = threadIdx.x; i < rows; i += blockDim.x) {
+      float s = 0.f;
+      for (int j = 0; j < d; ++j) s = fmaf(cs[i * ld + j], cs[i * ld + j], s);
+      c2s[i] = s;
+    }
+    __syncthreads();
+    if (live) {
+      for (int i = lane; i < rows; i += 32) {
+        const float* ci = cs + i * ld;
+        float dot = 0.f;
+#pragma unroll
+        for (int j = 0; j < MAXD; ++j) {
+          if (j < d) dot = fmaf(xr[j], ci[j], dot);
+        }
+        const float d2 = __fadd_rn(__fsub_rn(x2, __fmul_rn(2.f, dot)), c2s[i]);
+        if (d2 < best) {
+          best = d2;
+          best_j = k0 + i;
+        }
+      }
+    }
+  }
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) {
+    const float ov = __shfl_xor_sync(0xffffffffu, best, off);
+    const int oj = __shfl_xor_sync(0xffffffffu, best_j, off);
+    if (ov < best || (!(best < ov) && oj < best_j)) {
+      best = ov;
+      best_j = oj;
+    }
+  }
+  if (live && lane == 0) {
+    assign[row] = best_j == INT_MAX ? 0 : best_j;
+    dist[row] = fmaxf(best, 0.f);
+  }
+}
+
+template <int MAXD>
+int launch_lanes(const float* x, const float* c, int* assign, float* dist, int lanes, int n,
+                 int k, int d, cudaStream_t stream) {
+  const int ld = d | 1;
+  const int kc = std::max(1, std::min(k, kChunkFloats / (ld + 1)));
+  const size_t smem = (size_t)kc * (ld + 1) * sizeof(float);
+  const dim3 grid((n + kAssignWarps - 1) / kAssignWarps, lanes);
+  kmeans_assign_lanes_kernel<MAXD><<<grid, kAssignWarps * 32, smem, stream>>>(
+      x, c, assign, dist, n, k, d, ld, kc);
+  return (int)cudaGetLastError();
+}
+
+// the seeding, a lane a block: each block runs the one-lane body on its
+// lane's rows with that lane's n, first and k. The block size, rows a
+// thread and shared memory follow n_pad (every lane's bound); the pick
+// sequence does not depend on them (see block_argmax), so lane l equals
+// kmeanspp_seed_f32 on (x[l], n[l], first[l], k[l]) bit for bit
+template <int R>
+__global__ void __launch_bounds__(kSeedThreads)
+kmeanspp_smem_lanes_kernel(const float* __restrict__ x, float* __restrict__ cents,
+                           int* __restrict__ picks, const int* __restrict__ lane_args,
+                           int lanes, int n_pad, int d, int k_pad) {
+  const int l = blockIdx.x;
+  kmeanspp_smem_body<R>(x + (long long)l * n_pad * d, cents + (long long)l * k_pad * d,
+                        picks + (long long)l * k_pad, lane_args[l], d,
+                        lane_args[lanes + l], lane_args[2 * lanes + l], k_pad);
+}
+
+__global__ void __launch_bounds__(kSeedL2Threads)
+kmeanspp_l2_lanes_kernel(const float* __restrict__ x, float* __restrict__ cents,
+                         int* __restrict__ picks, float* __restrict__ d2g,
+                         const int* __restrict__ lane_args, int lanes, int n_pad, int d,
+                         int k_pad) {
+  const int l = blockIdx.x;
+  kmeanspp_l2_body(x + (long long)l * n_pad * d, cents + (long long)l * k_pad * d,
+                   picks + (long long)l * k_pad, d2g + (long long)l * n_pad, lane_args[l], d,
+                   lane_args[lanes + l], lane_args[2 * lanes + l], k_pad);
 }
 
 }  // namespace
@@ -359,6 +513,60 @@ extern "C" int kmeanspp_seed_f32(const void* x, void* cents, void* picks, void* 
   } else {
     kmeanspp_l2_kernel<<<1, kSeedL2Threads, 0, s>>>(xf, cf, pi, (float*)scratch, n, d, first, k,
                                                   k_pad);
+  }
+  return (int)cudaGetLastError();
+}
+
+// x: (lanes, n, d) float32 and c: (lanes, k, d) float32, both contiguous;
+// assign: (lanes, n) int32; dist: (lanes, n) float32. Requires lanes in
+// [1, 65535], n >= 1, k >= 1 and 1 <= d <= 128. Returns cudaGetLastError().
+extern "C" int kmeans_assign_lanes_f32(const void* x, const void* c, void* assign, void* dist,
+                                       int lanes, int n, int k, int d, void* stream) {
+  if (lanes < 1 || lanes > 65535 || n < 1 || k < 1 || d < 1 || d > 128)
+    return (int)cudaErrorInvalidValue;
+  const float* xf = (const float*)x;
+  const float* cf = (const float*)c;
+  cudaStream_t s = (cudaStream_t)stream;
+  if (d <= 16) return launch_lanes<16>(xf, cf, (int*)assign, (float*)dist, lanes, n, k, d, s);
+  return launch_lanes<128>(xf, cf, (int*)assign, (float*)dist, lanes, n, k, d, s);
+}
+
+// x: (lanes, n_pad, d) float32 contiguous, lane l's real rows in
+// [:n[l]]; lane_args: (3, lanes) int32 on the device, the rows n, first
+// picks and k of every lane (1 <= n <= n_pad, 0 <= first < n, k >= 0;
+// the caller checks them); cents: (lanes, k_pad, d) float32; picks:
+// (lanes, k_pad) int32; scratch: (lanes, n_pad) float32, used only when
+// x does not fit in shared memory. Requires 1 <= d <= 16, k_pad >= 0.
+// One block a lane. Returns cudaGetLastError() (or cudaErrorInvalidValue
+// for arguments it refuses).
+extern "C" int kmeanspp_seed_lanes_f32(const void* x, void* cents, void* picks, void* scratch,
+                                       const void* lane_args, int lanes, int n_pad, int d,
+                                       int k_pad, void* stream) {
+  if (lanes < 1 || n_pad < 1 || d < 1 || d > kSeedMaxD || k_pad < 0)
+    return (int)cudaErrorInvalidValue;
+  if (k_pad == 0) return (int)cudaGetLastError();
+  const float* xf = (const float*)x;
+  float* cf = (float*)cents;
+  int* pi = (int*)picks;
+  const int* args = (const int*)lane_args;
+  cudaStream_t s = (cudaStream_t)stream;
+  const int threads = std::min(kSeedThreads, (n_pad + 31) / 32 * 32);
+  const int rows = (n_pad + threads - 1) / threads;
+  const size_t smem = (size_t)n_pad * (d + 1) * sizeof(float);
+  if (rows <= kSeedMaxRows && smem <= kSeedSmemMax) {
+    void (*kernel)(const float*, float*, int*, const int*, int, int, int, int) =
+        rows == 1   ? kmeanspp_smem_lanes_kernel<1>
+        : rows == 2 ? kmeanspp_smem_lanes_kernel<2>
+        : rows <= 4 ? kmeanspp_smem_lanes_kernel<4>
+        : rows <= 8 ? kmeanspp_smem_lanes_kernel<8>
+                    : kmeanspp_smem_lanes_kernel<16>;
+    cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    kernel<<<lanes, threads, smem, s>>>(xf, cf, pi, args, lanes, n_pad, d, k_pad);
+  } else {
+    kmeanspp_l2_lanes_kernel<<<lanes, kSeedL2Threads, 0, s>>>(xf, cf, pi, (float*)scratch, args,
+                                                            lanes, n_pad, d, k_pad);
   }
   return (int)cudaGetLastError();
 }

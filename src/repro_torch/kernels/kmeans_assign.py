@@ -23,6 +23,15 @@ holds two entries, each with its caller:
 Both keep the reference's formula and roundings (see the source) and
 equal their plain versions, ``ref.kmeans_assign`` and
 ``ref.kmeanspp_seed``, bit for bit. They take CUDA tensors only.
+
+Two lane entries serve the fleet's dedup (``dedup_multi``), where the
+reference vmaps the one-lane dedup over a bucket of satellites:
+``kmeans_assign_lanes_f32`` (:func:`kmeans_assign_lanes`) and
+``kmeanspp_seed_lanes_f32`` (:func:`kmeanspp_seed_lanes`) do the work of
+the one-lane entries for L lanes in one launch; lane l equals the
+one-lane entry on lane l's inputs bit for bit (plain versions
+``ref.kmeans_assign_lanes`` and ``ref.kmeanspp_seed_lanes``, loops of the
+one-lane plain versions).
 """
 from __future__ import annotations
 
@@ -32,7 +41,9 @@ from repro_torch.kernels._build import I, P, CudaKernel
 
 KERNEL = CudaKernel("kmeans_assign",
                     {"kmeans_assign_f32": [P, P, P, P, I, I, I, P],
-                     "kmeanspp_seed_f32": [P, P, P, P, I, I, I, I, I, P]})
+                     "kmeanspp_seed_f32": [P, P, P, P, I, I, I, I, I, P],
+                     "kmeans_assign_lanes_f32": [P, P, P, P, I, I, I, I, P],
+                     "kmeanspp_seed_lanes_f32": [P, P, P, P, P, I, I, I, I, P]})
 MAX_D = 128
 SEED_MAX_D = 16  # the dedup's D is 3C = 9; the seeding kernel holds 16
 
@@ -87,4 +98,67 @@ def kmeanspp_seed(x: torch.Tensor, n: int, first: int, k: int, k_pad: int):
         KERNEL.launch("kmeanspp_seed_f32", x.data_ptr(), cents.data_ptr(),
                       picks.data_ptr(), scratch.data_ptr(), n, d, first, k,
                       k_pad, stream)
+    return cents, picks
+
+
+def _check_lanes(x: torch.Tensor, name: str = "x"):
+    if x.dtype != torch.float32 or x.dim() != 3 or not x.is_contiguous():
+        raise ValueError(f"the lane entries take contiguous 3-D float32 "
+                         f"{name}, got {tuple(x.shape)} {x.dtype}")
+
+
+def kmeans_assign_lanes(x: torch.Tensor, centroids: torch.Tensor):
+    """x (L, N, D), centroids (L, K, D), float32 contiguous on one CUDA
+    device -> (assign (L, N) int32, sqdist (L, N) float32); lane l is
+    :func:`kmeans_assign` of (x[l], centroids[l])."""
+    if not (x.is_cuda and centroids.is_cuda) or x.device != centroids.device:
+        raise ValueError("kmeans_assign_lanes kernel takes CUDA tensors on one device")
+    _check_lanes(x)
+    _check_lanes(centroids, "centroids")
+    lanes, n, d = x.shape
+    k = centroids.shape[1]
+    if (centroids.shape[0] != lanes or centroids.shape[2] != d
+            or not 1 <= d <= MAX_D or k == 0 or not 1 <= lanes <= 65535):
+        raise ValueError(f"kmeans_assign_lanes takes (L, N, D), (L, K >= 1, D) with "
+                         f"1 <= D <= {MAX_D}, 1 <= L <= 65535, got {tuple(x.shape)}, "
+                         f"{tuple(centroids.shape)}")
+    assign = torch.empty((lanes, n), dtype=torch.int32, device=x.device)
+    dist = torch.empty((lanes, n), dtype=torch.float32, device=x.device)
+    if n:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        KERNEL.launch("kmeans_assign_lanes_f32", x.data_ptr(), centroids.data_ptr(),
+                      assign.data_ptr(), dist.data_ptr(), lanes, n, k, d, stream)
+    return assign, dist
+
+
+def kmeanspp_seed_lanes(x: torch.Tensor, n, first, k, k_pad: int):
+    """x (L, n_pad, D) float32 contiguous on a CUDA device; ``n``,
+    ``first`` and ``k``: L ints each, lane l's real rows, first pick and
+    cluster count -> (centroids (L, k_pad, D), picks (L, k_pad) int32);
+    lane l is :func:`kmeanspp_seed` of (x[l], n[l], first[l], k[l],
+    k_pad). The three vectors go to the card in one copy."""
+    if not x.is_cuda:
+        raise ValueError("kmeanspp_seed_lanes kernel takes a CUDA tensor")
+    _check_lanes(x)
+    lanes, n_pad, d = x.shape
+    args = [[int(v) for v in vec] for vec in (n, first, k)]
+    k_pad = int(k_pad)
+    ok = (1 <= d <= SEED_MAX_D and 1 <= lanes <= 65535 and k_pad >= 0
+          and all(len(vec) == lanes for vec in args)
+          and all(1 <= nl <= n_pad and 0 <= fl < nl and kl >= 0
+                  for nl, fl, kl in zip(*args)))
+    if not ok:
+        raise ValueError(f"kmeanspp_seed_lanes takes x (L, n_pad, D <= {SEED_MAX_D}) and "
+                         f"per lane 1 <= n <= n_pad, 0 <= first < n, k >= 0; got "
+                         f"{tuple(x.shape)}, n {args[0]}, first {args[1]}, k {args[2]}, "
+                         f"k_pad {k_pad}")
+    cents = torch.empty((lanes, k_pad, d), dtype=torch.float32, device=x.device)
+    picks = torch.empty((lanes, k_pad), dtype=torch.int32, device=x.device)
+    scratch = torch.empty((lanes, n_pad), dtype=torch.float32, device=x.device)
+    lane_args = torch.tensor(args, dtype=torch.int32).to(x.device)
+    if k_pad:
+        stream = torch.cuda.current_stream(x.device).cuda_stream
+        KERNEL.launch("kmeanspp_seed_lanes_f32", x.data_ptr(), cents.data_ptr(),
+                      picks.data_ptr(), scratch.data_ptr(), lane_args.data_ptr(), lanes,
+                      n_pad, d, k_pad, stream)
     return cents, picks

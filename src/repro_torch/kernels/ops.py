@@ -3,12 +3,15 @@
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain PyTorch version in :mod:`ref`. There is
 no switch and no fallback: the device of the data decides. Three kernels
-have two entries in their one source:
+have more than one entry in their one source:
 
 - ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``kmeans_assign`` runs
   the dedup's Lloyd steps and final assignment (``kmeans_assign_f32``);
   ``kmeanspp_seed`` runs its whole k-means++ seeding in one launch
-  (``kmeanspp_seed_f32``). The seeding kernel holds a row's features in
+  (``kmeanspp_seed_f32``); ``kmeans_assign_lanes`` and
+  ``kmeanspp_seed_lanes`` do the same for the L lanes of the fleet's
+  dedup in one launch each (``kmeans_assign_lanes_f32``,
+  ``kmeanspp_seed_lanes_f32``). The seeding kernel holds a row's features in
   a fixed register array of 16 and raises above that: the dedup's D is
   3C = 9, and no caller has more.
 - ``iou_matrix`` (``csrc/iou.cu``): ``iou_matrix`` gives the IoU
@@ -65,6 +68,22 @@ def kmeanspp_seed(x, n, first, k, k_pad):
     if _on_cuda(x):
         return _kmeans.kmeanspp_seed(x, n, first, k, k_pad)
     return ref.kmeanspp_seed(x, n, first, k, k_pad)
+
+
+def kmeans_assign_lanes(x, centroids):
+    """x (L, N, D), centroids (L, K, D) -> (assign (L, N) int32, sqdist
+    (L, N) float32), lane by lane :func:`kmeans_assign`."""
+    if _on_cuda(x):
+        return _kmeans.kmeans_assign_lanes(x, centroids)
+    return ref.kmeans_assign_lanes(x, centroids)
+
+
+def kmeanspp_seed_lanes(x, n, first, k, k_pad):
+    """The seeding of L dedup lanes -> (centroids (L, k_pad, D), picks
+    (L, k_pad) int32); see :func:`ref.kmeanspp_seed_lanes`."""
+    if _on_cuda(x):
+        return _kmeans.kmeanspp_seed_lanes(x, n, first, k, k_pad)
+    return ref.kmeanspp_seed_lanes(x, n, first, k, k_pad)
 
 
 def iou_matrix(a, b):

@@ -133,6 +133,22 @@ def kmeanspp_seed(x: torch.Tensor, n: int, first: int, k: int, k_pad: int):
     return cents, picks
 
 
+def kmeans_assign_lanes(x: torch.Tensor, centroids: torch.Tensor):
+    """x (L, N, D), centroids (L, K, D) -> (assign (L, N) int32, sqdist
+    (L, N) float32): :func:`kmeans_assign` lane by lane."""
+    outs = [kmeans_assign(x[i], centroids[i]) for i in range(x.shape[0])]
+    return torch.stack([a for a, _ in outs]), torch.stack([d for _, d in outs])
+
+
+def kmeanspp_seed_lanes(x: torch.Tensor, n, first, k, k_pad: int):
+    """x (L, n_pad, D); ``n``, ``first``, ``k``: L ints each ->
+    (centroids (L, k_pad, D), picks (L, k_pad) int32):
+    :func:`kmeanspp_seed` lane by lane."""
+    outs = [kmeanspp_seed(x[i], int(n[i]), int(first[i]), int(k[i]), k_pad)
+            for i in range(x.shape[0])]
+    return torch.stack([c for c, _ in outs]), torch.stack([p for _, p in outs])
+
+
 def iou_matrix(boxes_a: torch.Tensor, boxes_b: torch.Tensor) -> torch.Tensor:
     """xyxy boxes (..., N, 4), (..., M, 4) -> IoU (..., N, M) float32,
     with box areas clamped at 0 and the union at 1e-9. A leading batch

@@ -324,7 +324,9 @@ def test_redesigned_wrappers_refuse_cpu_tensors(call):
 
 def test_entry_sets_and_one_symbol_a_call_are_unchanged():
     assert set(tile_moments.KERNEL.symbols) == {"tile_moments_f32"}
-    assert set(kmeans_assign.KERNEL.symbols) == {"kmeans_assign_f32", "kmeanspp_seed_f32"}
+    assert set(kmeans_assign.KERNEL.symbols) == {"kmeans_assign_f32", "kmeanspp_seed_f32",
+                                                "kmeans_assign_lanes_f32",
+                                                "kmeanspp_seed_lanes_f32"}
     for kernel in (tile_moments.KERNEL, kmeans_assign.KERNEL):
         text = kernel.source.read_text()
         assert set(re.findall(r'extern "C" int (\w+)\(', text)) == set(kernel.symbols)

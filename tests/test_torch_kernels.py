@@ -280,19 +280,27 @@ bad = sorted(m for m in sys.modules
 assert not bad, bad
 assert len(mods) >= 24, mods
 for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
-          "repro_torch.kernels.int8_matmul", "repro_torch.configs.qwen3_8b"):
+          "repro_torch.kernels.int8_matmul", "repro_torch.configs.qwen3_8b",
+          "repro_torch.core.fleet", "repro_torch.core.contact", "repro_torch.core.faults",
+          "repro_torch.core.xfer", "repro_torch.core.fleet_sharding",
+          "repro_torch.data.scenarios"):
     assert m in mods, m
 import torch
 assert not torch.cuda.is_available()
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.engine import prepare_frames
+from repro_torch.core.fleet import Fleet, run_scenario
 from repro_torch.core.mission import Mission
-from repro_torch.core.pipeline import run_pipeline
+from repro_torch.core.pipeline import PipelineConfig, run_pipeline
+from repro_torch.data.scenarios import FleetScenarioSpec, generate_scenario
 from repro_torch.models import detector, lm
 cfg = reduced(get_config("targetfuse-space"))
 lm_cfg = reduced(get_config("qwen3-8b"))
 p = detector.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+sc = generate_scenario(FleetScenarioSpec(n_sats=2, n_rounds=1, frames_per_pass=1))
 for call in (lambda: Mission((p, cfg), (p, cfg)),
+             lambda: Fleet((p, cfg), (p, cfg), PipelineConfig(), n_sats=2),
+             lambda: run_scenario((p, cfg), (p, cfg), PipelineConfig(), sc),
              lambda: run_pipeline([], (p, cfg), (p, cfg)),
              lambda: prepare_frames([], 128, 64, 64),
              lambda: detector.init(torch.Generator().manual_seed(0), cfg),

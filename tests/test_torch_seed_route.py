@@ -192,7 +192,9 @@ def test_int8_routes_are_entries_of_one_library():
 
 
 def test_kmeans_library_has_both_entries():
-    assert set(kmeans_assign.KERNEL.symbols) == {"kmeans_assign_f32", "kmeanspp_seed_f32"}
+    assert set(kmeans_assign.KERNEL.symbols) == {"kmeans_assign_f32", "kmeanspp_seed_f32",
+                                                "kmeans_assign_lanes_f32",
+                                                "kmeanspp_seed_lanes_f32"}
     assert kmeans_assign.KERNEL.source.name == "kmeans_assign.cu"
     assert len(ops.KERNELS) == 5 and kmeans_assign.KERNEL in ops.KERNELS
     assert int8_matmul.KERNEL in ops.KERNELS
