@@ -60,13 +60,23 @@ nothing of JAX or of the reference package ``repro``. Phases:
    one-lane k-means launch in ``Fleet.ingest`` (checked); tiles/s,
    windows/s, the stages' wall times and the launches by entry;
 7. CUDA against CPU: reduced qwen3 in float32, prefill and 3 decode
-   steps on the card (the CUDA-core kernel) and on the CPU (plain version).
+   steps on the card (the CUDA-core kernel) and on the CPU (plain version);
+8. the recount pipeline and the orbital geometry: phase 6's cell at
+   ``async_depth`` 1 and 2 (each round's recount on a worker thread and
+   its own CUDA stream, checked) equal to depth 0 in results, ledgers
+   and ``nms_keep_f32`` launches, and a worker crash recovered by the
+   watchdog at depth 2 equal to depth 0 under the same fault plan,
+   printing tiles/s, windows/s and the recount's hidden share a depth;
+   benchmarks/orbits_bench.py's propagation, elevation and eclipse sizes
+   timed and held against the CPU; fleet_bench's orbital cell (16
+   satellites, 8 sites) generated on the card and run through
+   ``run_scenario``, equal to its FIFO reference and 16 looped Missions.
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
 first phase 2 case and its launches on the main paths: the Mission's
-runs of phase 3, the fleet's of phase 6, qwen3-8b's of phase 5 and
-``int8_matmul``'s one path), then the
+runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
+phase 8, qwen3-8b's of phase 5 and ``int8_matmul``'s one path), then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
 """
@@ -74,6 +84,7 @@ from __future__ import annotations
 
 import inspect
 import json
+import math
 import subprocess
 import sys
 import time
@@ -148,6 +159,30 @@ NMS_CASES = [("main", 64, 507, 128), ("unbatched", None, 507, 128), ("n_37", 64,
              ("all_suppressed", 64, 507, 128), ("none_above", 64, 507, 128),
              ("nan_box", 64, 507, 128), ("k_1000", 4, 1000, 1000)]
 NMS_IOU, NMS_SCORE = 0.25, 0.25  # count_tiles_batched's nms_iou, phase 3's score_thresh
+LEDGER_LANES = ("budget_j", "e_cap", "e_com", "e_agg", "e_down", "bytes_budget",
+                "bytes_requested", "bytes_spent")
+# phase 8: benchmarks/fleet_bench.py's depth sweep (_depth_sweep) on phase
+# 6's cell, and a watchdog no healthy recount round comes near
+FLEET_DEPTHS, WATCHDOG_S = (1, 2), 60.0
+# phase 8: benchmarks/orbits_bench.py's sizes (FULL_SATS x FULL_STEPS at a
+# 60 s grid, the CATALOG_SIZE catalog x 90 steps, 8 stations x 1024 x
+# 1440 elevation, 1024 x 1440 eclipse) and fleet_bench's orbital cell,
+# _orbital_spec(16, 8, seed=6)
+ORBIT_PROP, ORBIT_CATALOG, ORBIT_VIS = (4096, 1440), (14368, 90), (8, 1024, 1440)
+ORBITAL_CELL = (16, 8, 6)
+# phase 8: the CPU runs the first satellites of each orbital case. The
+# card and the CPU do the same IEEE float32 and float64 operations, so
+# positions should be bit-equal; a one-ulp allowance covers an fma the
+# compiler of either side may contract. The elevation takes float64 asin
+# and sqrt, which CUDA computes within 2 ulps of float64: the float32
+# sine may then differ by one ulp, or two with the positions' ulp, so the
+# pass edge moves only where an elevation is within that of the 10
+# degree mask; budgets follow the sine of the pass maximum (5 degree
+# mask of the orbital cell)
+ORBIT_CPU_SATS, ORBIT_POS_ULPS = 256, 1
+ORBIT_SIN_TOL = 4 * 2.0 ** -24
+ORBIT_EDGE_DEG = math.degrees(ORBIT_SIN_TOL / math.cos(math.radians(10.0)))
+ORBIT_BUDGET_RTOL = ORBIT_SIN_TOL / math.sin(math.radians(5.0))
 
 
 def nms_args(g, dev, case, b, n):
@@ -987,6 +1022,7 @@ def phase_fleet(dev, kernels):
     launches = {k.name: k.launches for k in kernels}
     entries = {s: n for k in kernels for s, n in k.symbol_launches.items()}
     summ = fl.summary()
+    ledger = {f: getattr(fl.ledger, f)[:FLEET_SATS].copy() for f in LEDGER_LANES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     # every segment keeps its two tile tensors (a 64-row bucket of 416 px
     # tiles each, ~0.27 GB a pass), so each run's driver is dropped
@@ -1003,17 +1039,14 @@ def phase_fleet(dev, kernels):
     overlap = F.run_scenario(space, ground, pcfg, sc, ingest_overlap=True, device=dev)[0]
     want = F.run_scenario(space, ground, pcfg, sc, fleet=False, device=dev)[0]
 
-    def equal(xs, ys):
-        return [np.array_equal(a.per_tile_pred, b.per_tile_pred) and a.summary() == b.summary()
-                for a, b in zip(xs, ys)]
-    same = equal(got, want)
+    same = same_fleet_results(got, want)
+    same_timed, same_overlap = (all(same_fleet_results(r, got)) for r in (timed, overlap))
     print(f"fleet vs {FLEET_SATS} looped Missions: {sum(same)} of {len(same)} satellites equal "
           f"(per-tile predictions and summaries); the staged run and the ingest_overlap run "
-          f"equal the fleet: {all(equal(timed, got))}, {all(equal(overlap, got))}", flush=True)
+          f"equal the fleet: {same_timed}, {same_overlap}", flush=True)
     check(all(same), f"fleet: satellites {[i for i, e in enumerate(same) if not e]} differ "
                      f"from their looped Missions")
-    check(all(equal(timed, got)) and all(equal(overlap, got)),
-          "fleet: a second run or the ingest_overlap run differs")
+    check(same_timed and same_overlap, "fleet: a second run or the ingest_overlap run differs")
     check(sum(r.tiles_total for r in got) == n_tiles and summ["windows_served"] > 0
           and all(np.isfinite(r.per_tile_pred).all() for r in got)
           and sum(r.tiles_downlinked for r in got) > 0, f"fleet: bad results {summ}")
@@ -1042,7 +1075,299 @@ def phase_fleet(dev, kernels):
           f"{summ['contact_s']:.4f} s); stages (synchronized, second run): "
           + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items()), flush=True)
     print(f"fleet launches by entry: {entries}", flush=True)
-    return launches, entries
+    return launches, entries, dict(results=got, ledger=ledger, summary=summ, entries=entries)
+
+
+# ---------------------------------------------------------------------------
+# phase 8: the recount pipeline at depth >= 1, and the orbital geometry
+# ---------------------------------------------------------------------------
+
+def counted_run(kernels, fn):
+    """Run ``fn`` as a main path: every launch count set to 0 just before
+    and read just after -> (fn's result, launches by kernel, by entry)."""
+    import torch
+    for k in kernels:
+        k.reset()
+    out = fn()
+    torch.cuda.synchronize()
+    return (out, {k.name: k.launches for k in kernels},
+            {s: n for k in kernels for s, n in k.symbol_launches.items()})
+
+
+def same_fleet_results(xs, ys) -> list:
+    import numpy as np
+    return [np.array_equal(a.per_tile_pred, b.per_tile_pred) and a.summary() == b.summary()
+            for a, b in zip(xs, ys, strict=True)]
+
+
+def phase_depth(dev, kernels, base):
+    """benchmarks/fleet_bench.py's depth sweep on the card: phase 6's cell
+    (targetfuse, 32 satellites, 8 stations, 3 rounds) at ``async_depth``
+    1 and 2, each round's ground recount and Aggregate on a worker thread
+    and its own CUDA stream. Checks against phase 6's depth-0 run
+    (``base``): per-satellite predictions and summaries, every ledger
+    lane and the nms_keep_f32 launches equal; at most ``depth`` rounds in
+    flight (``depth`` at depth 2); recount_wait_s <= recount_s; every
+    recount on a worker thread, on a stream other than the foreground's.
+    Then a worker crash in round 1 with the watchdog set, at depth 2,
+    equals the same fault plan at depth 0, one recovery. -> launches by
+    kernel and by entry of the depth runs and the faulty depth-2 run."""
+    import threading
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import contact, fleet as F
+    from repro_torch.core.faults import FaultPlan
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.scenarios import generate_scenario
+
+    space, ground = counters((get_config("targetfuse-space"),
+                              get_config("targetfuse-ground")), dev)
+    sc = generate_scenario(contact_spec(FLEET_SATS, FLEET_STATIONS, FLEET_SEED))
+    pcfg = PipelineConfig(method="targetfuse", score_thresh=NMS_SCORE, seed=SEED)
+    main_stream = torch.cuda.current_stream(dev).cuda_stream
+    total, total_entries = {}, {}
+
+    def add(launches, entries):
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        for sym, n in entries.items():
+            total_entries[sym] = total_entries.get(sym, 0) + n
+
+    s0 = base["summary"]
+    rows = {0: dict(tiles_per_s=s0["tiles_per_s"], windows_per_s=s0["windows_per_s"],
+                    contact_s=s0["contact_s"], recount_s=s0["recount_s"],
+                    recount_wait_s=s0["recount_wait_s"],
+                    recount_hidden_frac=s0["recount_hidden_frac"])}
+    recount_calls, count = [], contact.count_tiles_multi
+
+    def spy(*args, **kwargs):
+        recount_calls.append((threading.current_thread() is threading.main_thread(),
+                              torch.cuda.current_stream(dev).cuda_stream))
+        return count(*args, **kwargs)
+
+    # warm-up, dropped: a first depth-1 run reads slower, its first worker
+    # thread setting up its stream and library handles
+    # (scripts/recount_pipeline_bench.py: contact_s 0.120 s, 0.055-0.065 s after)
+    F.run_scenario(space, ground, pcfg, sc, async_depth=FLEET_DEPTHS[-1], device=dev)
+    for depth in FLEET_DEPTHS:
+        recount_calls.clear()
+        contact.count_tiles_multi = spy
+        try:
+            (got, fl), launches, entries = counted_run(
+                kernels, lambda: F.run_scenario(space, ground, pcfg, sc, async_depth=depth,
+                                                device=dev))
+        finally:
+            contact.count_tiles_multi = count
+        add(launches, entries)
+        s = fl.summary()
+        same = same_fleet_results(got, base["results"])
+        lanes = [f for f in LEDGER_LANES
+                 if not np.array_equal(getattr(fl.ledger, f)[:FLEET_SATS], base["ledger"][f])]
+        on_worker = [not main and stream != main_stream for main, stream in recount_calls]
+        rows[depth] = dict(tiles_per_s=s["tiles_per_s"], windows_per_s=s["windows_per_s"],
+                           contact_s=s["contact_s"], recount_s=s["recount_s"],
+                           recount_wait_s=s["recount_wait_s"],
+                           recount_hidden_frac=s["recount_hidden_frac"],
+                           max_in_flight=s["recount_max_in_flight"],
+                           rounds_deferred=s["recount_rounds_deferred"],
+                           recount_calls=len(recount_calls),
+                           nms_keep_f32=entries["nms_keep_f32"])
+        print(f"depth {depth}: {sum(same)} of {len(same)} satellites equal depth 0; "
+              f"ledger lanes differing {lanes}; " + json.dumps(rows[depth]), flush=True)
+        check(all(same), f"depth {depth}: satellites {[i for i, e in enumerate(same) if not e]} "
+                         f"differ from depth 0")
+        check(not lanes, f"depth {depth}: ledger lanes {lanes} differ from depth 0")
+        check(s["recount_max_in_flight"] <= depth
+              and (depth != 2 or s["recount_max_in_flight"] == 2),
+              f"depth {depth}: {s['recount_max_in_flight']} rounds in flight")
+        check(s["recount_wait_s"] <= s["recount_s"] and s["recount_rounds_deferred"] > 0,
+              f"depth {depth}: recount accounting {s}")
+        check(entries["nms_keep_f32"] == base["entries"]["nms_keep_f32"],
+              f"depth {depth}: {entries['nms_keep_f32']} nms_keep_f32 launches, depth 0 "
+              f"{base['entries']['nms_keep_f32']}")
+        check(entries["tile_moments_f32"] > 0 and entries["kmeans_assign_lanes_f32"] > 0
+              and entries["kmeanspp_seed_lanes_f32"] > 0,
+              f"depth {depth}: launches by entry {entries}")
+        check(recount_calls and all(on_worker),
+              f"depth {depth}: recounts off a worker stream {recount_calls} "
+              f"(foreground stream {main_stream})")
+        del fl
+    fp = FaultPlan(worker_faults={1: "crash"})
+    want, f0 = F.run_scenario(space, ground, pcfg, sc, faults=fp, device=dev)
+    del f0
+    (got, fl), launches, entries = counted_run(
+        kernels, lambda: F.run_scenario(space, ground, pcfg, sc, faults=fp, async_depth=2,
+                                        watchdog_s=WATCHDOG_S, device=dev))
+    add(launches, entries)
+    s = fl.summary()
+    same = same_fleet_results(got, want)
+    print(f"depth 2 with a worker crash in round 1 (watchdog {WATCHDOG_S} s): {sum(same)} of "
+          f"{len(same)} satellites equal the same fault plan at depth 0; crashes "
+          f"{s['fault_worker_crashes']}, recoveries {s['fault_watchdog_recoveries']}",
+          flush=True)
+    check(all(same), "depth 2 crash: results differ from depth 0 under the same fault plan")
+    check(s["fault_worker_crashes"] == 1 and s["fault_watchdog_recoveries"] == 1,
+          f"depth 2 crash: {s['fault_worker_crashes']} crashes, "
+          f"{s['fault_watchdog_recoveries']} recoveries")
+    del fl
+    for d, r in rows.items():
+        print(f"depth {d}: tiles/s {r['tiles_per_s']:.1f}, windows/s {r['windows_per_s']:.1f}, "
+              f"contact_s {r['contact_s']:.4f}, recount_s {r['recount_s']:.4f}, "
+              f"recount_wait_s {r['recount_wait_s']:.4f}, "
+              f"recount_hidden_frac {r['recount_hidden_frac']:.3f}", flush=True)
+    return total, total_entries
+
+
+def orbital_spec(n_sats, n_stations, seed):
+    """The port's copy of ``benchmarks/fleet_bench.py:_orbital_spec``: the
+    contact cell's stations at ``default_sites``, contacts from extracted
+    passes (5 degree mask), harvest from eclipse fractions."""
+    from repro_torch.data.scenarios import FleetScenarioSpec, GroundStation
+    from repro_torch.data.synthetic import SceneSpec
+    from repro_torch.orbits import default_sites
+    scene = SceneSpec("orbital", 384, (10, 20), (10, 24), cloud_fraction=0.25)
+    sites = default_sites(n_stations)
+    stations = tuple(GroundStation(f"gs{k}", bandwidth_mbps=30.0 + 5.0 * (k % 5),
+                                   contact_s=240.0 + 30.0 * (k % 3), site=sites[k])
+                     for k in range(n_stations))
+    return FleetScenarioSpec(n_sats=n_sats, n_rounds=FLEET_ROUNDS,
+                             frames_per_pass=FLEET_FRAMES, stations=stations,
+                             scene_mix=(scene,), seed=seed, geometry="orbital",
+                             min_elev_deg=5.0)
+
+
+def within_ulps(got, want, ulps: int) -> bool:
+    """float32 arrays within ``ulps`` units in the last place of ``want``."""
+    import numpy as np
+    ulp = np.spacing(np.abs(want).astype(np.float32))
+    return bool((np.abs(got.astype(np.float64) - want) <= ulps * ulp).all())
+
+
+def phase_orbits(dev, kernels):
+    """benchmarks/orbits_bench.py's sizes on the card: propagation of 4096
+    satellites x 1440 steps (60 s) and of the 14368-satellite catalog x
+    90 steps, the elevation grid of 8 stations x 1024 satellites x 1440
+    steps and the eclipse mask of 1024 x 1440, each timed by CUDA events
+    and held against the port's CPU run on the same inputs (the
+    functions are elementwise over satellites, so the CPU runs a leading
+    slice of them: ORBIT_CPU_SATS), within ORBIT_POS_ULPS / ORBIT_SIN_TOL;
+    passes from the card's elevation equal the CPU's on every row
+    without a CPU sample within ORBIT_EDGE_DEG of the mask. Then
+    fleet_bench's orbital cell, ``_orbital_spec(16, 8, seed=6)``,
+    generated on the card (contacts equal the CPU's generation) and run
+    through ``run_scenario``: the batched executor equals
+    ``contact_reference=True`` and 16 looped Missions. -> launches by
+    kernel and by entry of the batched run."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import fleet as F
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.scenarios import generate_scenario
+    from repro_torch.orbits import (default_sites, eclipse_mask, elevation_deg,
+                                    extract_passes, propagate, shell, station_ecef,
+                                    sun_direction, walker_delta)
+
+    n_sats, n_steps = ORBIT_PROP
+    times = np.arange(n_steps, dtype=np.float64) * 60.0
+    planes = max(d for d in range(1, int(np.sqrt(n_sats)) + 1) if n_sats % d == 0)
+    cases = [("walker", walker_delta(n_sats, planes, 53.0, 550.0), times),
+             ("catalog", shell(ORBIT_CATALOG[0], 53.0, 550.0),
+              np.arange(ORBIT_CATALOG[1], dtype=np.float64) * 60.0)]
+    rates = {}
+    for name, els, t in cases:
+        ms = cuda_ms(lambda: propagate(els, t, device=dev), reps=3, hold=False)
+        pos = propagate(els, t, device=dev).cpu().numpy()
+        k = min(ORBIT_CPU_SATS, els.n_sats)
+        head = type(els)(*(a[:k] for a in els.arrays()))
+        cpu = propagate(head, t, device="cpu").numpy()
+        equal = float((pos[:k] == cpu).mean())
+        rates[name] = els.n_sats * t.size / (ms / 1e3)
+        print(f"orbits propagate {name} {els.n_sats} x {t.size}: {ms:.3f} ms, "
+              f"{rates[name] / 1e6:.1f} M sat-steps/s; first {k} satellites vs CPU: "
+              f"{equal:.6f} bit-equal", flush=True)
+        check(np.isfinite(pos).all() and pos.shape == (els.n_sats, t.size, 3),
+              f"orbits {name}: bad positions")
+        check(within_ulps(pos[:k], cpu, ORBIT_POS_ULPS),
+              f"orbits {name}: card and CPU positions differ by more than "
+              f"{ORBIT_POS_ULPS} ulp")
+
+    n_st, n_vis, _ = ORBIT_VIS
+    sub = shell(n_vis, 53.0, 550.0)
+    pos = propagate(sub, times, device=dev)
+    sites = np.stack([station_ecef(*s) for s in default_sites(n_st)])
+    ms = cuda_ms(lambda: elevation_deg(pos, times, sites), reps=3, hold=False)
+    elev = elevation_deg(pos, times, sites).cpu().numpy()
+    k = ORBIT_CPU_SATS // 4
+    cpu = elevation_deg(pos[:k].cpu(), times, sites).numpy()
+    sin_err = float(np.abs(np.sin(np.radians(elev[:, :k].astype(np.float64)))
+                           - np.sin(np.radians(cpu.astype(np.float64)))).max())
+    near = np.argwhere(np.abs(cpu - 10.0) < ORBIT_EDGE_DEG)
+    skip = {int(a) * k + int(b) for a, b, _ in near}
+    got_p, want_p = extract_passes(elev[:, :k], times, 10.0), extract_passes(cpu, times, 10.0)
+    keep = lambda ps: [i for i in range(ps.n_passes) if int(ps.row[i]) not in skip]
+    same_passes = (len(keep(got_p)) == len(keep(want_p)) and all(
+        np.array_equal(getattr(got_p, f)[keep(got_p)], getattr(want_p, f)[keep(want_p)])
+        for f in ("row", "start", "stop")))
+    rates["elevation"] = n_st * n_vis * n_steps / (ms / 1e3)
+    passes = extract_passes(elev, times, 10.0)
+    print(f"orbits elevation {n_st} x {n_vis} x {n_steps}: {ms:.3f} ms, "
+          f"{rates['elevation'] / 1e6:.1f} M station-sat-steps/s; {passes.n_passes} passes "
+          f"above 10 deg; first {k} satellites vs CPU: max sine error {sin_err:.3e}, "
+          f"{float((elev[:, :k] == cpu).mean()):.6f} bit-equal, {len(near)} samples at the "
+          f"edge, passes equal {same_passes}", flush=True)
+    check(np.isfinite(elev).all() and sin_err <= ORBIT_SIN_TOL and same_passes,
+          "orbits elevation: card and CPU differ")
+    sun = sun_direction(times, device=dev)
+    ms = cuda_ms(lambda: eclipse_mask(pos, sun), reps=3, hold=False)
+    mask = eclipse_mask(pos, sun).cpu().numpy()
+    cpu_mask = eclipse_mask(pos.cpu(), sun_direction(times, device="cpu")).numpy()
+    rates["eclipse"] = n_vis * n_steps / (ms / 1e3)
+    print(f"orbits eclipse {n_vis} x {n_steps}: {ms:.3f} ms, "
+          f"{rates['eclipse'] / 1e6:.1f} M sat-steps/s, shadowed {mask.mean():.3f}; equal to "
+          f"the CPU: {np.array_equal(mask, cpu_mask)}", flush=True)
+    check(np.array_equal(mask, cpu_mask) and 0.0 < mask.mean() < 1.0,
+          "orbits eclipse: card and CPU masks differ")
+    del pos
+
+    spec = orbital_spec(*ORBITAL_CELL)
+    sc = generate_scenario(spec, device=dev)
+    cpu_sc = generate_scenario(spec, device="cpu")
+    contacts = [(c.sat, c.station.name) for r in sc.rounds for c in r.contacts]
+    budgets = np.array([c.budget_bytes for r in sc.rounds for c in r.contacts])
+    cpu_budgets = np.array([c.budget_bytes for r in cpu_sc.rounds for c in r.contacts])
+    check(contacts == [(c.sat, c.station.name) for r in cpu_sc.rounds for c in r.contacts]
+          and np.allclose(budgets, cpu_budgets, rtol=ORBIT_BUDGET_RTOL, atol=0)
+          and [p.harvest_j for r in sc.rounds for p in r.passes]
+          == [p.harvest_j for r in cpu_sc.rounds for p in r.passes],
+          "orbital cell: the card's scenario differs from the CPU's")
+    check(len(contacts) > 0, "orbital cell: no passes")
+    cfgs = (get_config("targetfuse-space"), get_config("targetfuse-ground"))
+    space, ground = counters(cfgs, dev)
+    pcfg = PipelineConfig(method="targetfuse", score_thresh=NMS_SCORE, seed=SEED)
+    F.run_scenario(space, ground, pcfg, sc, device=dev)  # warm-up, dropped
+    (got, fl), launches, entries = counted_run(
+        kernels, lambda: F.run_scenario(space, ground, pcfg, sc, device=dev))
+    s = fl.summary()
+    del fl
+    ref = F.run_scenario(space, ground, pcfg, sc, contact_reference=True, device=dev)[0]
+    looped = F.run_scenario(space, ground, pcfg, sc, fleet=False, device=dev)[0]
+    same_ref, same_loop = same_fleet_results(got, ref), same_fleet_results(got, looped)
+    print(f"orbital cell {ORBITAL_CELL[0]} satellites, {ORBITAL_CELL[1]} stations, "
+          f"{len(sc.rounds)} rounds: {len(contacts)} passes (contacts), budget p50 "
+          f"{np.median(budgets):.0f} p90 {np.percentile(budgets, 90):.0f} bytes; tiles/s "
+          f"{s['tiles_per_s']:.1f}, windows/s {s['windows_per_s']:.1f} "
+          f"({s['windows_served']} windows in {s['contact_s']:.4f} s); equal to the FIFO "
+          f"reference {sum(same_ref)} of {len(got)}, to looped Missions {sum(same_loop)} of "
+          f"{len(got)}; launches by entry {entries}", flush=True)
+    check(all(same_ref) and all(same_loop), "orbital cell: the batched fleet differs from its "
+                                            "FIFO reference or the looped Missions")
+    check(s["windows_served"] > 0 and entries["tile_moments_f32"] > 0
+          and entries["nms_keep_f32"] > 0 and entries["kmeans_assign_lanes_f32"] > 0,
+          f"orbital cell: {s['windows_served']} windows, launches by entry {entries}")
+    return launches, entries, rates
 
 
 # ---------------------------------------------------------------------------
@@ -1272,12 +1597,23 @@ def main():
     entry_launches.update(flash_entries)
     print(f"phase lm serving: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    fleet_launches, fleet_entries = phase_fleet(dev, mission_kernels)
-    for name, n in fleet_launches.items():   # both main paths: Mission and fleet
+    fleet_launches, fleet_entries, depth0 = phase_fleet(dev, mission_kernels)
+    for name, n in fleet_launches.items():   # the main paths: Mission, fleet, phase 8
         launches[name] += n
     for sym, n in fleet_entries.items():
         entry_launches[sym] += n
     print(f"phase fleet: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    depth_launches, depth_entries = phase_depth(dev, mission_kernels, depth0)
+    del depth0
+    orbit_launches, orbit_entries, _ = phase_orbits(dev, mission_kernels)
+    for got in (depth_launches, orbit_launches):
+        for name, n in got.items():
+            launches[name] += n
+    for got in (depth_entries, orbit_entries):
+        for sym, n in got.items():
+            entry_launches[sym] += n
+    print(f"phase depth and orbits: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
     phase_lm_cuda_vs_cpu(dev, kernel["flash_attention"])
     print(f"phase lm cuda vs cpu: {time.perf_counter() - t0:.1f} s", flush=True)

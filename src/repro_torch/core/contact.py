@@ -20,32 +20,34 @@ Counterpart of ``repro/core/contact.py``:
   batched drain equals draining each window through the scalar stage
   loop (:func:`execute_plan_reference`). The ground recounts of all
   windows then share counting batches (``count_tiles_multi``).
-* :class:`GroundSegment`: the fleet's contact executor at depth 0, the
-  recount inline and synchronous. The reference's depth >= 1 pipeline
-  (worker threads, the watchdog, worker faults) is not ported yet:
-  asking for it raises ``NotImplementedError`` (ROADMAP queue 1).
+* :class:`GroundSegment`: the fleet's contact executor, a bounded
+  depth-``k`` recount pipeline. At depth 0 the round's recounts run
+  inline; at depth ``k >= 1`` each round's recount and Aggregate run on
+  a worker thread, up to ``k`` rounds in flight, with the watchdog and
+  the injected worker faults of :mod:`repro_torch.core.faults`. On a
+  CUDA device every worker launches on the segment's own stream, ordered
+  after the foreground's writes by an event recorded at dispatch.
 """
 from __future__ import annotations
 
+import threading
+import time
 import weakref
+from collections import deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
 from repro_torch.core.cascade import count_tiles_multi
-from repro_torch.core.faults import FaultContext
+from repro_torch.core.faults import FaultContext, WorkerCrash
 from repro_torch.core.mission import WindowReport, policy_context
 from repro_torch.core.policies import PolicyContextBatch
 from repro_torch.core.throttle import clamp_budget_bytes
 
 __all__ = ["ContactPlan", "GroundSegment", "execute_plan",
            "execute_plan_reference"]
-
-NOT_PORTED = ("the ground segment's recount pipeline at depth >= 1 (worker "
-              "threads, the watchdog, worker faults) is not ported yet; it "
-              "heads ROADMAP queue 1")
-
 
 @dataclass(frozen=True)
 class ContactPlan:
@@ -321,18 +323,31 @@ def _apply_corruption(fleet, ctx: FaultContext, served, p: int) -> None:
 
 
 class _RecountWork:
-    """One round's recount, snapshotted when the round's Select and
-    Downlink end: ``by_thresh`` maps a score threshold to ``[(mission,
-    seg, downlink)]`` (the segment's frozen downlink selection), ``agg``
-    is the ``[(mission, seg, window)]`` Aggregate list. A segment is
-    recounted and aggregated only in the round where it delivered or was
-    permanently lost."""
+    """One round's recount, snapshotted on the foreground when the
+    round's Select and Downlink end: ``ground`` is the fleet's ground
+    counter ``(params, cfg)``, ``by_thresh`` maps a score threshold to
+    ``[(mission, seg, downlink)]`` (the segment's frozen downlink
+    selection), ``agg`` is the ``[(mission, seg, window)]`` Aggregate
+    list. A worker reads only this snapshot, never the fleet: a later
+    round may re-open a re-queued segment (its flags and selection)
+    while this round is queued, and the fleet may be gone. A segment is
+    recounted and aggregated only in the round where it delivered or
+    was permanently lost, so concurrent rounds write disjoint
+    segments."""
 
-    __slots__ = ("by_thresh", "agg")
+    __slots__ = ("ground", "by_thresh", "agg")
 
-    def __init__(self, by_thresh, agg):
+    def __init__(self, ground, by_thresh, agg):
+        self.ground = ground
         self.by_thresh = by_thresh
         self.agg = agg
+
+    def device(self) -> Optional[torch.device]:
+        """The device of the tiles to recount (None: nothing to count)."""
+        for items in self.by_thresh.values():
+            for _, seg, _ in items:
+                return seg.tiles_gd.device
+        return None
 
 
 def _recount_plan(fleet, jobs) -> _RecountWork:
@@ -350,30 +365,41 @@ def _recount_plan(fleet, jobs) -> _RecountWork:
             if not seg.requeued:
                 agg.append((m, seg, window))
             # else: retrying in a later round — no prediction yet
-    return _RecountWork(by_thresh, agg)
+    return _RecountWork(fleet.ground, by_thresh, agg)
 
 
-def _recount_run(fleet, work: _RecountWork) -> None:
+def _recount_run(work: _RecountWork,
+                 cancel: Optional[threading.Event] = None) -> None:
     """The recount half: the ground recounts of every window in the round
     share fixed-shape counting batches (grouped by threshold), then
     Aggregate fuses predictions. Reads only the snapshot of
-    :func:`_recount_plan` and charges nothing."""
-    params, cfg = fleet.ground
+    :func:`_recount_plan` and charges nothing. ``cancel`` is checked
+    between threshold groups, after each count and before each
+    Aggregate: a worker the watchdog abandoned writes nothing once it is
+    set, so the synchronous recovery never sees a concurrent write."""
+    params, cfg = work.ground
     for thresh, items in work.by_thresh.items():
+        if cancel is not None and cancel.is_set():
+            return
         parts = [(seg.tiles_gd, down) for _, seg, down in items]
         results = count_tiles_multi(params, cfg, parts, score_thresh=thresh)
+        if cancel is not None and cancel.is_set():
+            return  # abandoned mid-count: discard, write nothing
         for (m, seg, down), (c, _) in zip(items, results):
             counts_gd = np.zeros(seg.n)
             if len(down):
                 counts_gd[down] = c
             seg.counts_gd = counts_gd[seg.rep_of]
     for m, seg, window in work.agg:
+        if cancel is not None and cancel.is_set():
+            return
         m.contact_stages[3].run(m, seg, window)  # Aggregate
 
 
-def _recount_aggregate(fleet, jobs) -> None:
+def _recount_aggregate(fleet, jobs,
+                       cancel: Optional[threading.Event] = None) -> None:
     """Plan + run in one call: the inline (depth 0) recount."""
-    _recount_run(fleet, _recount_plan(fleet, jobs))
+    _recount_run(_recount_plan(fleet, jobs), cancel=cancel)
 
 
 def _contact_window_faulty(m, budget_bytes, ctx: FaultContext,
@@ -428,16 +454,21 @@ def _contact_window_faulty(m, budget_bytes, ctx: FaultContext,
     return m._window_report(window, segs)
 
 
-def execute_plan(fleet, plan: ContactPlan,
+def execute_plan(fleet, plan: ContactPlan, recount_inline: bool = True,
                  fault_ctx: Optional[FaultContext] = None):
-    """Run one ContactPlan through the batched core, the recount inline;
-    ``fault_ctx`` makes it a faulty round (see
-    :mod:`repro_torch.core.faults`). -> ``[(sat, WindowReport), ...]`` in
-    window order."""
+    """Run one ContactPlan through the batched core. With
+    ``recount_inline=False`` the recount jobs are returned instead of
+    run (the :class:`GroundSegment` pipeline's path); ``fault_ctx`` makes
+    it a faulty round (see :mod:`repro_torch.core.faults`).
+
+    -> ``(out, jobs)``: ``[(sat, WindowReport), ...]`` in window order,
+    and the jobs still to recount (empty when run inline).
+    """
     out, jobs = _select_downlink(fleet, plan, fault_ctx)
-    if jobs:
+    if recount_inline and jobs:
         _recount_aggregate(fleet, jobs)
-    return out
+        jobs = []
+    return out, jobs
 
 
 def execute_plan_reference(fleet, plan: ContactPlan,
@@ -462,12 +493,119 @@ def execute_plan_reference(fleet, plan: ContactPlan,
             for w in range(plan.n_windows)]
 
 
+# ---------------------------------------------------------------------------
+# the recount pipeline
+# ---------------------------------------------------------------------------
+
+def _stall(seconds: float, cancel: threading.Event) -> None:
+    """An injected worker stall: hold the worker ``seconds``, or until
+    the watchdog cancels its round (a cancelled worker writes nothing,
+    so it need not stall on)."""
+    cancel.wait(seconds)
+
+
+class _InFlightRound:
+    """One queued round of the recount pipeline: its dispatch-time work
+    snapshot, the injected worker fault and stall, the worker's cancel
+    event, thread, exception and wall time (kept per round, so an
+    abandoned worker's clock is simply never read), and on a CUDA device
+    the worker's stream and the foreground event it waits for."""
+
+    __slots__ = ("work", "fault", "stall_s", "stream", "ready", "cancel",
+                 "thread", "err", "worker_s")
+
+    def __init__(self, work: _RecountWork, fault: Optional[str] = None,
+                 stall_s: float = 0.0):
+        self.work = work
+        self.fault = fault
+        self.stall_s = stall_s
+        self.stream = None
+        self.ready = None
+        self.cancel = threading.Event()
+        self.thread: Optional[threading.Thread] = None
+        self.err: Optional[BaseException] = None
+        self.worker_s = 0.0
+
+
+def _recount_job(rnd: _InFlightRound) -> None:
+    """A recount worker's body. It reads only ``rnd``: the snapshot and
+    what was resolved at dispatch, never the fleet."""
+    t0 = time.perf_counter()
+    try:
+        if rnd.fault == "crash":
+            raise WorkerCrash("injected ground-worker crash")
+        if rnd.fault == "stall":
+            _stall(rnd.stall_s, rnd.cancel)
+        if rnd.stream is None:
+            _recount_run(rnd.work, cancel=rnd.cancel)
+        else:
+            # the current device and stream are per thread: set both
+            with torch.cuda.device(rnd.stream.device), \
+                    torch.cuda.stream(rnd.stream):
+                rnd.stream.wait_event(rnd.ready)
+                try:
+                    _recount_run(rnd.work, cancel=rnd.cancel)
+                finally:
+                    # idle when the thread ends, even after an error
+                    rnd.stream.synchronize()
+    except BaseException as e:  # noqa: BLE001 - re-raised at retirement
+        rnd.err = e
+    finally:
+        rnd.worker_s = time.perf_counter() - t0
+
+
 class GroundSegment:
-    """A fleet's contact executor at depth 0: :meth:`execute` runs Select
-    and Downlink batched across the round's windows, then the round's
-    ground recounts and Aggregate inline. ``overlap``, ``depth >= 1`` and
-    ``watchdog_s`` (the reference's recount pipeline on worker threads)
-    raise ``NotImplementedError``."""
+    """A fleet's contact executor: a bounded depth-``k`` recount pipeline.
+
+    At ``depth=0`` :meth:`execute` runs Select and Downlink batched
+    across the round's windows, then the round's recounts and Aggregate
+    inline. At ``depth >= 1`` it returns after Select and Downlink (the
+    reports and every budget are final) and queues the round's recount
+    and Aggregate on a worker thread, so up to ``depth`` rounds' recounts
+    run behind whatever the caller does next. When the queue is full the
+    oldest round retires (its worker joins, its results land) before the
+    new round enters. :meth:`sync` retires every queued round in order;
+    ``Fleet.results()``/``finalize()``/``summary()`` call it, so no
+    prediction is read while its recount is in flight. Every depth gives
+    the same results: each round's work is snapshotted at dispatch
+    (:func:`_recount_plan`), a recount reads only its snapshot and
+    charges nothing, and concurrent rounds write disjoint segments.
+
+    **The device.** On a CUDA device the workers launch on a
+    ``torch.cuda.Stream`` the segment owns (the kernel wrappers and the
+    convolutions take the thread's current stream). At dispatch the
+    foreground records an event on its own stream, which the worker's
+    stream waits for before its first read: ingest wrote the segment
+    tiles on the foreground stream. The tiles are marked as used on the
+    worker stream (``record_stream``), so freeing them on the foreground
+    cannot hand their memory on while the worker reads them; the
+    index vectors a worker uploads are its stream's own
+    (:func:`repro_torch.core.xfer.device_constant`). A worker's results
+    reach the host by the counting's own copies, so its stream is idle
+    when the thread ends and retirement only joins the thread. On the
+    CPU the same code runs without the stream steps.
+
+    **Watchdog** (``watchdog_s``): each retirement joins with that
+    timeout; a worker still alive past it is cancelled (it writes
+    nothing once its event is set; a hung daemon thread is abandoned)
+    and the round's recount runs again synchronously. Recounts charge
+    nothing and only overwrite per-segment outputs, so the retry is
+    idempotent. An injected :class:`~repro_torch.core.faults.WorkerCrash`
+    recovers the same way. Any other worker exception surfaces once, at
+    the retirement that finds it, with every ledger lane intact and the
+    later rounds still queued.
+
+    **Lifecycle**: a clean ``with`` exit syncs; an exceptional one
+    calls :meth:`close`, which cancels every queued round and joins each
+    worker briefly without raising.
+
+    **Accounting**: ``recount_s`` is the recount wall time (a worker's
+    own clock when deferred, the inline time when not; a recovery
+    charges the blocked join and the synchronous retry instead of the
+    abandoned worker's clock), ``wait_s`` the time the foreground
+    blocked on retirement, so ``wait_s <= recount_s`` for every retired
+    round, and ``hidden_fraction = 1 - wait_s / recount_s``.
+    """
 
     def __init__(self, fleet, overlap: bool = False,
                  watchdog_s: Optional[float] = None,
@@ -477,27 +615,146 @@ class GroundSegment:
             raise ValueError(
                 f"GroundSegment: pipeline depth must be >= 0 "
                 f"(0 = synchronous), got {depth}")
-        if overlap or depth > 0 or watchdog_s is not None:
-            raise NotImplementedError(NOT_PORTED)
         # the fleet owns this executor: a weak reference back leaves no
         # cycle, so a dropped fleet frees its segments' device tiles at
         # once rather than at the next cycle collection
         self.fleet = weakref.proxy(fleet)
+        self.depth = depth
+        self.watchdog_s = watchdog_s
+        self._queue: "deque[_InFlightRound]" = deque()
+        self._stream = None  # the workers' CUDA stream, made at first use
+        self.recount_s = 0.0
+        self.wait_s = 0.0
+        self.rounds_deferred = 0
+        self.max_in_flight = 0
 
-    def sync(self) -> None:
-        """Nothing is in flight at depth 0; a contact round reads segment
-        state, so an ingest-overlap tail pending on the fleet lands."""
-        self.fleet._resolve_ingest_pending()
+    @property
+    def overlap(self) -> bool:
+        """True when recounts are deferred at all (depth >= 1)."""
+        return self.depth > 0
+
+    @property
+    def in_flight(self) -> int:
+        """Rounds currently queued in the pipeline."""
+        return len(self._queue)
 
     def execute(self, plan: ContactPlan,
                 fault_ctx: Optional[FaultContext] = None):
-        self.sync()
-        return execute_plan(self.fleet, plan, fault_ctx=fault_ctx)
+        # a contact round reads segment state: a pending ingest-overlap
+        # tail lands first
+        self.fleet._resolve_ingest_pending()
+        while self._queue and len(self._queue) >= self.depth:
+            # backpressure: the oldest round retires before a new one
+            # may enter the bounded pipeline
+            self._retire(self._queue.popleft())
+        out, jobs = execute_plan(self.fleet, plan,
+                                 recount_inline=self.depth == 0,
+                                 fault_ctx=fault_ctx)
+        if jobs:
+            self._dispatch(_recount_plan(self.fleet, jobs), fault_ctx)
+        return out
+
+    def _dispatch(self, work: _RecountWork,
+                  fault_ctx: Optional[FaultContext]) -> None:
+        """Queue one round's recount on a worker (foreground). The
+        injected fault is counted here, where the stats are."""
+        fault = fault_ctx.worker if fault_ctx is not None else None
+        rnd = _InFlightRound(work, fault, fault_ctx.faults.stall_s
+                             if fault_ctx is not None else 0.0)
+        if fault == "crash":
+            fault_ctx.stats.worker_crashes += 1
+        elif fault == "stall":
+            fault_ctx.stats.worker_stalls += 1
+        dev = work.device()
+        if dev is not None and dev.type == "cuda":
+            if self._stream is None:
+                self._stream = torch.cuda.Stream(dev)
+            rnd.stream = self._stream
+            rnd.ready = torch.cuda.Event()
+            rnd.ready.record(torch.cuda.current_stream(dev))
+            for items in work.by_thresh.values():
+                for _, seg, _ in items:
+                    seg.tiles_gd.record_stream(self._stream)
+        rnd.thread = threading.Thread(target=_recount_job, args=(rnd,),
+                                      name="ground-recount", daemon=True)
+        self.rounds_deferred += 1
+        self._queue.append(rnd)
+        self.max_in_flight = max(self.max_in_flight, len(self._queue))
+        rnd.thread.start()
 
     def execute_reference(self, plan: ContactPlan,
                           fault_ctx: Optional[FaultContext] = None):
         self.sync()
         return execute_plan_reference(self.fleet, plan, fault_ctx=fault_ctx)
 
+    def sync(self) -> None:
+        """Retire every queued round in order (each join bounded by the
+        watchdog when one is set): recover injected crashes and
+        watchdog-cancelled rounds synchronously, and raise a real worker
+        exception once, leaving later rounds queued for the next sync."""
+        self.fleet._resolve_ingest_pending()
+        while self._queue:
+            self._retire(self._queue.popleft())
+
+    def _retire(self, rnd: _InFlightRound) -> None:
+        t0 = time.perf_counter()
+        rnd.thread.join(self.watchdog_s)
+        waited = time.perf_counter() - t0
+        if rnd.thread.is_alive():
+            # watchdog: cancel the worker (it writes nothing from now on)
+            # and take the round over synchronously
+            rnd.cancel.set()
+            self._recover(rnd, waited)
+            return
+        if isinstance(rnd.err, WorkerCrash):
+            self._recover(rnd, waited)
+            return
+        self.wait_s += waited
+        self.recount_s += max(rnd.worker_s, waited)
+        if rnd.err is not None:
+            # a real failure, raised once; recounts charge nothing, so
+            # every ledger lane is intact
+            raise rnd.err
+
+    def _recover(self, rnd: _InFlightRound, waited: float) -> None:
+        """Recount a crashed or abandoned round again, synchronously, on
+        the foreground (idempotent: recounts only write per-segment
+        outputs). The whole recovery blocks, so it lands in both
+        ``wait_s`` and ``recount_s``, and the worker's clock is not
+        read."""
+        self.fleet.fault_stats.watchdog_recoveries += 1
+        t0 = time.perf_counter()
+        _recount_run(rnd.work)
+        blocked = waited + (time.perf_counter() - t0)
+        self.wait_s += blocked
+        self.recount_s += blocked
+
     def close(self) -> None:
-        """Nothing to release at depth 0."""
+        """Release every queued round without surfacing results or
+        errors: cancel each, join each worker briefly (a hung daemon
+        thread is abandoned), drop the work. Idempotent; never raises."""
+        rounds, self._queue = list(self._queue), deque()
+        for rnd in rounds:
+            rnd.cancel.set()
+        for rnd in rounds:
+            if rnd.thread is not None and rnd.thread.is_alive():
+                rnd.thread.join(
+                    self.watchdog_s if self.watchdog_s is not None else 5.0)
+
+    def __enter__(self) -> "GroundSegment":
+        return self
+
+    def __exit__(self, exc_type, exc, tb) -> bool:
+        if exc_type is None:
+            self.sync()
+        else:
+            self.close()
+        return False
+
+    @property
+    def hidden_fraction(self) -> float:
+        """Share of the deferred recount time hidden behind foreground
+        work (0.0 when nothing was deferred)."""
+        if not self.rounds_deferred or self.recount_s <= 0.0:
+            return 0.0
+        return max(1.0 - self.wait_s / self.recount_s, 0.0)

@@ -16,9 +16,10 @@ Fault classes, all described by one :class:`FaultPlan`:
   linear backoff, and is lost after ``max_retries`` failed attempts;
 * satellite blackout: a (round, sat) pass is skipped
   (``Mission.ingest(blackout=True)``);
-* ground-worker crash / stall: draws of the depth >= 1 recount pipeline,
-  which the port does not have yet (``Fleet`` refuses ``async_ground``);
-  the draws are kept so a plan's schedule is the reference's.
+* ground-worker crash / stall: the depth >= 1 recount pipeline's
+  worker of a round crashes (:class:`WorkerCrash`) or stalls for
+  ``stall_s``; the ground segment's watchdog recovers either by a
+  synchronous recount.
 
 Every draw is a pure function of ``(seed, fault class, round, window or
 sat, segment)`` through ``np.random.SeedSequence`` hashing, so the

@@ -20,18 +20,18 @@ ingest stages for the whole constellation in shared calls:
 
 RoiFilter and Select's bookkeeping stay per satellite on the host.
 Contact rounds run the batched ContactPlan core
-(:mod:`repro_torch.core.contact`) at depth 0: Select as lane-stacked
+(:mod:`repro_torch.core.contact`): Select as lane-stacked
 ``select_batch`` calls across a round's windows, Downlink through
 vectorized ledger ops, and every window's ground recount in shared
-counting batches. Each lane's arithmetic is the looped Mission's, so a
-Fleet equals N independent :class:`~repro_torch.core.mission.Mission`
-objects (:func:`run_scenario` with ``fleet=False``) per satellite.
+counting batches, inline or (``async_depth >= 1``) on the ground
+segment's worker threads. Each lane's arithmetic is the looped
+Mission's, so a Fleet equals N independent
+:class:`~repro_torch.core.mission.Mission` objects (:func:`run_scenario`
+with ``fleet=False``) per satellite, at every depth.
 
-Not ported yet (ROADMAP queue 1): the recount pipeline at depth >= 1;
-``async_ground``, ``async_depth >= 1`` and ``watchdog_s`` raise
-``NotImplementedError``. The fleet runs on one device (the reference's
-``mesh`` and ``strict_parity`` options are not ported: every lane here
-already equals its one-lane Mission bit for bit).
+The fleet runs on one device (the reference's ``mesh`` and
+``strict_parity`` options are not ported: every lane here already
+equals its one-lane Mission bit for bit).
 """
 from __future__ import annotations
 
@@ -65,10 +65,14 @@ class Fleet:
         per-satellite configs.
     n_sats : fleet size when ``pcfg`` is a single config.
     energy_cfgs : as for :class:`Mission` (compute pricing), shared.
-    async_ground, async_depth, watchdog_s : the reference's recount
-        pipeline on worker threads; only the synchronous depth 0 is
-        ported (``async_depth`` None or 0), the rest raise
-        ``NotImplementedError``.
+    async_ground : ``True`` overlaps each round's ground recount with
+        what the caller does next (a depth-1 pipeline).
+    async_depth : the recount pipeline's depth: up to ``k`` rounds'
+        recounts in flight on worker threads (0 = inline; ``None``
+        follows ``async_ground``). Every depth gives the same results.
+    watchdog_s : optional timeout of each recount worker's retirement;
+        a worker still running past it is cancelled and its round
+        recounted synchronously (the same results).
     ingest_overlap : ``True`` defers each round's device-to-host fetches
         (the ROI rows, the dedup results, the counting results) and the
         ledger charges that follow them to the next resolution boundary
@@ -93,7 +97,15 @@ class Fleet:
                  watchdog_s: Optional[float] = None,
                  async_depth: Optional[int] = None,
                  ingest_overlap: bool = False, device="cuda"):
-        # the unported recount pipeline refuses before anything is built
+        if async_depth is not None and int(async_depth) < 0:
+            raise ValueError(
+                f"Fleet: async_depth must be >= 0 (0 = synchronous "
+                f"recount, k = up to k rounds' recounts in flight), "
+                f"got {async_depth}")
+        if async_depth is not None and async_ground and int(async_depth) == 0:
+            raise ValueError(
+                "async_ground=True conflicts with async_depth=0 "
+                "(a synchronous pipeline cannot overlap)")
         self.ground_segment = GroundSegment(self, overlap=async_ground,
                                             watchdog_s=watchdog_s,
                                             depth=async_depth)
@@ -546,7 +558,8 @@ class Fleet:
         ctx = FaultContext(
             faults=self.faults, rnd=rnd,
             orig_windows=repaired.orig_windows, stats=self.fault_stats,
-            worker=None)  # worker faults need the unported recount pipeline
+            worker=(self.faults.worker_fault(rnd)
+                    if self.ground_segment.overlap else None))
         for m in self.missions:
             if not m._pending:
                 continue
@@ -669,7 +682,9 @@ class Fleet:
 
     def close(self) -> None:
         """Tear down without resolving deferred work: any ingest-overlap
-        tail or parked count fetch is dropped, not run. Idempotent."""
+        tail or parked count fetch is dropped, not run, and the ground
+        segment's queued rounds are cancelled
+        (:meth:`GroundSegment.close`). Idempotent; never raises."""
         self._ingest_tail = None
         self._pending_counts = []
         self.ground_segment.close()
@@ -688,12 +703,17 @@ class Fleet:
         self.ground_segment.sync()  # deferred recounts land before reads
         return [m.result() for m in self.missions]
 
+    @property
+    def pending_segments(self) -> List[int]:
+        return [m.pending_segments for m in self.missions]
+
     def summary(self) -> dict:
         """Fleet-aggregate scalars (per-satellite results summed) and the
         run's facts: whether ingest ran the batched dedup, ingest
         throughput (host wall time of :meth:`ingest` calls), the contact
         tier's wall time and window/byte throughput, the recount
-        accounting (zeros at depth 0), and the ingest pipeline's stage
+        pipeline's accounting (``recount_wait_s <= recount_s``), and the
+        ingest pipeline's stage
         times: ``ingest_dispatch_s`` (foreground launch time),
         ``host_fetch_s`` (foreground time blocked on deferred fetches),
         ``device_compute_s`` (the deferred work's dispatch-to-fetch wall)
@@ -702,6 +722,10 @@ class Fleet:
         rs = self.results()
         tps = (self._tiles_ingested / self._ingest_s
                if self._ingest_s > 0 else 0.0)
+        gseg = self.ground_segment
+        assert gseg.wait_s <= gseg.recount_s, (
+            f"recount accounting invariant broken: wait_s={gseg.wait_s} "
+            f"> recount_s={gseg.recount_s}")
         assert self._host_fetch_s <= self._device_compute_s, (
             f"ingest accounting invariant broken: host_fetch_s="
             f"{self._host_fetch_s} > device_compute_s="
@@ -728,14 +752,13 @@ class Fleet:
                               if self._contact_s > 0 else 0.0),
             "bytes_downlinked_per_s": (bytes_spent / self._contact_s
                                        if self._contact_s > 0 else 0.0),
-            # the recount pipeline's accounting: nothing deferred at depth 0
-            "async_ground": False,
-            "async_depth": 0,
-            "recount_rounds_deferred": 0,
-            "recount_max_in_flight": 0,
-            "recount_s": 0.0,
-            "recount_wait_s": 0.0,
-            "recount_hidden_frac": 0.0,
+            "async_ground": gseg.overlap,
+            "async_depth": gseg.depth,
+            "recount_rounds_deferred": gseg.rounds_deferred,
+            "recount_max_in_flight": gseg.max_in_flight,
+            "recount_s": gseg.recount_s,
+            "recount_wait_s": gseg.wait_s,
+            "recount_hidden_frac": gseg.hidden_fraction,
             "total_true": sum(r.total_true for r in rs),
             "total_pred": sum(r.total_pred for r in rs),
             "tiles_total": sum(r.tiles_total for r in rs),
@@ -761,7 +784,9 @@ def run_scenario(space, ground, pcfg, scenario, *, fleet: bool = True,
 
     ``fleet=True`` runs the constellation-batched :class:`Fleet`, each
     round's contact events as a :class:`~repro_torch.core.contact.
-    ContactPlan`; ``ingest_overlap=True`` defers each round's fetches
+    ContactPlan`; ``async_ground``/``async_depth`` run the recounts on
+    the ground segment's workers (``watchdog_s`` bounds each
+    retirement), ``ingest_overlap=True`` defers each round's fetches
     behind the next round's launches and ``contact_reference=True``
     swaps the batched contact tier for the FIFO reference.
     ``fleet=False`` runs the looped-Mission oracle: one Mission a

@@ -9,8 +9,14 @@ them after its first round.
 
 ``transfer_stats()['device_puts']`` counts the uploads made here and
 ``cache_reuses`` those avoided. The cache and the counters are behind a
-lock, as the reference's are (its ground-recount workers call in from
-other threads).
+lock: the ground segment's recount workers call in from their own
+threads.
+
+On a CUDA device the key also holds the calling thread's current
+stream, so each stream reads only copies it uploaded itself. A recount
+worker runs on its own stream; a vector it shared with the foreground
+stream could be freed (:func:`clear_cache`, an overflow) and its memory
+handed to the other stream while a kernel still read it.
 """
 from __future__ import annotations
 
@@ -66,7 +72,9 @@ def device_constant(arr, device) -> torch.Tensor:
     device = torch.device(device)
     if arr.nbytes > _MAX_ITEM_BYTES:
         return _put(arr, device)
-    key = (str(device), arr.dtype.str, arr.shape, arr.tobytes())
+    stream = (torch.cuda.current_stream(device).cuda_stream
+              if device.type == "cuda" else None)
+    key = (str(device), stream, arr.dtype.str, arr.shape, arr.tobytes())
     with _lock:
         hit = _cache.get(key)
         if hit is not None:

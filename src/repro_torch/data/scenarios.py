@@ -14,8 +14,8 @@ same event stream:
   station bandwidth, scaled by ``window_budget_scale`` into the
   day-fraction regime of ``PipelineConfig``'s tile entitlements.
 
-``geometry="orbital"`` (the reference's Keplerian pass extraction) is
-not ported yet and raises.
+``geometry="orbital"`` takes contacts and harvest grants from the
+orbital geometry engine instead (:mod:`repro_torch.orbits`).
 """
 from __future__ import annotations
 
@@ -62,9 +62,9 @@ class FleetScenarioSpec:
     # (a full 50 Mbps x 6 min window is ~2.25 GB — far beyond a slice)
     window_budget_scale: float = 1e-3
     seed: int = 0
-    # geometry backend: "toy" (the phase-offset model above); "orbital"
-    # (Keplerian propagation in the reference) is not ported and raises
-    # in generate_scenario
+    # geometry backend: "toy" keeps the phase-offset model above;
+    # "orbital" routes through repro_torch.orbits (batched Keplerian
+    # propagation, real passes, eclipse-derived harvest)
     geometry: str = "toy"
     # orbital-path knobs (ignored by the toy path)
     alt_km: float = 550.0
@@ -221,20 +221,22 @@ def harvest_profile(spec: FleetScenarioSpec, rnd: int, sat: int
     return power * spec.pass_s, True
 
 
-def generate_scenario(spec: FleetScenarioSpec) -> FleetScenario:
+def generate_scenario(spec: FleetScenarioSpec, device="cuda") -> FleetScenario:
     """Deterministically expand a spec into concrete rounds.
 
     Scene content is drawn per satellite from independent seeded
     generators, so two scenarios with the same seed are byte-identical
     regardless of consumption order.
 
-    ``geometry="orbital"`` (the reference's orbital geometry engine) is
-    not ported and raises.
+    ``geometry="orbital"`` routes through the orbital geometry engine
+    (lazy import: :mod:`repro_torch.orbits` depends on this module),
+    which propagates on ``device`` ("cuda", the default, raises without
+    a card; or "cpu"). The toy geometry runs on the host and ignores
+    ``device``.
     """
     if spec.geometry == "orbital":
-        raise NotImplementedError(
-            "geometry='orbital' needs the orbital geometry engine, not "
-            "ported yet (ROADMAP queue 1)")
+        from repro_torch.orbits.schedule import generate_orbital_scenario
+        return generate_orbital_scenario(spec, device=device)
     rngs = [np.random.default_rng(10_000 * spec.seed + s)
             for s in range(spec.n_sats)]
     contact_rng = np.random.default_rng(10_000 * spec.seed + 9999)

@@ -15,6 +15,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
@@ -62,7 +63,10 @@ class CudaKernel:
     each time any entry point of the library is launched, and
     ``symbol_launches`` counts each entry point on its own, so a run can
     show which of a library's kernels it went through; :meth:`reset`
-    sets both to 0.
+    sets both to 0. One lock guards the build and load and both counts,
+    so two threads that reach the kernel first build and load it once,
+    and launches from several threads (the ground segment's recount
+    workers beside the foreground) are all counted.
     """
 
     def __init__(self, name: str, symbols: dict):
@@ -72,10 +76,12 @@ class CudaKernel:
         self.launches = 0
         self.symbol_launches = dict.fromkeys(symbols, 0)
         self._lib = None
+        self._lock = threading.Lock()
 
     def reset(self) -> None:
-        self.launches = 0
-        self.symbol_launches = dict.fromkeys(self.symbols, 0)
+        with self._lock:
+            self.launches = 0
+            self.symbol_launches = dict.fromkeys(self.symbols, 0)
 
     def lib_path(self) -> Path:
         h = hashlib.sha256(self.source.read_bytes())
@@ -92,26 +98,29 @@ class CudaKernel:
 
     def load(self):
         """The loaded library, built first if needed."""
-        if self._lib is None:
-            build = self.start_build()
-            if build is not None:
-                build.finish()
-            lib = ctypes.CDLL(str(self.lib_path()))
-            for sym, argtypes in self.symbols.items():
-                fn = getattr(lib, sym)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            self._lib = lib
-        return self._lib
+        with self._lock:
+            if self._lib is None:
+                build = self.start_build()
+                if build is not None:
+                    build.finish()
+                lib = ctypes.CDLL(str(self.lib_path()))
+                for sym, argtypes in self.symbols.items():
+                    fn = getattr(lib, sym)
+                    fn.argtypes = argtypes
+                    fn.restype = ctypes.c_int
+                self._lib = lib
+            return self._lib
 
     def launch(self, symbol: str, *args) -> None:
-        """Call a C entry point, which returns ``cudaGetLastError()``."""
+        """Call a C entry point, which returns ``cudaGetLastError()``
+        (the calling host thread's last error)."""
         err = getattr(self.load(), symbol)(*args)
         if err != 0:
             raise RuntimeError(f"{self.name}: {symbol} failed with CUDA "
                                f"error {err}")
-        self.launches += 1
-        self.symbol_launches[symbol] += 1
+        with self._lock:
+            self.launches += 1
+            self.symbol_launches[symbol] += 1
 
 
 def build_all(kernels) -> dict:

@@ -1,6 +1,8 @@
 """The constellation path of the port against the reference, on the CPU:
 ``Fleet``, ``ContactPlan`` at ground-segment depth 0, ``FaultPlan`` and
-the toy scenario generator.
+the toy scenario generator (the recount pipeline at depth >= 1 is
+tests/test_torch_ground_pipeline.py, the orbital geometry
+tests/test_torch_orbits.py).
 
 A 4-satellite scenario with 2 stations over 3 rounds (one frame a pass)
 runs through the reference's ``Fleet`` and the port's, with the
@@ -37,6 +39,7 @@ from repro_torch.core.fleet_sharding import FleetSharding
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.data import scenarios
 from repro_torch.data.synthetic import SceneSpec
+from repro_torch.models import detector
 from repro_torch.models.detector import params_from_jax
 
 # one intra-op thread: the suite runs in parallel worker processes
@@ -186,8 +189,9 @@ def test_scenario_generator_matches_reference(specs):
         np.testing.assert_array_equal(jpl.sats, tpl.sats)
         np.testing.assert_array_equal(jpl.budgets, tpl.budgets)
         assert jpl.stations == tpl.stations == ("gs0", "gs1")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        scenarios.generate_scenario(scenarios.FleetScenarioSpec(geometry="orbital"))
+    with pytest.raises(ValueError, match="site"):  # as test_orbital_requires_sites
+        scenarios.generate_scenario(scenarios.FleetScenarioSpec(geometry="orbital"),
+                                    device="cpu")
     with pytest.raises(ValueError):
         scenarios.FleetScenarioSpec(n_sats=0)
 
@@ -258,10 +262,18 @@ def test_fault_draws_and_repair_match_reference(specs):
 
 
 def test_unported_options_raise_naming_the_roadmap():
-    for kw in (dict(async_ground=True), dict(async_depth=1), dict(async_depth=3),
-               dict(watchdog_s=0.5)):
-        with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-            fleet.Fleet(None, None, PipelineConfig(), n_sats=2, device="cpu", **kw)
+    """The recount pipeline's options construct and report their depth
+    (tests/test_torch_ground_pipeline.py runs them); a sats device mesh
+    is still not ported and raises."""
+    cfg = reduced(get_config("targetfuse-space"))
+    counter = (detector.init(torch.Generator().manual_seed(0), cfg, device="cpu"), cfg)
+    for kw, depth in ((dict(async_ground=True), 1), (dict(async_depth=1), 1),
+                      (dict(async_depth=3), 3), (dict(watchdog_s=0.5), 0),
+                      (dict(async_ground=True, async_depth=2, watchdog_s=0.5), 2)):
+        fl = fleet.Fleet(counter, counter, PipelineConfig(), n_sats=2, device="cpu", **kw)
+        s = fl.summary()
+        assert (s["async_depth"], s["async_ground"]) == (depth, depth > 0), kw
+        assert fl.ground_segment.watchdog_s == kw.get("watchdog_s")
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
         FleetSharding(object())
     assert FleetSharding().pad(5) == 5

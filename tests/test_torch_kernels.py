@@ -241,6 +241,46 @@ def test_cuda_kernels_are_named_and_hashed_without_building():
         assert "--use_fast_math" not in _build.FLAGS
 
 
+def test_kernel_library_loads_once_and_counts_every_launch_across_threads(monkeypatch):
+    """Threads that reach a kernel together build and load it once, and
+    launches from several threads (the ground segment's recount workers
+    beside the foreground) are all counted. The library is a stand-in:
+    no nvcc or card here."""
+    import sys as _sys
+    import threading
+    kernel = _build.CudaKernel("iou", {"entry_a": [], "entry_b": []})  # a source to hash
+    loads, gate = [], threading.Barrier(8)
+
+    class Lib:
+        def __init__(self, path):
+            loads.append(path)
+            self.entry_a = lambda *a: 0
+            self.entry_b = lambda *a: 0
+
+    monkeypatch.setattr(kernel, "start_build", lambda: None)
+    monkeypatch.setattr(_build.ctypes, "CDLL", Lib)
+    switch = _sys.getswitchinterval()
+    _sys.setswitchinterval(1e-6)
+    try:
+        def work(k):
+            gate.wait(timeout=60)
+            for i in range(2000):
+                kernel.launch("entry_a" if (i + k) % 2 else "entry_b")
+        threads = [threading.Thread(target=work, args=(k,)) for k in range(8)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=120)
+    finally:
+        _sys.setswitchinterval(switch)
+    assert not any(t.is_alive() for t in threads)
+    assert len(loads) == 1
+    assert kernel.launches == 16000
+    assert kernel.symbol_launches == {"entry_a": 8000, "entry_b": 8000}
+    kernel.reset()
+    assert kernel.launches == 0 and kernel.symbol_launches == {"entry_a": 0, "entry_b": 0}
+
+
 # ---------------------------------------------------------------------------
 # the first k-means++ centroid: JAX's threefry draw, bit for bit
 # ---------------------------------------------------------------------------
@@ -283,7 +323,8 @@ for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
           "repro_torch.kernels.int8_matmul", "repro_torch.configs.qwen3_8b",
           "repro_torch.core.fleet", "repro_torch.core.contact", "repro_torch.core.faults",
           "repro_torch.core.xfer", "repro_torch.core.fleet_sharding",
-          "repro_torch.data.scenarios"):
+          "repro_torch.data.scenarios", "repro_torch.orbits.propagation",
+          "repro_torch.orbits.visibility", "repro_torch.orbits.schedule"):
     assert m in mods, m
 import torch
 assert not torch.cuda.is_available()
@@ -294,6 +335,8 @@ from repro_torch.core.mission import Mission
 from repro_torch.core.pipeline import PipelineConfig, run_pipeline
 from repro_torch.data.scenarios import FleetScenarioSpec, generate_scenario
 from repro_torch.models import detector, lm
+from repro_torch.orbits import default_sites, propagate, sun_direction, walker_delta
+from repro_torch.data.scenarios import GroundStation
 cfg = reduced(get_config("targetfuse-space"))
 lm_cfg = reduced(get_config("qwen3-8b"))
 p = detector.init(torch.Generator().manual_seed(0), cfg, device="cpu")
@@ -305,7 +348,12 @@ for call in (lambda: Mission((p, cfg), (p, cfg)),
              lambda: prepare_frames([], 128, 64, 64),
              lambda: detector.init(torch.Generator().manual_seed(0), cfg),
              lambda: lm.init(torch.Generator().manual_seed(0), lm_cfg),
-             lambda: lm.init_cache(lm_cfg, 1, 8)):
+             lambda: lm.init_cache(lm_cfg, 1, 8),
+             lambda: propagate(walker_delta(4, 2, 53.0, 550.0), [0.0, 60.0]),
+             lambda: sun_direction([0.0]),
+             lambda: generate_scenario(FleetScenarioSpec(
+                 n_sats=2, n_rounds=1, geometry="orbital",
+                 stations=(GroundStation("gs0", site=default_sites(1)[0]),)))):
     try:
         call()
     except RuntimeError as e:
