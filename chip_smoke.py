@@ -70,13 +70,27 @@ nothing of JAX or of the reference package ``repro``. Phases:
    benchmarks/orbits_bench.py's propagation, elevation and eclipse sizes
    timed and held against the CPU; fleet_bench's orbital cell (16
    satellites, 8 sites) generated on the card and run through
-   ``run_scenario``, equal to its FIFO reference and 16 looped Missions.
+   ``run_scenario``, equal to its FIFO reference and 16 looped Missions;
+9. counter training: (a) one training step of each full-width counter
+   on the card and on the CPU from the same seeded weights and 2 tiles
+   of ``build_target_pool``, loss, aux terms, gradients, global norm and
+   updated weights compared; (b) ``fit_counter`` of each full-width
+   counter at batch 16 on ``get_counters``' 8 training scenes, 200 steps,
+   printing ms a step, tiles/s, the share of the float32 bound, peak
+   memory and one step under torch.profiler, the loss falling (checked),
+   and whether two seeded 20-step runs give bit-equal losses; (c) tests/test_system.py's reduced
+   counters trained on the card, the ground counter's held-out CMAE
+   below the space counter's (checked), ``get_counters`` at its default
+   steps into a temporary folder, the restored counters bit-equal to the
+   trained ones, and serve's CMAE table for every policy from that
+   folder, with its launches by kernel entry.
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
 first phase 2 case and its launches on the main paths: the Mission's
 runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
-phase 8, qwen3-8b's of phase 5 and ``int8_matmul``'s one path), then the
+phase 8, serve's Missions of phase 9, qwen3-8b's of phase 5 and
+``int8_matmul``'s one path), then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
 """
@@ -1444,7 +1458,7 @@ def phase_lm_serving(dev, flash):
     launches = flash.launches
     check(launches == prefill_launches and flash.symbol_launches == routes,
           "decode launched flash_attention")
-    profile_decode(lambda: lm.decode_step(params, cfg, tokens[-1], cache, s + steps - 1))
+    profile_step("lm decode", lambda: lm.decode_step(params, cfg, tokens[-1], cache, s + steps - 1))
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     decode_ms = 1e3 * sum(step_s) / steps
     print(f"lm prefill: {prefill_s:.4f} s, {b * s / prefill_s:.1f} tokens/s; flash_attention "
@@ -1487,9 +1501,9 @@ def phase_lm_serving(dev, flash):
     return launches, routes
 
 
-def profile_decode(step):
-    """One decode step (the last one again) under torch.profiler: the
-    device time by kernel, and the share of the step's wall time the
+def profile_step(name, step):
+    """One call of ``step`` (after a warm-up call) under torch.profiler:
+    the device time by kernel, and the share of the call's wall time the
     card was busy."""
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -1503,7 +1517,7 @@ def profile_decode(step):
     kernels = [e for e in prof.key_averages()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_us = sum(e.self_device_time_total for e in kernels)
-    print(f"lm decode profile: wall {wall_us / 1e3:.4f} ms, device busy "
+    print(f"{name} profile: wall {wall_us / 1e3:.4f} ms, device busy "
           f"{busy_us / 1e3:.4f} ms ({busy_us / wall_us:.3f}), {sum(e.count for e in kernels)} "
           f"kernel launches", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
@@ -1551,6 +1565,294 @@ def phase_lm_cuda_vs_cpu(dev, flash):
           f"on the CPU {cpu_launched}", flush=True)
     check(gpu_launched == cfg.n_layers and cpu_launched == 0, "flash_attention dispatch")
     check(torch.allclose(got, want, atol=1e-4, rtol=1e-4), f"CUDA and CPU logits differ by {err}")
+
+
+# ---------------------------------------------------------------------------
+# phase 9: counter training
+# ---------------------------------------------------------------------------
+
+# phase 9b: fit_counter's default batch and rate, 200 steps; the first
+# TRAIN_WARMUP steps (the allocator's and cuDNN's first calls) are left
+# out of the timing
+TRAIN_STEPS, TRAIN_BATCH, TRAIN_WARMUP = 200, 16, 20
+# phase 9a: card against CPU, one step at full width on 2 tiles. Loss,
+# aux and gradient norm: float32 sums of 416 x 416 x 2 positions in
+# another order (cuDNN against oneDNN). Gradients: each leaf within
+# 2e-2 of its largest value. Against a float64 gradient the CPU's leaves
+# are within 1.4e-4, but cuDNN's default float32 backward of the space
+# counter's stage 2/0 (64 -> 128 channels, stride 2, at 104 px) is
+# 1.1e-2 off in the leaves below it (stages 0-1, the stem), the same
+# with cudnn.deterministic; its gradient sums cancel heavily (PERF.md).
+STEP_BATCH, STEP_RTOL, STEP_GRAD_TOL = 2, 1e-5, 2e-2
+# phase 9c: tests/test_system.py's counters (6 mini scenes, 250 and 600
+# steps) and held-out scenes (3 of rng(3))
+PREMISE_STEPS, PREMISE_SCENES, PREMISE_HELD_OUT = (250, 600), 6, 3
+ARCHS = ("targetfuse-space", "targetfuse-ground")
+
+
+def train_gflop(cfg) -> float:
+    """GFLOP of one training step a tile: the forward, the weight
+    gradient of every layer, the input gradient of every layer but the
+    stem (the tiles need none)."""
+    from repro_torch.core.energy import detector_gflops
+    stem = cfg.input_size ** 2 * 9 * 3 * cfg.widths[0] * 2 / 1e9
+    return 3 * detector_gflops(cfg) - stem
+
+
+class StepRecorder:
+    """CUDA events around, and the loss of, every ``cascade.train_step``
+    while the context is open (the script wraps the function by name)."""
+
+    def __init__(self):
+        from repro_torch.core import cascade
+        self.module, self.fn, self.events, self.losses = cascade, cascade.train_step, [], []
+
+    def __enter__(self):
+        import torch
+
+        def timed(*args, **kwargs):
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            start.record()
+            out = self.fn(*args, **kwargs)
+            end.record()
+            self.events.append((start, end))
+            self.losses.append(out[2])
+            return out
+        self.module.train_step = timed
+        return self
+
+    def __exit__(self, *exc):
+        self.module.train_step = self.fn
+
+    def ms_per_step(self, skip: int) -> float:
+        """Device-clock ms from the start of step ``skip`` to the end of
+        the last step, over the steps in between."""
+        import torch
+        torch.cuda.synchronize()
+        return self.events[skip][0].elapsed_time(self.events[-1][1]) / (len(self.events) - skip)
+
+    def loss_array(self):
+        import torch
+        return torch.stack(self.losses).cpu().numpy()
+
+
+def phase_train_step(dev):
+    """One training step of each full-width counter on the card and on
+    the CPU, from the same seeded weights and the same 2 tiles of
+    ``build_target_pool``: loss, aux terms, gradients, the global norm and
+    every updated parameter compared. Adam's first step moves a weight by
+    the rate times g / (|g| + eps), about the sign of its gradient g: with
+    dg the largest gradient difference of the weight's leaf, a weight
+    with |g| <= 2 dg may step the other way (apart by up to twice the
+    rate); every other one agrees within the rate times
+    eps dg / (|g| - dg)^2 + 1e-5, plus 2 float32 ulps."""
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config
+    from repro_torch.core import cascade
+    from repro_torch.launch import serve
+    from repro_torch.models import detector
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.optim.schedule import cosine_with_warmup
+
+    scene = serve.training_scenes()[:1]
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        xs, ys = cascade.build_target_pool(cfg, scene, 128, device="cpu")
+        idx = np.random.default_rng(SEED).integers(0, len(xs), STEP_BATCH)
+        xb, yb = xs[idx], torch.from_numpy(ys[idx])
+        p_cpu = detector.init(torch.Generator().manual_seed(SEED), cfg, device="cpu")
+        runs = {}
+        for key, d, p in (("cpu", "cpu", p_cpu), ("card", dev, detector.to_device(p_cpu, dev))):
+            init, update = adamw(cosine_with_warmup(3e-3, TRAIN_STEPS // 10 + 1, TRAIN_STEPS))
+            pg = T.map_leaves(lambda x: x.detach().requires_grad_(True), p)
+            loss, _ = detector.loss_fn(pg, cfg, xb.to(d), yb.to(d))
+            grads = torch.autograd.grad(loss, T.leaves(pg))
+            new_p, _, loss, aux, metrics = cascade.train_step(p, cfg, update, init(p),
+                                                              xb.to(d), yb.to(d))
+            runs[key] = dict(loss=loss.item(), aux={k: v.item() for k, v in aux.items()},
+                           grad_norm=metrics["grad_norm"].item(), lr=metrics["lr"].item(),
+                           grads=[g.cpu() for g in grads], params=[x.cpu() for x in T.leaves(new_p)])
+        cpu, gpu = runs["cpu"], runs["card"]
+        lr = cpu["lr"]
+        rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)
+        grad_err, sure_err, unsure, unsure_err = {}, 0.0, 0, 0.0
+        for path, gc, gg, pc, pgpu, p0 in zip(T.flatten_with_paths(p_cpu)[0], cpu["grads"],
+                                              gpu["grads"], cpu["params"], gpu["params"],
+                                              T.leaves(p_cpu)):
+            dg = (gc - gg).abs().max().item()
+            grad_err[path] = dg / gc.abs().max().item()
+            sure = gc.abs() > 2 * dg
+            diff = (pc - pgpu).abs()
+            limit = (lr * (1e-8 * dg / (gc.abs() - dg).clamp(min=1e-30) ** 2 + 1e-5)
+                     + 2 * 2.0 ** -23 * torch.maximum(pc.abs(), p0.abs()))
+            if sure.any():
+                sure_err = max(sure_err, (diff / limit)[sure].max().item())
+            if (~sure).any():
+                unsure += int((~sure).sum())
+                unsure_err = max(unsure_err, diff[~sure].max().item())
+        n = sum(x.numel() for x in cpu["params"])
+        print(f"train step {arch}: loss cpu {cpu['loss']:.7e} card {gpu['loss']:.7e} (rel "
+              f"{rel(gpu['loss'], cpu['loss']):.2e}); aux rel "
+              + ", ".join(f"{k} {rel(gpu['aux'][k], cpu['aux'][k]):.2e}" for k in cpu["aux"])
+              + f"; grad norm rel {rel(gpu['grad_norm'], cpu['grad_norm']):.2e}; gradients "
+              f"within {max(grad_err.values()):.2e} of each leaf's max ("
+              + ", ".join(f"{k} {v:.1e}" for k, v in grad_err.items())
+              + f"); params: {n - unsure} of {n} within "
+              f"{sure_err:.3f} of their limit, {unsure} with a gradient near 0 apart by "
+              f"{unsure_err:.3e} (rate {lr:.3e})", flush=True)
+        check(rel(gpu["loss"], cpu["loss"]) <= STEP_RTOL, f"{arch}: step loss differs")
+        check(all(rel(gpu["aux"][k], cpu["aux"][k]) <= STEP_RTOL for k in cpu["aux"]),
+              f"{arch}: aux terms differ")
+        check(rel(gpu["grad_norm"], cpu["grad_norm"]) <= STEP_RTOL, f"{arch}: grad norm differs")
+        check(max(grad_err.values()) <= STEP_GRAD_TOL, f"{arch}: gradients differ: {grad_err}")
+        check(sure_err <= 1.0 and unsure_err <= 2.1 * lr, f"{arch}: updated parameters differ")
+
+
+def profile_train(cfg, scenes, dev):
+    """One ``train_step`` at batch TRAIN_BATCH under torch.profiler."""
+    import numpy as np
+    import torch
+    from repro_torch.core import cascade
+    from repro_torch.models import detector
+    from repro_torch.optim.adamw import adamw
+    from repro_torch.optim.schedule import cosine_with_warmup
+
+    xs, ys = cascade.build_target_pool(cfg, scenes, 128, device=dev)
+    idx = torch.from_numpy(np.random.default_rng(SEED).integers(0, len(xs), TRAIN_BATCH)).to(dev)
+    params = detector.init(torch.Generator().manual_seed(SEED), cfg, device=dev)
+    init, update = adamw(cosine_with_warmup(3e-3, TRAIN_STEPS // 10 + 1, TRAIN_STEPS))
+    state, xb, yb = init(params), xs[idx], torch.from_numpy(ys).to(dev)[idx]
+    profile_step(f"train {cfg.name}", lambda: cascade.train_step(params, cfg, update, state, xb, yb))
+
+
+def phase_train_throughput(dev):
+    """``fit_counter`` of each full-width counter at batch 16 on
+    ``get_counters``' 8 training scenes, 200 steps: ms a step on the
+    device's clock after TRAIN_WARMUP steps, tiles/s, the share of the
+    float32 bound, peak memory; the loss finite, the mean of the last 20
+    steps below the first 20's; one step of each, and of the reduced
+    ground counter, under torch.profiler. Then two seeded 20-step runs of
+    the space counter: are their losses bit-equal (cuDNN's algorithm
+    choice left at its default)?"""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import cascade
+    from repro_torch.launch import serve
+
+    scenes = serve.training_scenes()
+    for arch in ARCHS:
+        cfg = get_config(arch)
+        torch.cuda.reset_peak_memory_stats()
+        with StepRecorder() as rec:
+            t0 = time.perf_counter()
+            _, final = cascade.fit_counter(cfg, scenes, 128, TRAIN_STEPS,
+                                           torch.Generator().manual_seed(SEED),
+                                           batch=TRAIN_BATCH, device=dev)
+            wall = time.perf_counter() - t0
+        ms = rec.ms_per_step(TRAIN_WARMUP)
+        losses = rec.loss_array()
+        gflop = train_gflop(cfg) * TRAIN_BATCH
+        bound = gflop * 1e9 / FP32_FLOPS * 1e3
+        row = dict(ms_per_step=ms, tiles_per_s=TRAIN_BATCH / ms * 1e3, gflop_per_step=gflop,
+                   bound_ms=bound, bound_share=bound / ms, peak_gb=torch.cuda.max_memory_allocated() / 1e9,
+                   fit_counter_s=wall, first20=float(losses[:20].mean()),
+                   last20=float(losses[-20:].mean()), final_loss=final,
+                   timed_steps=TRAIN_STEPS - TRAIN_WARMUP, batch=TRAIN_BATCH)
+        print(f"train {arch}: " + json.dumps(row), flush=True)
+        check(np.isfinite(losses).all() and len(losses) == TRAIN_STEPS, f"{arch}: loss not finite")
+        check(row["last20"] < row["first20"], f"{arch}: the loss did not fall")
+        profile_train(cfg, scenes, dev)
+    profile_train(reduced(get_config("targetfuse-ground")), scenes, dev)
+    cfg = get_config("targetfuse-space")
+    runs = []
+    for _ in range(2):
+        with StepRecorder() as rec:
+            cascade.fit_counter(cfg, scenes, 128, 20, torch.Generator().manual_seed(SEED),
+                                batch=TRAIN_BATCH, device=dev)
+        runs.append(rec.loss_array())
+    print(f"train determinism: two seeded 20-step runs of targetfuse-space, losses bit-equal "
+          f"{runs[0].tobytes() == runs[1].tobytes()}; max abs diff "
+          f"{float(np.abs(runs[0] - runs[1]).max()):.3e}", flush=True)
+
+
+def phase_trained_mission(dev, kernels):
+    """Counters trained on the card, then served. tests/test_system.py's
+    counters (reduced configs, 6 mini scenes, 250 and 600 steps): on 3
+    held-out scenes the ground counter's CMAE is below the space
+    counter's. Then ``get_counters`` at its default steps into a
+    temporary folder; the restored counters bit-equal to the trained
+    ones; serve's CMAE table for every policy from that folder on the
+    card, as a main path -> (launches by kernel, by entry)."""
+    import contextlib
+    import io
+    import tempfile
+
+    import numpy as np
+    import torch
+    from repro_torch import tree as T
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.core import cascade, tiling
+    from repro_torch.data.synthetic import SceneSpec, make_scene, tile_counts
+    from repro_torch.launch import serve
+    from repro_torch.models import detector
+
+    spec = SceneSpec("mini", 512, (20, 30), (10, 24), cloud_fraction=0.2)
+    rng = np.random.default_rng(0)
+    scenes = [make_scene(rng, spec) for _ in range(PREMISE_SCENES)]
+    cfgs = [reduced(get_config(a)) for a in ARCHS]
+    t0 = time.perf_counter()
+    trained = [cascade.fit_counter(cfg, scenes, 128, steps, torch.Generator().manual_seed(k),
+                                   device=dev)
+               for k, (cfg, steps) in enumerate(zip(cfgs, PREMISE_STEPS))]
+    train_s = time.perf_counter() - t0
+    rng = np.random.default_rng(3)
+    errs = [[], []]
+    for _ in range(PREMISE_HELD_OUT):
+        img, b, c = make_scene(rng, spec)
+        true = tile_counts(b, spec.scene_px, 128)
+        t = tiling.tile_image(torch.from_numpy(img).to(dev), 128)
+        for e, (params, _), cfg in zip(errs, trained, cfgs):
+            cnt, _ = cascade.count_tiles_batched(params, cfg, tiling.resize_tiles(t, cfg.input_size),
+                                                 score_thresh=0.25)
+            e.append(np.abs(cnt - true).sum() / max(true.sum(), 1))
+    cmae_s, cmae_g = float(np.mean(errs[0])), float(np.mean(errs[1]))
+    print(f"trained counters: {PREMISE_STEPS} steps in {train_s:.2f} s, final loss space "
+          f"{trained[0][1]:.4f} ground {trained[1][1]:.4f}; held-out CMAE space {cmae_s:.4f} "
+          f"ground {cmae_g:.4f}", flush=True)
+    check(cmae_g < cmae_s, "the ground counter is not more accurate than the space counter")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        pair = serve.get_counters(cache_dir=tmp, device=dev)
+        torch.cuda.synchronize()
+        print(f"get_counters: trained and cached {ckpt.all_steps(tmp + '/space')} / "
+              f"{ckpt.all_steps(tmp + '/ground')} steps in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        for name, (params, cfg), k in zip(("space", "ground"), pair, (0, 1)):
+            fresh = detector.init(torch.Generator().manual_seed(k + 7), cfg, device=dev)
+            _, got = ckpt.restore(f"{tmp}/{name}", fresh)
+            check(all(torch.equal(a, b) for a, b in zip(T.leaves(got), T.leaves(params), strict=True)),
+                  f"{name}: restored counter differs from the trained one")
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            _, launches, entries = counted_run(
+                kernels, lambda: serve.main(["--counters", tmp, "--device", str(dev)]))
+    table = out.getvalue().strip().splitlines()
+    for line in table:
+        print(f"serve: {line}", flush=True)
+    rows = {r.split()[0]: r.split()[1:] for r in table[2:]}
+    check(sorted(rows) == sorted(POLICIES) and all(np.isfinite(float(v[0])) for v in rows.values()),
+          f"serve's table: {table}")
+    print(f"serve launches: {launches}, by entry {entries}", flush=True)
+    idle = ("iou_matrix_f32",) + LANE_ENTRIES
+    check(all(n > 0 for e, n in entries.items() if e in
+              ("tile_moments_f32", "kmeanspp_seed_f32", "kmeans_assign_f32", "nms_keep_f32"))
+          and not any(entries[e] for e in idle), f"serve missed a kernel entry: {entries}")
+    return launches, entries
 
 
 # ---------------------------------------------------------------------------
@@ -1617,6 +1919,15 @@ def main():
     t0 = time.perf_counter()
     phase_lm_cuda_vs_cpu(dev, kernel["flash_attention"])
     print(f"phase lm cuda vs cpu: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    phase_train_step(dev)
+    phase_train_throughput(dev)
+    train_launches, train_entries = phase_trained_mission(dev, mission_kernels)
+    for name, n in train_launches.items():
+        launches[name] += n
+    for sym, n in train_entries.items():
+        entry_launches[sym] += n
+    print(f"phase counter training: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

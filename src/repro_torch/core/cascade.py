@@ -1,20 +1,26 @@
-"""Satellite-ground cascade: counting tiles with a counter, PyTorch.
+"""Satellite-ground cascade: counting tiles with a counter, and training
+counters, PyTorch.
 
-Counterpart of the counting half of ``repro/core/cascade.py``. Every
-forward runs at a power-of-two batch tier (the trailing batch and a
-gathered subset are padded), as the reference's compiled programs do;
-the detector is per-sample, so padding never changes a real tile.
-Results stay on the device until one host copy at the end.
+Counterpart of ``repro/core/cascade.py``. Every counting forward runs at
+a power-of-two batch tier (the trailing batch and a gathered subset are
+padded), as the reference's compiled programs do; the detector is
+per-sample, so padding never changes a real tile. Results stay on the
+device until one host copy at the end. Training (:func:`fit_counter`)
+keeps its tile pool on the device and gathers each batch there.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
 
+from repro_torch import tree as T
 from repro_torch.configs.base import DetectorConfig
-from repro_torch.core import xfer
+from repro_torch.core import tiling, xfer
 from repro_torch.core.dedup import bucket_size
+from repro_torch.device import resolve_device
 from repro_torch.models import detector
+from repro_torch.optim.adamw import adamw
+from repro_torch.optim.schedule import cosine_with_warmup
 
 
 def count_tiles(params, cfg: DetectorConfig, tiles, score_thresh: float = 0.3,
@@ -129,3 +135,117 @@ def count_tiles_multi(params, cfg, parts, batch: int = 64, score_thresh=0.3,
         return [(out[0, o:o + k], out[1, o:o + k]) if k else empty
                 for o, k in spans]
     return resolve if defer else resolve()
+
+
+# ---------------------------------------------------------------------------
+# counter training (shared by examples / benchmarks / tests)
+# ---------------------------------------------------------------------------
+
+
+def _scene_targets(boxes, classes, n_tiles: int, g: int, grid: int,
+                   n_anchors: int, n_classes: int, input_size: int,
+                   tile_size: int):
+    """Vectorized per-scene target tensor (n_tiles, G, G, A, 5+C).
+
+    Matches the loop semantics of `clip_boxes_to_tile` +
+    `boxes_to_targets`: boxes are center-assigned to tiles, localized,
+    scaled to model-input px, and fill anchor slots in box order (boxes
+    past `n_anchors` in a cell are dropped).
+    """
+    t = np.zeros((n_tiles, grid, grid, n_anchors, 5 + n_classes), np.float32)
+    if len(boxes) == 0:
+        return t
+    b = np.asarray(boxes, np.float32)
+    scale = np.float32(input_size / tile_size)
+    cell = np.float32(input_size / grid)
+    cx_s = (b[:, 0] + b[:, 2]) / 2
+    cy_s = (b[:, 1] + b[:, 3]) / 2
+    tx = np.minimum((cx_s // tile_size).astype(np.int64), g - 1)
+    ty = np.minimum((cy_s // tile_size).astype(np.int64), g - 1)
+    tile_idx = ty * g + tx
+    # tile-local, model-input-px corner coordinates (float32 throughout,
+    # scaled corner-first — matching the scalar arithmetic of the former
+    # clip_boxes_to_tile + boxes_to_targets per-box loop bit-for-bit)
+    x1 = (b[:, 0] - (tx * tile_size).astype(np.float32)) * scale
+    x2 = (b[:, 2] - (tx * tile_size).astype(np.float32)) * scale
+    y1 = (b[:, 1] - (ty * tile_size).astype(np.float32)) * scale
+    y2 = (b[:, 3] - (ty * tile_size).astype(np.float32)) * scale
+    cx, cy, w, h = (x1 + x2) / 2, (y1 + y2) / 2, x2 - x1, y2 - y1
+    gx = np.minimum((cx / cell).astype(np.int64), grid - 1)
+    gy = np.minimum((cy / cell).astype(np.int64), grid - 1)
+    # anchor slot = occurrence index of the box within its (tile, cell)
+    key = (tile_idx * grid + gy) * grid + gx
+    order = np.argsort(key, kind="stable")
+    sk = key[order]
+    new_grp = np.r_[True, sk[1:] != sk[:-1]]
+    starts = np.flatnonzero(new_grp)
+    occ = np.empty(len(key), np.int64)
+    occ[order] = np.arange(len(key)) - starts[np.cumsum(new_grp) - 1]
+    m = occ < n_anchors
+    ti, gyi, gxi, ai = tile_idx[m], gy[m], gx[m], occ[m]
+    t[ti, gyi, gxi, ai, 0] = np.clip(cx[m] / cell - gxi.astype(np.float32), 0, 1)
+    t[ti, gyi, gxi, ai, 1] = np.clip(cy[m] / cell - gyi.astype(np.float32), 0, 1)
+    t[ti, gyi, gxi, ai, 2] = np.clip(w[m] / (4 * cell), 0, 1)
+    t[ti, gyi, gxi, ai, 3] = np.clip(h[m] / (4 * cell), 0, 1)
+    t[ti, gyi, gxi, ai, 4] = 1.0
+    t[ti, gyi, gxi, ai, 5 + np.asarray(classes)[m].astype(np.int64)] = 1.0
+    return t
+
+
+def build_target_pool(cfg: DetectorConfig, scenes, tile_size: int, device="cuda"):
+    """(xs, ys) tile/target training pool for :func:`fit_counter`: xs
+    (N, S, S, 3) tiles resized to the counter's input on ``device``, ys
+    (N, G, G, A, 5+C) float32 numpy targets."""
+    device = resolve_device(device)
+    grid = detector.grid_size(cfg)
+    xs, ys = [], []
+    for img, boxes, classes in scenes:
+        s = img.shape[0]
+        g = (s + tile_size - 1) // tile_size
+        t = tiling.tile_image(torch.as_tensor(img, dtype=torch.float32).to(device), tile_size)
+        xs.append(tiling.resize_tiles(t, cfg.input_size))
+        ys.append(_scene_targets(boxes, classes, g * g, g, grid,
+                                 cfg.n_anchors, cfg.n_classes,
+                                 cfg.input_size, tile_size))
+    return torch.cat(xs), np.concatenate(ys).astype(np.float32)
+
+
+def train_step(params, cfg: DetectorConfig, opt_update, opt_state, xb, yb):
+    """One AdamW step of ``detector.loss_fn`` on a batch -> (params,
+    opt_state, loss, aux, metrics), all still on the device."""
+    params = T.map_leaves(lambda p: p.detach().requires_grad_(True), params)
+    loss, aux = detector.loss_fn(params, cfg, xb, yb)
+    grads = T.unflatten(params, torch.autograd.grad(loss, T.leaves(params)))
+    with torch.no_grad():
+        params, opt_state, metrics = opt_update(grads, opt_state, params)
+    return params, opt_state, loss.detach(), {k: v.detach() for k, v in aux.items()}, metrics
+
+
+def fit_counter(cfg: DetectorConfig, scenes, tile_size: int, steps: int,
+                gen: torch.Generator, batch: int = 16, lr: float = 3e-3,
+                log_every: int = 0, device="cuda"):
+    """Train a counter on (image, boxes, classes) scenes.
+
+    Tiles each scene, builds YOLO-style targets, runs AdamW with a cosine
+    schedule after a warm-up of a tenth of the steps; the batches are the
+    reference's draws (``default_rng(0)``), gathered on the device. The
+    host waits for the card only at a log line and at the end. Returns
+    (params in the reference layout, final loss).
+    """
+    device = resolve_device(device)
+    params = detector.init(gen, cfg, device)
+    xs, ys = build_target_pool(cfg, scenes, tile_size, device)
+    ys = torch.from_numpy(ys).to(device)
+    opt_init, opt_update = adamw(cosine_with_warmup(lr, steps // 10 + 1, steps))
+    opt_state = opt_init(params)
+
+    rng = np.random.default_rng(0)
+    idx = torch.from_numpy(np.stack([rng.integers(0, len(xs), batch)
+                                     for _ in range(steps)])).to(device)
+    loss = None
+    for step in range(steps):
+        params, opt_state, loss, _, _ = train_step(
+            params, cfg, opt_update, opt_state, xs[idx[step]], ys[idx[step]])
+        if log_every and step % log_every == 0:
+            print(f"  step {step:4d} loss {float(loss):.4f}")
+    return params, float(loss)

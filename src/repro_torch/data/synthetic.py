@@ -138,3 +138,41 @@ def tile_counts(boxes, scene_px: int, tile_size: int):
         tx, ty = min(int(cx // tile_size), g - 1), min(int(cy // tile_size), g - 1)
         counts[ty, tx] += 1
     return counts.reshape(-1)
+
+
+def boxes_to_targets(boxes, classes, grid: int, n_anchors: int, n_classes: int,
+                     input_size: int, scale: float = 1.0):
+    """Build a (G,G,A,5+C) detector training target from GT boxes.
+
+    ``scale`` maps scene px -> model-input px when tiles were resized.
+    """
+    t = np.zeros((grid, grid, n_anchors, 5 + n_classes), np.float32)
+    cell = input_size / grid
+    for (x1, y1, x2, y2), c in zip(boxes, classes):
+        x1, y1, x2, y2 = x1 * scale, y1 * scale, x2 * scale, y2 * scale
+        cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+        gx, gy = min(int(cx / cell), grid - 1), min(int(cy / cell), grid - 1)
+        a = 0
+        while a < n_anchors and t[gy, gx, a, 4] > 0:
+            a += 1
+        if a == n_anchors:
+            continue
+        t[gy, gx, a, 0] = np.clip(cx / cell - gx, 0, 1)          # x in cell
+        t[gy, gx, a, 1] = np.clip(cy / cell - gy, 0, 1)
+        t[gy, gx, a, 2] = np.clip((x2 - x1) / (4 * cell), 0, 1)  # w, up to 4 cells
+        t[gy, gx, a, 3] = np.clip((y2 - y1) / (4 * cell), 0, 1)
+        t[gy, gx, a, 4] = 1.0
+        t[gy, gx, a, 5 + int(c)] = 1.0
+    return t
+
+
+def clip_boxes_to_tile(boxes, classes, tx, ty, tile_size):
+    """Boxes of one scene -> boxes local to tile (tx,ty), center-assigned."""
+    out_b, out_c = [], []
+    for (x1, y1, x2, y2), c in zip(boxes, classes):
+        cx, cy = (x1 + x2) / 2, (y1 + y2) / 2
+        if tx * tile_size <= cx < (tx + 1) * tile_size and ty * tile_size <= cy < (ty + 1) * tile_size:
+            out_b.append([x1 - tx * tile_size, y1 - ty * tile_size,
+                          x2 - tx * tile_size, y2 - ty * tile_size])
+            out_c.append(c)
+    return np.asarray(out_b, np.float32).reshape(-1, 4), np.asarray(out_c, np.int32)

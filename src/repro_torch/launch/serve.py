@@ -4,9 +4,11 @@ selection policy, and the CMAE table (counterpart of
 
   PYTHONPATH=src python -m repro_torch.launch.serve --frames 3 --revisits 3
 
-The counters are the reduced ones the reference's ``serve`` trains and
-caches in ``artifacts/counters/{space,ground}``; the port reads that
-checkpoint with numpy (training is not ported yet).
+Trains the reduced counters with :func:`repro_torch.core.cascade.fit_counter`
+on the first run (``--retrain`` trains again) and caches them in
+``artifacts/counters_torch/{space,ground}``. The checkpoint format is the
+reference's, so ``--counters artifacts/counters`` serves the counters
+that ``python -m repro.launch.serve`` trained.
 """
 from __future__ import annotations
 
@@ -14,33 +16,69 @@ import argparse
 import os
 
 import numpy as np
+import torch
 
+from repro_torch.checkpoint import ckpt
 from repro_torch.configs import get_config, reduced
+from repro_torch.core.cascade import fit_counter
 from repro_torch.core.mission import Mission
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.core.policies import available_policies
 from repro_torch.data.synthetic import DATASETS, SceneSpec, make_scene, revisit_frames
-from repro_torch.models.detector import load_jax_checkpoint
+from repro_torch.device import resolve_device
+from repro_torch.models import detector
 
 CACHE = os.path.join(os.path.dirname(__file__), "..", "..", "..",
-                     "artifacts", "counters")
+                     "artifacts", "counters_torch")
 
 
-def get_counters(cache_dir=CACHE):
-    """(space (params, cfg), ground (params, cfg)) from the reference's
-    cached checkpoints; raises if they are missing."""
-    pair = []
-    for name, arch in (("space", "targetfuse-space"),
-                       ("ground", "targetfuse-ground")):
+def training_scenes(scene=None, seed=0):
+    """The counters' training set: 8 scenes of ``scene`` or, by default,
+    2 of each of four profiles (mini and the three dataset analogues),
+    so confidence calibration transfers across benchmarks."""
+    rng = np.random.default_rng(seed)
+    if scene is not None:
+        profiles = [scene]
+    else:
+        profiles = [
+            SceneSpec("mini", 512, (20, 30), (10, 24), cloud_fraction=0.2),
+            SceneSpec("xview", 768, (30, 60), (8, 20), cloud_fraction=0.3),
+            SceneSpec("dota", 768, (22, 45), (10, 32), cloud_fraction=0.3),
+            SceneSpec("uavod", 512, (8, 24), (12, 40), cloud_fraction=0.2),
+        ]
+    scenes = []
+    for p in profiles:
+        scenes += [make_scene(rng, p) for _ in range(max(2, 8 // len(profiles)))]
+    return scenes
+
+
+def get_counters(train_steps=(800, 2000), scene=None, force=False,
+                 cache_dir=CACHE, seed=0, device="cuda"):
+    """(space (params, cfg), ground (params, cfg)) — cached on disk.
+
+    Trained on :func:`training_scenes`; read from
+    ``cache_dir/{space,ground}`` unless ``force``.
+    """
+    device = resolve_device(device)
+    sp_cfg = reduced(get_config("targetfuse-space"))
+    gd_cfg = reduced(get_config("targetfuse-ground"))
+    pair, scenes = [], None
+    for name, cfg, steps, k in (("space", sp_cfg, train_steps[0], 0),
+                                ("ground", gd_cfg, train_steps[1], 1)):
         d = os.path.join(cache_dir, name)
-        try:
-            params = load_jax_checkpoint(d)
-        except FileNotFoundError:
-            raise FileNotFoundError(
-                f"no counter checkpoint in {os.path.abspath(d)}: run "
-                f"`PYTHONPATH=src python -m repro.launch.serve` once to "
-                f"train and cache the counters") from None
-        pair.append((params, reduced(get_config(arch))))
+        if not force:
+            template = detector.init(torch.Generator().manual_seed(k), cfg, device)
+            try:
+                _, params = ckpt.restore(d, template)
+                pair.append((params, cfg))
+                continue
+            except (FileNotFoundError, ValueError):
+                pass
+        scenes = scenes or training_scenes(scene, seed)
+        params, _ = fit_counter(cfg, scenes, 128, steps, torch.Generator().manual_seed(k),
+                                device=device)
+        ckpt.save(d, steps, params)
+        pair.append((params, cfg))
     return pair[0], pair[1]
 
 
@@ -52,12 +90,14 @@ def main(argv=None):
     ap.add_argument("--bandwidth", type=float, default=50.0)
     ap.add_argument("--counters", default=CACHE,
                     help="folder holding the space/ and ground/ checkpoints")
+    ap.add_argument("--retrain", action="store_true")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
 
     spec = (DATASETS[args.dataset] if args.dataset in DATASETS
             else SceneSpec("mini", 512, (20, 30), (10, 24), cloud_fraction=0.2))
-    space, ground = get_counters(args.counters)
+    space, ground = get_counters(force=args.retrain, cache_dir=args.counters,
+                                 device=args.device)
 
     rng = np.random.default_rng(1)
     frames = []

@@ -6,12 +6,11 @@ decode -> NMS (the ``iou_matrix`` library's ``nms_keep_f32``, one launch
 a counting batch) -> count above threshold, with the mean kept score as
 the tile's confidence. Parameters are a dict of tensors in the reference's layout
 (HWIO conv weights), so :func:`params_from_jax` carries the reference's
-weights over as they are.
+weights over as they are, and ``repro_torch.checkpoint.ckpt`` reads the
+reference's checkpoints. :func:`loss_fn` is the training loss; autograd
+differentiates it through :func:`forward`.
 """
 from __future__ import annotations
-
-import json
-import os
 
 import numpy as np
 import torch
@@ -60,63 +59,22 @@ def params_from_jax(tree) -> dict:
     return torch.from_numpy(np.array(tree, dtype=np.float32))
 
 
-def load_jax_checkpoint(ckpt_dir: str, step: int = None) -> dict:
-    """Read the newest committed step of a reference checkpoint (a
-    ``step_XXXXXXXX/`` folder with ``manifest.json`` and ``arrays.npz``)
-    with numpy alone -> the parameter tree of CPU tensors."""
-    if step is None:
-        steps = sorted(
-            int(d[5:]) for d in (os.listdir(ckpt_dir) if os.path.isdir(ckpt_dir) else [])
-            if d.startswith("step_") and not d.endswith(".tmp")
-            and os.path.exists(os.path.join(ckpt_dir, d, "COMMITTED")))
-        if not steps:
-            raise FileNotFoundError(f"no committed checkpoint in {ckpt_dir}")
-        step = steps[-1]
-    d = os.path.join(ckpt_dir, f"step_{step:08d}")
-    with open(os.path.join(d, "manifest.json")) as f:
-        manifest = json.load(f)
-    with np.load(os.path.join(d, "arrays.npz")) as data:
-        vals = [np.asarray(data[f"a{i}"], np.float32)
-                for i in range(len(manifest["keys"]))]
-    tree: dict = {}
-    for key, val in zip(manifest["keys"], vals):
-        *path, leaf = key.split("/")
-        node = tree
-        for part, nxt in zip(path, path[1:] + [leaf]):
-            node = _child(node, part, list if nxt.isdigit() else dict)
-        _set(node, leaf, val)
-    return params_from_jax(tree)
-
-
-def _child(node, part: str, kind):
-    if isinstance(node, list):
-        i = int(part)
-        while len(node) <= i:
-            node.append(kind())
-        return node[i]
-    return node.setdefault(part, kind())
-
-
-def _set(node, part: str, val) -> None:
-    if isinstance(node, list):
-        i = int(part)
-        while len(node) <= i:
-            node.append(None)
-        node[i] = val
-    else:
-        node[part] = val
+def grid_size(cfg: DetectorConfig, input_size=None) -> int:
+    return (input_size or cfg.input_size) // (2 ** len(cfg.widths[1:]))
 
 
 def forward(params: dict, cfg: DetectorConfig, images: torch.Tensor) -> torch.Tensor:
     """images (B, S, S, 3) in [0,1] -> raw head (B, G, G, A, 5+C).
 
-    Works in NCHW inside (a channels-last view of the NHWC input); the
-    bias is added after each convolution, as the reference does.
+    Works in NCHW inside (a channels-last view of the NHWC input) and in
+    the weights' dtype (float32 for every counter config, as the
+    reference's param dtype); the bias is added after each convolution,
+    as the reference does.
     """
     def bias(b):
         return b[None, :, None, None]
 
-    x = images.to(torch.float32).permute(0, 3, 1, 2)
+    x = images.to(params["stem"].dtype).permute(0, 3, 1, 2)
     x = F.leaky_relu(L.conv2d_nchw(x, L.hwio_to_oihw(params["stem"])), 0.1)
     for stage in params["stages"]:
         for j, blk in enumerate(stage):
@@ -126,6 +84,31 @@ def forward(params: dict, cfg: DetectorConfig, images: torch.Tensor) -> torch.Te
     x = L.conv2d_nchw(x, L.hwio_to_oihw(params["head_w"])) + bias(params["head_b"])
     b, g = x.shape[0], x.shape[2]
     return x.permute(0, 2, 3, 1).reshape(b, g, g, cfg.n_anchors, 5 + cfg.n_classes)
+
+
+def loss_fn(params: dict, cfg: DetectorConfig, images: torch.Tensor,
+            targets: torch.Tensor):
+    """targets (B,G,G,A,5+C): [x,y,w,h (cell units), obj, onehot-class]
+    -> (2 obj + 5 box + cls, {"obj", "box", "cls"}), the reference's
+    formulas: the objectness BCE from logits with positives weighted 16,
+    the box MSE through a sigmoid at positives, the class cross-entropy
+    through a log-softmax at positives."""
+    raw = forward(params, cfg, images)
+    obj_t = targets[..., 4]
+    obj_logit = raw[..., 4]
+    bce = (torch.maximum(obj_logit, torch.zeros_like(obj_logit)) - obj_logit * obj_t
+           + torch.log1p(torch.exp(-torch.abs(obj_logit))))
+    # positives are ~1% of cells; upweight them so objectness converges
+    w = torch.where(obj_t > 0, 16.0, 1.0)
+    obj_loss = torch.sum(w * bce) / torch.sum(w)
+    n_pos = torch.clamp(torch.sum(obj_t), min=1.0)
+    pos = obj_t[..., None]
+    box_loss = torch.sum(pos * torch.square(torch.sigmoid(raw[..., :4]) - targets[..., :4]))
+    box_loss = box_loss / n_pos
+    logp = torch.log_softmax(raw[..., 5:], dim=-1)
+    cls_loss = -torch.sum(obj_t * torch.sum(targets[..., 5:] * logp, -1)) / n_pos
+    return 2.0 * obj_loss + 5.0 * box_loss + cls_loss, {
+        "obj": obj_loss, "box": box_loss, "cls": cls_loss}
 
 
 def decode(raw: torch.Tensor, cfg: DetectorConfig, input_size=None):

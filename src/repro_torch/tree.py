@@ -1,0 +1,64 @@
+"""Trees of tensors in JAX's leaf order.
+
+The reference flattens nested dicts, lists, tuples and named tuples with
+``jax.tree_util``: a dict's keys sorted, a sequence's items in order, a
+named tuple's fields in order. A leaf's path joins the keys, the item
+indices and the fields (as ``.name``) with ``/``. The port's optimizer
+sums leaves in that order and its checkpoints name them by those paths,
+so a checkpoint written by either package reads in the other.
+"""
+from __future__ import annotations
+
+
+def _children(tree):
+    """-> [(key, child), ...] of a node in JAX's order, or None for a leaf."""
+    if isinstance(tree, dict):
+        return [(k, tree[k]) for k in sorted(tree)]
+    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
+        return [(f".{f}", getattr(tree, f)) for f in tree._fields]
+    if isinstance(tree, (list, tuple)):
+        return list(enumerate(tree))
+    return None
+
+
+def flatten_with_paths(tree):
+    """-> (paths, leaves), both in JAX's leaf order."""
+    paths, leaves = [], []
+
+    def walk(node, prefix):
+        kids = _children(node)
+        if kids is None:
+            paths.append("/".join(prefix))
+            leaves.append(node)
+            return
+        for k, child in kids:
+            walk(child, prefix + [str(k)])
+    walk(tree, [])
+    return paths, leaves
+
+
+def leaves(tree) -> list:
+    return flatten_with_paths(tree)[1]
+
+
+def unflatten(template, values):
+    """A tree shaped like ``template`` holding ``values`` (in JAX's leaf
+    order) at its leaves; dicts come out with sorted keys, as JAX's do."""
+    it = iter(values)
+
+    def build(node):
+        kids = _children(node)
+        if kids is None:
+            return next(it)
+        if isinstance(node, dict):
+            return {k: build(child) for k, child in kids}
+        built = [build(child) for _, child in kids]
+        if hasattr(node, "_fields"):
+            return type(node)(*built)
+        return type(node)(built)
+    return build(template)
+
+
+def map_leaves(fn, tree):
+    """``jax.tree_util.tree_map`` of one tree: ``fn`` of each leaf."""
+    return unflatten(tree, [fn(x) for x in leaves(tree)])

@@ -1,6 +1,6 @@
 """The port's counters against the reference, on the CPU: the weight
 bridge, the forward pass, decode, NMS, counting (plain and batched with
-a gather) and the reference checkpoint reader. Weights are the
+a gather) and reading the reference's checkpoints. Weights are the
 reference's seeded ``init`` at the reduced config, with the head's
 objectness and one class bias raised so that NMS has boxes to keep and
 to suppress."""
@@ -16,6 +16,7 @@ from repro.configs import get_config as jget
 from repro.configs import reduced as jreduced
 from repro.core import cascade as jcascade
 from repro.models import detector as jdet
+from repro_torch.checkpoint import ckpt as tckpt
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import cascade
 from repro_torch.models import detector, layers
@@ -161,12 +162,17 @@ def test_count_tiles_batched_with_gather_matches_reference(arch):
 
 
 def test_load_jax_checkpoint(tmp_path):
+    """The port's ``ckpt.restore`` reads the reference's checkpoints into
+    its own parameter tree."""
     p, cfg = _jax_params("targetfuse-ground", 5)
     ckpt.save(str(tmp_path), 7, p)
     ckpt.save(str(tmp_path), 9, jax.tree_util.tree_map(lambda v: v + 1.0, p))
-    got = detector.load_jax_checkpoint(str(tmp_path))          # newest step
+    template = detector.init(torch.Generator().manual_seed(0), reduced(get_config("targetfuse-ground")),
+                             device="cpu")
+    step, got = tckpt.restore(str(tmp_path), template)          # newest step
+    assert step == 9
     np.testing.assert_array_equal(got["stages"][1][1]["w"].numpy(), p["stages"][1][1]["w"] + 1.0)
-    got7 = detector.load_jax_checkpoint(str(tmp_path), step=7)
+    _, got7 = tckpt.restore(str(tmp_path), template, step=7)
     want = detector.params_from_jax(p)
     assert len(got7["stages"]) == len(want["stages"]) == 2
     for key in ("stem", "head_w", "head_b"):
@@ -175,4 +181,4 @@ def test_load_jax_checkpoint(tmp_path):
         for bj, bt in zip(sj, st):
             assert torch.equal(bj["w"], bt["w"]) and torch.equal(bj["b"], bt["b"])
     with pytest.raises(FileNotFoundError):
-        detector.load_jax_checkpoint(str(tmp_path / "missing"))
+        tckpt.restore(str(tmp_path / "missing"), template)

@@ -160,9 +160,13 @@ def test_mission_streams_two_passes_and_two_windows(method, counters):
 
 
 def test_serve_reads_reference_checkpoints_and_prints_the_table(counters, tmp_path, capsys):
-    """The port's serve CLI on the reference's cached counters."""
-    with pytest.raises(FileNotFoundError, match="repro.launch.serve"):
-        serve.get_counters(str(tmp_path))
+    """The port's serve CLI: an empty folder trains and caches its own
+    counters; a folder of the reference's checkpoints serves them."""
+    (sp0, _), (gd0, _) = serve.get_counters(train_steps=(2, 2), cache_dir=str(tmp_path / "own"),
+                                            device="cpu")
+    assert ckpt.all_steps(str(tmp_path / "own" / "space")) == [2]
+    assert ckpt.all_steps(str(tmp_path / "own" / "ground")) == [2]
+    assert all(torch.isfinite(p).all() for p in (sp0["stem"], gd0["head_w"]))
     (sp, _), (gd, _) = counters
     ckpt.save(str(tmp_path / "space"), 150, sp)
     ckpt.save(str(tmp_path / "ground"), 300, gd)
