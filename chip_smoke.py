@@ -83,14 +83,30 @@ nothing of JAX or of the reference package ``repro``. Phases:
    below the space counter's (checked), ``get_counters`` at its default
    steps into a temporary folder, the restored counters bit-equal to the
    trained ones, and serve's CMAE table for every policy from that
-   folder, with its launches by kernel entry.
+   folder, with its launches by kernel entry;
+10. the reference path, the tile-size search and the examples: (a) phase
+   3's counters and 576 tiles through ``Mission(use_engine=False)`` for
+   every policy, per-tile predictions equal to the engine path's on the
+   card (checked), tiles/s of both paths, one ``nms_keep_f32`` a counter
+   chunk and, on the dedup policies, ``tile_moments_f32``,
+   ``kmeanspp_seed_f32`` and ``kmeans_assign_f32`` (checked); (b) phase
+   6's cell with every fourth satellite on the reference path, per
+   satellite equal to looped Missions, one ``kmeanspp_seed_lanes_f32``
+   launch a shape bucket a round (checked); (c) Algorithm 1
+   (``optimal_tile_size``) over benchmarks/fig4_tilesize.py's ``ap50``
+   map (sizes 32-384, eps 48, 2 mini scenes) with 9c's space counter,
+   ``ap50`` on the card equal to ``ap50`` on the CPU from the same boxes
+   and ``iou_matrix_f32`` launched (checked), printing ``s_best``, the
+   evaluated sizes and the mAP curve; (d) the three example drivers'
+   ``main`` (quickstart, serve_collaborative, constellation_sim with
+   ``--check``, which must hold) on 9c's counters.
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
 first phase 2 case and its launches on the main paths: the Mission's
 runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
-phase 8, serve's Missions of phase 9, qwen3-8b's of phase 5 and
-``int8_matmul``'s one path), then the
+phase 8, serve's Missions of phase 9, phase 10's runs, qwen3-8b's of
+phase 5 and ``int8_matmul``'s one path), then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
 """
@@ -1785,7 +1801,8 @@ def phase_trained_mission(dev, kernels):
     counter's. Then ``get_counters`` at its default steps into a
     temporary folder; the restored counters bit-equal to the trained
     ones; serve's CMAE table for every policy from that folder on the
-    card, as a main path -> (launches by kernel, by entry)."""
+    card, as a main path -> (launches by kernel, by entry, the restored
+    (space, ground) counters)."""
     import contextlib
     import io
     import tempfile
@@ -1852,7 +1869,301 @@ def phase_trained_mission(dev, kernels):
     check(all(n > 0 for e, n in entries.items() if e in
               ("tile_moments_f32", "kmeanspp_seed_f32", "kmeans_assign_f32", "nms_keep_f32"))
           and not any(entries[e] for e in idle), f"serve missed a kernel entry: {entries}")
+    return launches, entries, pair
+
+
+# ---------------------------------------------------------------------------
+# phase 10: the reference path, Algorithm 1 with ap50, the examples
+# ---------------------------------------------------------------------------
+
+# phase 10c: benchmarks/fig4_tilesize.py's tile sizes, its search interval
+# and eps, on 2 of its mini scenes (rng 11)
+FIG4_SIZES, FIG4_EPS = (32, 64, 128, 192, 256, 384), 48
+
+
+def phase_reference_path(dev, kernels):
+    """10a: phase 3's full-width counters and 576 xview tiles through
+    ``Mission(use_engine=False)`` (tiles on the host, frame-by-frame
+    resize, the unpadded dedup, host slices counted a chunk at a time),
+    every policy, against the engine path on the card: per-tile
+    predictions and summaries equal (checked). Launches of the reference
+    runs: one nms_keep_f32 a counter chunk; on the dedup policies one
+    tile_moments_f32 and one kmeanspp_seed_f32 a dedup with 11
+    kmeans_assign_f32 each; no iou_matrix_f32 and no lane entry (all
+    checked). A second reference run of targetfuse gives its stages'
+    synchronized wall times -> launches by kernel and by entry of the
+    reference runs."""
+    import inspect as _inspect
+
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import cascade, dedup as dd
+    from repro_torch.core import mission as M
+    from repro_torch.core.mission import Mission
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.synthetic import DATASETS
+
+    space, ground = counters((get_config("targetfuse-space"), get_config("targetfuse-ground")),
+                             dev)
+    frames = scene_frames(DATASETS["xview"], XVIEW_SCENES, XVIEW_REVISITS, SEED)
+    n_tiles = len(frames) * (DATASETS["xview"].scene_px // 128) ** 2
+    iters = _inspect.signature(dd.dedup_from_moments).parameters["iters"].default
+    total, total_entries = {}, {}
+
+    def timed_run(pcfg):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = Mission(space, ground, pcfg, device=dev).run(frames)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    timed_run(PipelineConfig(method="targetfuse", score_thresh=NMS_SCORE, seed=SEED,
+                             use_engine=False))  # warm-up, dropped
+    for method in POLICIES:
+        kw = dict(method=method, score_thresh=NMS_SCORE, seed=SEED)
+        want, eng_s = timed_run(PipelineConfig(**kw))
+        with EventTimes(cascade, "count_tiles") as chunk_events:
+            (got, ref_s), launches, entries = counted_run(
+                kernels, lambda: timed_run(PipelineConfig(use_engine=False, **kw)))
+        chunks = len(chunk_events.take())
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        for sym, n in entries.items():
+            total_entries[sym] = total_entries.get(sym, 0) + n
+        equal = (np.array_equal(got.per_tile_pred, want.per_tile_pred)
+                 and got.summary() == want.summary())
+        row = dict(tiles=got.tiles_total, engine_tiles_per_s=n_tiles / eng_s,
+                   reference_tiles_per_s=n_tiles / ref_s, engine_s=eng_s, reference_s=ref_s,
+                   counter_chunks=chunks, launches_by_entry=entries,
+                   total_pred=got.total_pred, total_true=got.total_true,
+                   downlinked=got.tiles_downlinked, processed=got.tiles_processed_space)
+        print(f"reference path {method}: equal to the engine path {equal}; " + json.dumps(row),
+              flush=True)
+        check(equal, f"reference path {method}: per-tile predictions or summary differ from "
+                     f"the engine path's")
+        check(got.tiles_total == n_tiles and np.isfinite(got.per_tile_pred).all(),
+              f"reference path {method}: bad results")
+        dedups = entries["kmeanspp_seed_f32"]
+        check(entries["nms_keep_f32"] == chunks
+              and entries["iou_matrix_f32"] == 0
+              and not any(entries[e] for e in LANE_ENTRIES)
+              and entries["kmeans_assign_f32"] == (iters + 1) * dedups
+              and entries["tile_moments_f32"] == dedups
+              and (dedups > 0) == (method in ("kodan", "targetfuse")),
+              f"reference path {method}: {chunks} counter chunks, launches by entry {entries}")
+    stages = {}
+    m = Mission(space, ground, PipelineConfig(method="targetfuse", score_thresh=NMS_SCORE,
+                                              seed=SEED, use_engine=False), device=dev,
+                ingest_stages=[Timed(st, stages) for st in M.default_ingest_stages()],
+                contact_stages=[Timed(st, stages) for st in M.default_contact_stages()])
+    m.run(frames)
+    print("reference path targetfuse stages (synchronized, second run): "
+          + ", ".join(f"{k} {v:.4f} s" for k, v in stages.items()), flush=True)
+    return total, total_entries
+
+
+def phase_mixed_fleet(dev, kernels):
+    """10b: phase 6's cell with every fourth satellite on the reference
+    path: per-satellite results equal looped Missions (checked); the
+    batched satellites still make one kmeanspp_seed_lanes_f32 launch a
+    shape bucket a round, the reference-path ones one kmeanspp_seed_f32
+    launch a dedup and none of their k-means runs on the lanes (checked)
+    -> launches by kernel and by entry of the fleet run."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import dedup as dd, fleet as F
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.scenarios import generate_scenario
+
+    space, ground = counters((get_config("targetfuse-space"), get_config("targetfuse-ground")),
+                             dev)
+    sc = generate_scenario(contact_spec(FLEET_SATS, FLEET_STATIONS, FLEET_SEED))
+    pcfgs = [PipelineConfig(method="targetfuse", score_thresh=NMS_SCORE, seed=SEED,
+                            use_engine=i % 4 != 0) for i in range(FLEET_SATS)]
+    buckets, multi, one = [], dd.dedup_multi, dd.dedup_from_moments
+    lane_sats, seq_dedups = [], []
+
+    def counted_multi(parts, *a, **kw):
+        buckets.append(len({dd._buckets_for(int(m.shape[0]) if n is None else n, k)
+                            for m, k, _, n in parts}))
+        lane_sats.append(len(parts))
+        return multi(parts, *a, **kw)
+
+    def counted_one(*a, **kw):
+        seq_dedups.append(1)
+        return one(*a, **kw)
+    dd.dedup_multi, dd.dedup_from_moments = counted_multi, counted_one
+    t0 = time.perf_counter()
+    try:
+        (got, fl), launches, entries = counted_run(
+            kernels, lambda: F.run_scenario(space, ground, pcfgs, sc, device=dev))
+    finally:
+        dd.dedup_multi, dd.dedup_from_moments = multi, one
+    wall = time.perf_counter() - t0
+    batchable = list(fl._batchable)
+    summ = fl.summary()
+    del fl
+    want = F.run_scenario(space, ground, pcfgs, sc, fleet=False, device=dev)[0]
+    torch.cuda.synchronize()
+    same = same_fleet_results(got, want)
+    row = dict(sats=FLEET_SATS, reference_sats=batchable.count(False), wall_s=wall,
+               tiles_per_s=summ["tiles_per_s"], windows_per_s=summ["windows_per_s"],
+               buckets_per_round=buckets, lane_sats_per_round=lane_sats,
+               reference_dedups=len(seq_dedups), launches_by_entry=entries)
+    print(f"mixed fleet: {sum(same)} of {len(same)} satellites equal their looped Missions; "
+          + json.dumps(row), flush=True)
+    check(all(same), f"mixed fleet: satellites {[i for i, e in enumerate(same) if not e]} "
+                     f"differ from their looped Missions")
+    check(batchable == [i % 4 != 0 for i in range(FLEET_SATS)], f"batchable {batchable}")
+    check(len(buckets) == len(sc.rounds)
+          and entries["kmeanspp_seed_lanes_f32"] == sum(buckets)
+          and entries["kmeanspp_seed_f32"] == len(seq_dedups) > 0
+          and entries["tile_moments_f32"] > entries["kmeanspp_seed_f32"]
+          and entries["iou_matrix_f32"] == 0 and entries["nms_keep_f32"] > 0,
+          f"mixed fleet: launches by entry {entries}, buckets {buckets}, "
+          f"reference dedups {len(seq_dedups)}")
     return launches, entries
+
+
+def fig4_map(space, scenes, tile_size, dev, cpu_maps, ap_s):
+    """``benchmarks/fig4_tilesize.py``'s mAP at one tile size, on the card:
+    tile, resize, the counter's forward and decode, one NMS launch for
+    the scene's tiles, kept boxes scaled back to tile pixels against
+    each tile's ground truth (``clip_boxes_to_tile``); ``ap50`` on the
+    card, and on the CPU from the same boxes into ``cpu_maps``; the two
+    ``ap50`` calls' wall seconds into ``ap_s``."""
+    import torch
+    from repro_torch.core import metrics, tiling
+    from repro_torch.data.synthetic import clip_boxes_to_tile
+    from repro_torch.models import detector
+
+    params, cfg = space
+    pred_b, pred_s, gts = [], [], []
+    for img, boxes, classes in scenes:
+        t = tiling.tile_image(torch.from_numpy(img).to(dev), tile_size)
+        tr = tiling.resize_tiles(t, cfg.input_size)
+        bxs, scs = detector.decode(detector.forward(params, cfg, tr), cfg)
+        keep = detector.nms_keep(bxs, scs, 0.25, 0.25).cpu().numpy()
+        bxs, scs = bxs.cpu().numpy(), scs.cpu().numpy()
+        g = img.shape[0] // tile_size
+        scale = tile_size / cfg.input_size
+        for ty in range(g):
+            for tx in range(g):
+                i = ty * g + tx
+                pred_b.append(bxs[i][keep[i]] * scale)
+                pred_s.append(scs[i][keep[i]])
+                gts.append(clip_boxes_to_tile(boxes, classes, tx, ty, tile_size)[0])
+    t0 = time.perf_counter()
+    cpu_maps[tile_size] = metrics.ap50(pred_b, pred_s, gts, device="cpu")
+    t1 = time.perf_counter()
+    card = metrics.ap50(pred_b, pred_s, gts, device=dev)
+    ap_s.append((time.perf_counter() - t1, t1 - t0))
+    return card
+
+
+def phase_tile_search(dev, kernels, space):
+    """10c: Algorithm 1 (``tiling.optimal_tile_size``) over
+    ``fig4_map`` on 2 mini scenes, tile sizes 32-384 and eps 48 as
+    fig4_tilesize.py, with phase 9c's trained reduced space counter;
+    then the fig4 sizes' curve. Checks: ``ap50`` on the card equals
+    ``ap50`` on the CPU from the same boxes at every size;
+    iou_matrix_f32 launches (> 0) in the search -> launches by kernel and
+    by entry of the search. Prints the search's ``iou_matrix_f32`` calls'
+    shapes, and the kernel's device time at the median call's own inputs
+    beside its plain version's and its bound."""
+    import numpy as np
+    from repro_torch.core import tiling
+    from repro_torch.data.synthetic import SceneSpec, make_scene
+    from repro_torch.kernels import iou, ops, ref
+
+    rng = np.random.default_rng(11)
+    mini = SceneSpec("mini", 512, (20, 30), (10, 24), cloud_fraction=0.2)
+    scenes = [make_scene(rng, mini) for _ in range(2)]
+    cpu_maps, card_maps, ap_s, calls = {}, {}, [], []
+
+    def map_fn(s):
+        card_maps[int(s)] = fig4_map(space, scenes, int(s), dev, cpu_maps, ap_s)
+        return card_maps[int(s)]
+    iou_fn = ops.iou_matrix
+
+    def spy(a, b):
+        if a.device.type == dev.type:
+            calls.append((a, b))
+        return iou_fn(a, b)
+    ops.iou_matrix = spy
+    t0 = time.perf_counter()
+    try:
+        (s_best, cache), launches, entries = counted_run(
+            kernels, lambda: tiling.optimal_tile_size(map_fn, 32, 384, eps=FIG4_EPS))
+    finally:
+        ops.iou_matrix = iou_fn
+    search_s = time.perf_counter() - t0
+    shapes = sorted((a.shape[0], b.shape[0]) for a, b in calls)
+    a, b = next((a, b) for a, b in calls
+                if (a.shape[0], b.shape[0]) == shapes[len(shapes) // 2])
+    n, m = shapes[len(shapes) // 2]
+    ms = cuda_ms(lambda: iou.iou_matrix(a, b), reps=20)
+    host_ms = cuda_ms(lambda: iou.iou_matrix(a, b), reps=20, hold=False)
+    plain_ms = cuda_ms(lambda: ref.iou_matrix(a, b), reps=5, warmup=1)
+    b_ms, b_by = bound_ms((n + m) * 16 + n * m * 4, 12 * n * m)
+    print(f"tile search iou_matrix_f32: {len(calls)} calls, (N, M) from {shapes[0]} to "
+          f"{shapes[-1]}, median {(n, m)}: ms {ms:.4f} (with host launch {host_ms:.4f}) "
+          f"plain_ms {plain_ms:.4f} bound_ms {b_ms:.3e} ({b_by}); ap50 wall s card / CPU "
+          f"{sum(c for c, _ in ap_s):.4f} / {sum(h for _, h in ap_s):.4f} over "
+          f"{len(ap_s)} sizes", flush=True)
+    check(bit_equal(iou.iou_matrix(a, b), ref.iou_matrix(a, b)),
+          "tile search: iou_matrix_f32 differs from its plain version")
+    curve = {s: card_maps[s] if s in card_maps else map_fn(s) for s in FIG4_SIZES}
+    print(f"tile search: s_best {s_best}, evaluated {sorted(cache)} in {search_s:.2f} s; "
+          f"mAP50 at the evaluated sizes {json.dumps({k: cache[k] for k in sorted(cache)})}; "
+          f"fig4 curve {json.dumps(curve)}; measured optimum "
+          f"{max(curve, key=curve.get)}; launches by entry {entries}", flush=True)
+    check(cpu_maps == card_maps, f"tile search: ap50 card {card_maps} != CPU {cpu_maps}")
+    check(entries["iou_matrix_f32"] > 0 and entries["nms_keep_f32"] == len(cache) * 2,
+          f"tile search: launches by entry {entries}")
+    check(32 <= s_best <= 384 and all(0.0 <= v <= 1.0 for v in cache.values()),
+          f"tile search: s_best {s_best}, cache {cache}")
+    return launches, entries
+
+
+def phase_examples(dev, kernels, pair):
+    """10d: the three example drivers' ``main`` in this process on the
+    card, each at its smallest flags, their ``get_counters`` giving phase
+    9c's counters; constellation_sim_torch's ``--check`` (the fleet equal
+    to looped Missions) must hold -> launches by kernel and by entry."""
+    import contextlib
+    import io
+
+    sys.path.insert(0, str(ROOT / "examples"))
+    import constellation_sim_torch
+    import quickstart_torch
+    import serve_collaborative_torch
+    runs = ((quickstart_torch, []), (serve_collaborative_torch, ["--passes", "1"]),
+            (constellation_sim_torch, ["--sats", "2", "--rounds", "1", "--check"]))
+    total, total_entries = {}, {}
+    for mod, argv in runs:
+        saved, mod.get_counters = mod.get_counters, lambda **kw: pair
+        out = io.StringIO()
+        try:
+            with contextlib.redirect_stdout(out):
+                _, launches, entries = counted_run(
+                    kernels, lambda: mod.main(argv + ["--device", str(dev.type)]))
+        finally:
+            mod.get_counters = saved
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        for sym, n in entries.items():
+            total_entries[sym] = total_entries.get(sym, 0) + n
+        lines = out.getvalue().strip().splitlines()
+        for line in lines:
+            print(f"{mod.__name__}: {line}", flush=True)
+        check(lines and "nan" not in out.getvalue(), f"{mod.__name__}: {lines}")
+        if mod is constellation_sim_torch:
+            check(any(ln.startswith("parity check: fleet == looped Missions (exact)")
+                      for ln in lines), "constellation_sim_torch: --check did not hold")
+    print(f"examples launches by entry: {total_entries}", flush=True)
+    return total, total_entries
 
 
 # ---------------------------------------------------------------------------
@@ -1922,12 +2233,24 @@ def main():
     t0 = time.perf_counter()
     phase_train_step(dev)
     phase_train_throughput(dev)
-    train_launches, train_entries = phase_trained_mission(dev, mission_kernels)
+    train_launches, train_entries, trained = phase_trained_mission(dev, mission_kernels)
     for name, n in train_launches.items():
         launches[name] += n
     for sym, n in train_entries.items():
         entry_launches[sym] += n
     print(f"phase counter training: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for phase in (lambda: phase_reference_path(dev, mission_kernels),
+                  lambda: phase_mixed_fleet(dev, mission_kernels),
+                  lambda: phase_tile_search(dev, mission_kernels, trained[0]),
+                  lambda: phase_examples(dev, mission_kernels, trained)):
+        got, got_entries = phase()
+        for name, n in got.items():
+            launches[name] += n
+        for sym, n in got_entries.items():
+            entry_launches[sym] += n
+    print(f"phase reference path, tile search and examples: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

@@ -5,8 +5,10 @@ Counterpart of ``repro/core/cascade.py``. Every counting forward runs at
 a power-of-two batch tier (the trailing batch and a gathered subset are
 padded), as the reference's compiled programs do; the detector is
 per-sample, so padding never changes a real tile. Results stay on the
-device until one host copy at the end. Training (:func:`fit_counter`)
-keeps its tile pool on the device and gathers each batch there.
+device until one host copy at the end. :func:`count_tiles_batched_ref`
+keeps the seed's host-side batching for the reference path. Training
+(:func:`fit_counter`) keeps its tile pool on the device and gathers each
+batch there.
 """
 from __future__ import annotations
 
@@ -135,6 +137,32 @@ def count_tiles_multi(params, cfg, parts, batch: int = 64, score_thresh=0.3,
         return [(out[0, o:o + k], out[1, o:o + k]) if k else empty
                 for o, k in spans]
     return resolve if defer else resolve()
+
+
+def count_tiles_batched_ref(params, cfg, tiles, batch: int = 64, score_thresh=0.3,
+                            nms_iou: float = 0.25):
+    """The seed's host-side batching, the reference path's counting:
+    host ``tiles`` in slices of ``batch``, each copied to the counter's
+    device and counted by one :func:`count_tiles` (one NMS launch a
+    slice). A slice is zero-padded to ``batch`` only when there are more
+    than ``batch`` tiles -> host (counts, conf) float32 arrays."""
+    dev = params["stem"].device
+    outs_c, outs_f = [], []
+    tiles = np.asarray(tiles)
+    n = tiles.shape[0]
+    for i in range(0, n, batch):
+        sl = tiles[i:i + batch]
+        pad = 0
+        if sl.shape[0] < batch and n > batch:
+            pad = batch - sl.shape[0]
+            sl = np.concatenate([sl, np.zeros((pad, *sl.shape[1:]), sl.dtype)])
+        c, f = count_tiles(params, cfg, torch.from_numpy(sl).to(dev), score_thresh, nms_iou)
+        c, f = c.cpu().numpy(), f.cpu().numpy()
+        if pad:
+            c, f = c[:-pad], f[:-pad]
+        outs_c.append(c)
+        outs_f.append(f)
+    return np.concatenate(outs_c), np.concatenate(outs_f)
 
 
 # ---------------------------------------------------------------------------

@@ -210,6 +210,15 @@ def _select_downlink(fleet, plan: ContactPlan,
     for w in range(plan.n_windows):
         sat = int(plan.sats[w])
         m = fleet.missions[sat]
+        if not fleet._batchable[sat]:
+            # reference-path satellites take the exact scalar window
+            # drain, in plan order
+            if ctx is None:
+                out[w] = (sat, m.contact_window(plan.window_budget(w)))
+            else:
+                out[w] = (sat, _contact_window_faulty(
+                    m, plan.window_budget(w), ctx, int(ctx.orig_windows[w])))
+            continue
         if m._window_is_noop():
             out[w] = (sat, m._drained_window_report())
             continue

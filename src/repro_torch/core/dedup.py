@@ -3,10 +3,12 @@
 Counterpart of ``repro/core/dedup.py``: the color moments of the active
 tiles are normalized, clustered by masked k-means++ and Lloyd on
 power-of-two padded shapes, and the tile nearest each centroid stands
-for its cluster. The k-means++ seeding is one call of
+for its cluster. In :func:`dedup_from_moments`, the core that the engine
+and the reference path both enter, the k-means++ seeding is one call of
 ``ops.kmeanspp_seed`` and every other distance goes through
 ``ops.kmeans_assign``: the CUDA kernels on the card, the plain versions
-on the CPU. The first centroid is JAX's own draw
+on the CPU. :func:`kmeans` keeps the reference's unpadded k-means, one
+``ops.kmeans_assign`` call a k-means++ pick. The first centroid is JAX's own draw
 (:func:`repro_torch.random.randint`), so the port picks the same one as
 the reference from the same seed.
 """
@@ -43,6 +45,49 @@ class DedupResult(NamedTuple):
     rep_mask: torch.Tensor       # (N,) bool — True for cluster representatives
     cluster_sizes: torch.Tensor  # (K,) int32
     rep_idx: torch.Tensor        # (K,) int32 index of each cluster's representative
+
+
+def normalize_moments(f: torch.Tensor) -> torch.Tensor:
+    """(N, D) raw color moments -> features centered per feature and
+    scaled by one global factor (the population std of all of them)."""
+    mu = f.mean(0, keepdim=True)
+    scale = (f - f.mean()).square().mean().sqrt() + 1e-6
+    return (f - mu) / scale
+
+
+def features(tiles: torch.Tensor) -> torch.Tensor:
+    """(N, H, W, C) -> (N, 3C) normalized color-moment features."""
+    return normalize_moments(kops.tile_moments(tiles))
+
+
+def _kmeanspp_init(x: torch.Tensor, k: int, seed: int) -> torch.Tensor:
+    """k-means++ (greedy farthest-point) seeding -> (k, D) centroids: a
+    running min-d2 updated against the newest centroid only, one
+    ``ops.kmeans_assign(x, c[None])`` call a pick. The first centroid is
+    ``jax.random.randint(PRNGKey(seed), (), 0, N)``'s draw."""
+    cent0 = x[jrandom.randint(seed, x.shape[0])]
+    _, d2 = kops.kmeans_assign(x, cent0[None])
+    cents = cent0[None].repeat(k, 1)
+    for i in range(1, k):
+        c = x[torch.argmax(d2)]  # the first farthest point
+        cents[i] = c
+        _, d2_new = kops.kmeans_assign(x, c[None])
+        d2 = torch.minimum(d2, d2_new)
+    return cents
+
+
+def kmeans(x: torch.Tensor, k: int, seed: int, iters: int = 10):
+    """k-means with k-means++ seeding over all of ``x`` (no padding) ->
+    (assign (N,) int32, centroids (k, D), d2 (N,))."""
+    cent = _kmeanspp_init(x, k, seed)
+    for _ in range(iters):
+        assign, _ = kops.kmeans_assign(x, cent)
+        one = F.one_hot(assign.long(), k).to(x.dtype)
+        tot = one.T @ x
+        cnt = one.sum(0)[:, None]
+        cent = torch.where(cnt > 0, tot / torch.clamp(cnt, min=1), cent)
+    assign, d2 = kops.kmeans_assign(x, cent)
+    return assign, cent, d2
 
 
 def _buckets_for(n: int, k: int):
@@ -138,6 +183,12 @@ def dedup_from_moments(moments: torch.Tensor, k: int, seed: int,
     assign, rep_mask, sizes, rep_clip = _dedup_finalize(x_pad, cent, n)
     return DedupResult(assign[:n], cent[:k], rep_mask[:n], sizes[:k],
                        rep_clip[:k])
+
+
+def dedup(tiles: torch.Tensor, k: int, seed: int, iters: int = 10) -> DedupResult:
+    """Full dedup pass over tiles (N, H, W, C): their moments
+    (``ops.tile_moments``), then :func:`dedup_from_moments`."""
+    return dedup_from_moments(kops.tile_moments(tiles), k, seed, iters)
 
 
 def expanded_counts(rep_counts: torch.Tensor, res: DedupResult) -> torch.Tensor:

@@ -27,7 +27,9 @@ counting batches, inline or (``async_depth >= 1``) on the ground
 segment's worker threads. Each lane's arithmetic is the looped
 Mission's, so a Fleet equals N independent
 :class:`~repro_torch.core.mission.Mission` objects (:func:`run_scenario`
-with ``fleet=False``) per satellite, at every depth.
+with ``fleet=False``) per satellite, at every depth. A satellite on the
+reference path (``use_engine=False``) leaves the lanes: it takes its
+Mission's sequential ingest and scalar contact window.
 
 The fleet runs on one device (the reference's ``mesh`` and
 ``strict_parity`` options are not ported: every lane here already
@@ -54,6 +56,7 @@ from repro_torch.core.pipeline import PipelineConfig, PipelineResult
 from repro_torch.device import resolve_device
 from repro_torch.models import detector
 
+
 class Fleet:
     """N-satellite constellation over one counter pair, on one device.
 
@@ -62,7 +65,8 @@ class Fleet:
     space, ground : (params, cfg) counter pairs shared by the fleet (the
         params are moved to ``device`` once and shared by every Mission).
     pcfg : one :class:`PipelineConfig` (replicated) or a sequence of N
-        per-satellite configs.
+        per-satellite configs; ``use_engine=False`` falls that satellite
+        back to its Mission's sequential path, in ingest and contact.
     n_sats : fleet size when ``pcfg`` is a single config.
     energy_cfgs : as for :class:`Mission` (compute pricing), shared.
     async_ground : ``True`` overlaps each round's ground recount with
@@ -142,6 +146,8 @@ class Fleet:
             m.ledger = self.ledger.energy_view(i)
             m.bytes_ledger = self.ledger.bytes_view(i)
         self._station = 0  # rotating contact-window pointer
+        # reference-path satellites leave the lanes, ingest and contact
+        self._batchable = [m.pcfg.use_engine for m in self.missions]
         self.contact_reference = bool(contact_reference)
         self.ingest_overlap = bool(ingest_overlap)
         # ingest pipeline state: at most ONE round's ledger tail and one
@@ -204,10 +210,11 @@ class Fleet:
                 if self.faults.blackout(self._ingest_round, i))
             self.fault_stats.blackout_passes += len(blackouts)
         batched = [i for i in range(self.n_sats)
-                   if frames_per_sat[i] and i not in blackouts]
+                   if self._batchable[i] and frames_per_sat[i]
+                   and i not in blackouts]
         if self._ingest_tail is not None and len(batched) < self.n_sats:
             # some satellite takes the sequential Mission path this
-            # round (empty pass, blackout): its ledger ops
+            # round (empty pass, reference path, blackout): its ledger ops
             # must come AFTER the pending round's deferred charges on
             # the same lanes, so the tail resolves before the loop —
             # frame prep of fully-batched rounds still overlaps it
@@ -220,7 +227,8 @@ class Fleet:
                     frames_per_sat[i], energy_budget_j=energy_budgets_j[i],
                     blackout=True)
             elif i not in batched:
-                # an empty pass takes the exact sequential Mission path
+                # empty passes and reference-path satellites take the
+                # exact sequential Mission path
                 reports[i] = self.missions[i].ingest(
                     frames_per_sat[i], energy_budget_j=energy_budgets_j[i])
         if batched:

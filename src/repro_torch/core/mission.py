@@ -11,6 +11,15 @@ ledger) and runs an explicit stage graph over ingested frame segments:
 Tiles, moments, the clustering and the counters run on the Mission's
 ``device`` ("cuda" unless the caller asks for "cpu"; there is no quiet
 fallback to the CPU). Selection and the ledgers are host logic.
+
+``PipelineConfig.use_engine`` picks the execution of the stages: the
+engine path keeps each segment's tiles on the device in bucket-padded
+tensors (:mod:`repro_torch.core.engine`) and gathers what it counts
+there; the reference path (``use_engine=False``) is the seed's: tiles
+and resizes frame by frame, keeps the tiles on the host, clusters the
+active tiles' own moments (:func:`repro_torch.core.dedup.dedup`) and
+counts host slices (:func:`repro_torch.core.cascade.
+count_tiles_batched_ref`). Both give the same per-tile predictions.
 """
 from __future__ import annotations
 
@@ -22,13 +31,15 @@ import torch
 
 import repro_torch.core.dedup as dd
 from repro_torch.core import engine
-from repro_torch.core.cascade import count_tiles_batched
+from repro_torch.core import tiling
+from repro_torch.core.cascade import count_tiles_batched, count_tiles_batched_ref
 from repro_torch.core.energy import (ByteLedger, EnergyLedger, detector_gflops,
                                      max_tiles_within_budget)
 from repro_torch.core.metrics import cmae
 from repro_torch.core.pipeline import PipelineConfig, PipelineResult, budgets_for
 from repro_torch.core.policies import PolicyContext, Selection, get_policy
 from repro_torch.core.throttle import clamp_budget_bytes
+from repro_torch.data.synthetic import tile_counts
 from repro_torch.device import resolve_device
 from repro_torch.models import detector
 
@@ -42,8 +53,8 @@ class Segment:
     # Capture
     n: int = 0
     prep: Optional[engine.PreparedFrames] = None
-    tiles_sp: Optional[torch.Tensor] = None  # device
-    tiles_gd: Optional[torch.Tensor] = None
+    tiles_sp: object = None          # device (engine) or host (reference)
+    tiles_gd: object = None
     true: Optional[np.ndarray] = None
     energy_granted_j: float = 0.0
     byte_entitlement: float = 0.0
@@ -107,8 +118,8 @@ class Stage:
 
 
 class Capture(Stage):
-    """Tile + resize + moments on the device, collect ground truth, and
-    grant this slice's day-fraction budgets."""
+    """Tile + resize (+ moments on the engine path), collect ground truth,
+    and grant this slice's day-fraction budgets."""
 
     name = "capture"
 
@@ -118,17 +129,40 @@ class Capture(Stage):
 
     def prepare(self, mission, seg):
         pcfg = mission.pcfg
-        # skip the moments when this policy consumes neither statistic
-        with_stats = ((pcfg.use_roi and mission.policy.wants_roi)
-                      or (pcfg.use_dedup and mission.policy.wants_dedup))
-        prep = engine.prepare_frames(seg.frames, pcfg.tile_size,
-                                     mission.space[1].input_size,
-                                     mission.ground[1].input_size,
-                                     with_stats=with_stats,
-                                     device=mission.device)
-        seg.prep = prep
-        seg.tiles_sp, seg.tiles_gd = prep.tiles_sp, prep.tiles_gd
-        seg.true, seg.n = prep.true, prep.n
+        sp_size = mission.space[1].input_size
+        gd_size = mission.ground[1].input_size
+        if pcfg.use_engine:
+            # skip the moments when this policy consumes neither statistic
+            with_stats = ((pcfg.use_roi and mission.policy.wants_roi)
+                          or (pcfg.use_dedup and mission.policy.wants_dedup))
+            prep = engine.prepare_frames(seg.frames, pcfg.tile_size, sp_size,
+                                         gd_size, with_stats=with_stats,
+                                         device=mission.device)
+            seg.prep = prep
+            seg.tiles_sp, seg.tiles_gd = prep.tiles_sp, prep.tiles_gd
+            seg.true, seg.n = prep.true, prep.n
+        elif not seg.frames:
+            seg.n = 0
+            seg.true = np.zeros(0, np.float64)
+            seg.tiles_sp = np.zeros((0, sp_size, sp_size, 3), np.float32)
+            seg.tiles_gd = np.zeros((0, gd_size, gd_size, 3), np.float32)
+        else:
+            # the reference path: frame by frame on the device, tiles
+            # kept on the host
+            def prep_tiles(t, input_size):
+                return tiling.resize_tiles(t, input_size).cpu().numpy()
+
+            sp, gd, true = [], [], []
+            for img, boxes, _classes in seg.frames:
+                true.append(tile_counts(boxes, img.shape[0], pcfg.tile_size))
+                t = tiling.tile_image(torch.as_tensor(np.asarray(img), dtype=torch.float32)
+                                      .to(mission.device), pcfg.tile_size)
+                sp.append(prep_tiles(t, sp_size))
+                gd.append(prep_tiles(t, gd_size))
+            seg.tiles_sp = np.concatenate(sp)
+            seg.tiles_gd = np.concatenate(gd)
+            seg.true = np.concatenate(true).astype(np.float64)
+            seg.n = seg.tiles_sp.shape[0]
 
     def admit(self, mission, seg):
         energy = self.entitle(mission, seg)
@@ -166,7 +200,16 @@ class RoiFilter(Stage):
         pcfg = mission.pcfg
         if not (pcfg.use_roi and mission.policy.wants_roi) or seg.n == 0:
             return
-        seg.active &= seg.prep.roi_std > pcfg.roi_std_thresh
+        if seg.prep is not None:
+            raw_sd = seg.prep.roi_std
+        else:
+            # the reference's formula in float32: the population std over
+            # H and W, then the mean over the channels
+            t = torch.from_numpy(seg.tiles_sp).to(mission.device)
+            centered = t - t.mean((1, 2), keepdim=True)
+            raw_sd = (centered.square().sum((1, 2)) / (t.shape[1] * t.shape[2])).sqrt()
+            raw_sd = raw_sd.mean(-1).cpu().numpy()
+        seg.active &= raw_sd > pcfg.roi_std_thresh
 
 
 class Dedup(Stage):
@@ -182,14 +225,18 @@ class Dedup(Stage):
             return
         k = pcfg.k_clusters or max(2, int(seg.active.sum()) // 2)
         idx_active = np.where(seg.active)[0]
-        # bucketed gather of the moments: pad the index vector so the
-        # whole dedup runs at a power-of-two shape
-        n_act = len(idx_active)
-        idx_pad = np.zeros(dd.dedup_pad_size(n_act), np.int64)
-        idx_pad[:n_act] = idx_active
-        moments = seg.prep.moments.index_select(
-            0, torch.from_numpy(idx_pad).to(mission.device))
-        res = dd.dedup_from_moments(moments, k, pcfg.seed, n=n_act)
+        if seg.prep is not None:
+            # bucketed gather of the moments: pad the index vector so the
+            # whole dedup runs at a power-of-two shape
+            n_act = len(idx_active)
+            idx_pad = np.zeros(dd.dedup_pad_size(n_act), np.int64)
+            idx_pad[:n_act] = idx_active
+            moments = seg.prep.moments.index_select(
+                0, torch.from_numpy(idx_pad).to(mission.device))
+            res = dd.dedup_from_moments(moments, k, pcfg.seed, n=n_act)
+        else:
+            res = dd.dedup(torch.from_numpy(seg.tiles_sp[idx_active]).to(mission.device),
+                           k, pcfg.seed)
         assign = res.assign.cpu().numpy()
         rep_local = res.rep_idx.cpu().numpy()
         seg.rep_of[idx_active] = idx_active[rep_local[assign]]
@@ -307,7 +354,7 @@ class Mission:
         tree, e.g. from ``detector.params_from_jax``) are moved to
         ``device``.
     pcfg : PipelineConfig — ``method`` names the registered selection
-        policy.
+        policy; ``use_engine`` picks the engine or the reference path.
     energy_cfgs : optional (space_cfg_full, ground_cfg_full) used to
         PRICE compute; defaults to the paper's full-scale counters.
     ingest_stages, contact_stages : optional custom stage lists.
@@ -319,9 +366,6 @@ class Mission:
                  contact_stages: List[Stage] = None, device="cuda"):
         self.device = resolve_device(device)
         self.pcfg = pcfg if pcfg is not None else PipelineConfig()
-        if not self.pcfg.use_engine:
-            raise NotImplementedError(
-                "the reference host path (use_engine=False) is not ported")
         self.space = (detector.to_device(space[0], self.device), space[1])
         self.ground = (detector.to_device(ground[0], self.device), ground[1])
         if energy_cfgs is None:
@@ -489,7 +533,12 @@ class Mission:
         return len(self._pending)
 
     def _count(self, counter, tiles, idx):
-        """Count ``tiles[idx]``: a device gather, then fixed-shape batches."""
+        """Count ``tiles[idx]``: a device gather and fixed-shape batches on
+        the engine path, host slices and the seed's batching on the
+        reference path."""
         params, cfg = counter
-        return count_tiles_batched(params, cfg, tiles, idx=idx,
-                                   score_thresh=self.pcfg.score_thresh)
+        if self.pcfg.use_engine:
+            return count_tiles_batched(params, cfg, tiles, idx=idx,
+                                       score_thresh=self.pcfg.score_thresh)
+        return count_tiles_batched_ref(params, cfg, tiles[idx],
+                                       score_thresh=self.pcfg.score_thresh)

@@ -43,8 +43,8 @@ class PipelineConfig:
     tiles_per_day: float = 100_000.0
     real_tile_px: int = 416              # byte/energy pricing scale
     seed: int = 0
-    # the device-resident engine path; the reference's host path
-    # (use_engine=False) is not ported
+    # device-resident engine (False = the seed's host-orchestrated
+    # reference path)
     use_engine: bool = True
 
 

@@ -22,7 +22,7 @@ from typing import TYPE_CHECKING, Dict, List, Sequence, Tuple, Type
 import numpy as np
 
 from repro_torch.core.dedup import bucket_size
-from repro_torch.core.throttle import throttle_padded, throttle_padded_batch
+from repro_torch.core.throttle import throttle, throttle_padded, throttle_padded_batch
 
 if TYPE_CHECKING:  # pragma: no cover
     from repro_torch.core.pipeline import PipelineConfig
@@ -232,40 +232,6 @@ class TwoThresholdPolicy(SelectionPolicy):
     wants_dedup = True
     bandwidth_oblivious = False  # kodan: selects as if bandwidth were infinite
 
-    def select(self, ctx, budget_bytes):
-        pcfg = ctx.pcfg
-        n = ctx.n
-        rep_self = ctx.rep_of == np.arange(n)
-        rep_idx = np.where(ctx.processed & rep_self)[0]
-        budget = (np.float64(1e18) if self.bandwidth_oblivious
-                  else np.float64(budget_bytes))
-        # pad the rep set to a bucket, as the reference does; pad slots
-        # are inactive, so they sort last and take no budget
-        space_m, down_m = throttle_padded(
-            ctx.conf[rep_idx], ctx.tile_bytes, budget,
-            pcfg.conf_p, pcfg.conf_q, pcfg.policy,
-            n_pad=bucket_size(max(len(rep_idx), 1)))
-        down_reps = rep_idx[down_m]
-
-        unproc_reps = np.where(ctx.active & rep_self & ~ctx.processed)[0]
-        k_extra = int(max(budget - len(down_reps) * ctx.tile_bytes, 0.0)
-                      // ctx.tile_bytes)
-        down_all = np.concatenate([down_reps,
-                                   unproc_reps[:k_extra]]).astype(np.int64)
-
-        rep_space = np.zeros(n, bool)
-        rep_space[rep_idx[space_m]] = True
-        rep_down = np.zeros(n, bool)
-        rep_down[down_all] = True
-        use_ground = rep_down[ctx.rep_of] & ctx.active
-        use_space = rep_space[ctx.rep_of] & ctx.processed & ~use_ground
-        return Selection(use_space, down_all, use_ground,
-                         len(down_all) * ctx.tile_bytes)
-
-
-    # the lane-stacked path: the same candidates, budget and tail as
-    # select, with every lane's throttle in one throttle_padded_batch call
-
     @staticmethod
     def _reps(ctx) -> np.ndarray:
         """Processed dedup representatives: the throttle's candidates."""
@@ -275,6 +241,24 @@ class TwoThresholdPolicy(SelectionPolicy):
     def _budget(self, budget_bytes) -> np.float64:
         return (np.float64(1e18) if self.bandwidth_oblivious
                 else np.float64(budget_bytes))
+
+    def select(self, ctx, budget_bytes):
+        pcfg = ctx.pcfg
+        rep_idx = self._reps(ctx)
+        n_rep = len(rep_idx)
+        budget = self._budget(budget_bytes)
+        if pcfg.use_engine:
+            # pad the rep set to a bucket, as the reference does; pad
+            # slots are inactive, so they sort last and take no budget
+            space_m, down_m = throttle_padded(
+                ctx.conf[rep_idx], ctx.tile_bytes, budget,
+                pcfg.conf_p, pcfg.conf_q, pcfg.policy,
+                n_pad=bucket_size(max(n_rep, 1)))
+        else:  # the reference path's unpadded throttle
+            tr = throttle(ctx.conf[rep_idx], np.full(n_rep, ctx.tile_bytes),
+                          budget, pcfg.conf_p, pcfg.conf_q, pcfg.policy)
+            space_m, down_m = tr.space.numpy(), tr.downlink.numpy()
+        return self._finish(ctx, rep_idx, budget, space_m, down_m)
 
     @staticmethod
     def _finish(ctx, rep_idx, budget, space_m, down_m):
@@ -300,7 +284,11 @@ class TwoThresholdPolicy(SelectionPolicy):
     def select_batch(self, batch, budgets):
         """Every lane's candidates in one ``throttle_padded_batch`` call a
         fill order, each padded to the bucket of the fill order's longest
-        candidate set (a lane's masks do not depend on its padding)."""
+        candidate set (a lane's masks do not depend on its padding).
+        Reference-path lanes (``use_engine=False``) go to the lane-by-lane
+        adapter and their unpadded throttle."""
+        if not all(p.use_engine for p in batch.pcfgs):
+            return SelectionPolicy.select_batch(self, batch, budgets)
         L = batch.n_lanes
         ctxs = [batch.lane(i) for i in range(L)]
         rep_idxs = [self._reps(c) for c in ctxs]

@@ -178,3 +178,11 @@ def contact_budget_bytes(bandwidth_mbps: float, contact_s: float) -> float:
     """Contact-window byte budget (paper §IV-A3: e.g. 100 Mbps x 6 min);
     zero for a degenerate window (each operand is clamped at 0)."""
     return max(bandwidth_mbps, 0.0) * 1e6 / 8.0 * max(contact_s, 0.0)
+
+
+def bandwidth_efficiency(err_baseline: float, err_system: float,
+                         bytes_baseline: float, bytes_system: float) -> float:
+    """Error reduction per downlinked byte against a baseline (the
+    paper's '9.6x bandwidth efficiency' metric); ``bytes_baseline`` is
+    taken for the reference's signature and not used."""
+    return max(err_baseline - err_system, 0.0) / max(bytes_system, 1.0)

@@ -1,6 +1,8 @@
-"""Image tiling and tile resize (paper §III-B), PyTorch.
+"""Adaptive image tiling (paper §III-B, Algorithm 1), PyTorch.
 
-Counterpart of ``repro/core/tiling.py``. ``resize_tiles`` reproduces
+Counterpart of ``repro/core/tiling.py``: frames are cut into tiles and
+resized to a counter's input size, and :func:`optimal_tile_size`
+ternary-searches the tile size of best mAP. ``resize_tiles`` reproduces
 ``jax.image.resize(..., "bilinear")``: the same triangle-kernel weight
 matrices, built with the same float32 arithmetic, contracted over H and
 then W, which is the order JAX's einsum takes. On the CPU that is
@@ -10,6 +12,7 @@ upsampling (128 -> 416 px) the two stay within 2e-6.
 from __future__ import annotations
 
 import functools
+from typing import Callable, Dict, Tuple
 
 import numpy as np
 import torch
@@ -28,6 +31,11 @@ def tile_image(img: torch.Tensor, tile_size: int) -> torch.Tensor:
     gh, gw = (h + ph) // tile_size, (w + pw) // tile_size
     t = frames.reshape(b, gh, tile_size, gw, tile_size, c).permute(0, 1, 3, 2, 4, 5)
     return t.reshape(b * gh * gw, tile_size, tile_size, c)
+
+
+def untile_counts(counts) -> torch.Tensor:
+    """Aggregate per-tile counts back to a per-frame total."""
+    return torch.as_tensor(counts).sum()
 
 
 @functools.lru_cache(maxsize=32)
@@ -60,3 +68,37 @@ def resize_tiles(tiles: torch.Tensor, out_size: int) -> torch.Tensor:
         x = torch.einsum("npwc,wq->npqc", x, _weight_mat(w, out_size, dev))
     return x.contiguous()
 
+
+def n_tiles(img_hw: Tuple[int, int], tile_size: int) -> int:
+    h, w = img_hw
+    return ((h + tile_size - 1) // tile_size) * ((w + tile_size - 1) // tile_size)
+
+
+def optimal_tile_size(map_fn: Callable[[int], float], s_min: int, s_max: int,
+                      eps: int = 32) -> Tuple[int, Dict[int, float]]:
+    """Algorithm 1: ternary search for the mAP-optimal tile size.
+
+    ``map_fn(size) -> mAP``. Narrows [s_left, s_right] by thirds,
+    comparing mAP at the one-third points, until the interval is below
+    ``eps``, and returns the midpoint of the last interval with the cache
+    of evaluated sizes: (s_best, {size: mAP}).
+    """
+    cache: Dict[int, float] = {}
+
+    def f(s: int) -> float:
+        s = int(s)
+        if s not in cache:
+            cache[s] = float(map_fn(s))
+        return cache[s]
+
+    s_left, s_right = s_min, s_max
+    while s_right - s_left > eps:
+        s_midl = s_left + (s_right - s_left) / 3.0
+        s_midr = s_right - (s_right - s_left) / 3.0
+        if f(int(s_midl)) < f(int(s_midr)):
+            s_left = s_midl
+        else:
+            s_right = s_midr
+    s_best = int((s_left + s_right) / 2)
+    f(s_best)
+    return s_best, cache

@@ -34,6 +34,12 @@ _cache: dict = {}
 _stats = {"device_puts": 0, "cache_reuses": 0}
 
 
+def record_transfer(n: int = 1) -> None:
+    """Count ``n`` host-to-device uploads (every miss of this cache)."""
+    with _lock:
+        _stats["device_puts"] += n
+
+
 def transfer_stats() -> dict:
     """Snapshot of the transfer counters."""
     with _lock:
@@ -58,8 +64,7 @@ def cache_size() -> int:
 
 
 def _put(arr: np.ndarray, device) -> torch.Tensor:
-    with _lock:
-        _stats["device_puts"] += 1
+    record_transfer()
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 

@@ -309,10 +309,14 @@ def test_randint_matches_jax_with_traced_bound():
 # ---------------------------------------------------------------------------
 
 _GUARD = r"""
-import importlib, pkgutil, sys
+import importlib, os, pkgutil, sys
 import repro_torch
 mods = [m.name for m in pkgutil.walk_packages(repro_torch.__path__, "repro_torch.")]
 for m in mods:
+    importlib.import_module(m)
+sys.path.insert(0, os.environ["EXAMPLES"])
+for m in ("quickstart_torch", "serve_collaborative_torch", "constellation_sim_torch",
+          "train_counter_torch"):
     importlib.import_module(m)
 bad = sorted(m for m in sys.modules
              if m == "jax" or m.startswith(("jax.", "jaxlib"))
@@ -324,13 +328,15 @@ for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
           "repro_torch.core.fleet", "repro_torch.core.contact", "repro_torch.core.faults",
           "repro_torch.core.xfer", "repro_torch.core.fleet_sharding",
           "repro_torch.data.scenarios", "repro_torch.orbits.propagation",
-          "repro_torch.orbits.visibility", "repro_torch.orbits.schedule"):
+          "repro_torch.orbits.visibility", "repro_torch.orbits.schedule",
+          "repro_torch.runtime.supervisor", "repro_torch.core.metrics"):
     assert m in mods, m
 import torch
 assert not torch.cuda.is_available()
 from repro_torch.configs import get_config, reduced
 from repro_torch.core.engine import prepare_frames
 from repro_torch.core.fleet import Fleet, run_scenario
+from repro_torch.core.metrics import ap50
 from repro_torch.core.mission import Mission
 from repro_torch.core.pipeline import PipelineConfig, run_pipeline
 from repro_torch.data.scenarios import FleetScenarioSpec, generate_scenario
@@ -345,6 +351,8 @@ for call in (lambda: Mission((p, cfg), (p, cfg)),
              lambda: Fleet((p, cfg), (p, cfg), PipelineConfig(), n_sats=2),
              lambda: run_scenario((p, cfg), (p, cfg), PipelineConfig(), sc),
              lambda: run_pipeline([], (p, cfg), (p, cfg)),
+             lambda: Mission((p, cfg), (p, cfg), PipelineConfig(use_engine=False)),
+             lambda: ap50([], [], []),
              lambda: prepare_frames([], 128, 64, 64),
              lambda: detector.init(torch.Generator().manual_seed(0), cfg),
              lambda: lm.init(torch.Generator().manual_seed(0), lm_cfg),
@@ -366,6 +374,7 @@ print("GUARD-OK", len(mods))
 
 def test_port_imports_no_jax_and_needs_a_gpu_by_default():
     env = dict(os.environ, PYTHONPATH=os.path.abspath(SRC),
+               EXAMPLES=os.path.join(os.path.dirname(os.path.abspath(SRC)), "examples"),
                CUDA_VISIBLE_DEVICES="")
     out = subprocess.run([sys.executable, "-c", _GUARD], env=env,
                          capture_output=True, text=True, timeout=120)
