@@ -100,13 +100,27 @@ nothing of JAX or of the reference package ``repro``. Phases:
    evaluated sizes and the mAP curve; (d) the three example drivers'
    ``main`` (quickstart, serve_collaborative, constellation_sim with
    ``--check``, which must hold) on 9c's counters.
+11. the frozen monolith, the static analysis and the steady-state
+   guard: (a) phase 3's cell through ``core/_legacy.py``'s
+   ``run_pipeline_legacy`` on the engine path for every policy and on
+   the reference path for kodan and targetfuse, each bit for bit the
+   Mission with the same config (checked), with its wall time beside the
+   Mission's and its launches by entry; (b) ``python -m
+   repro_torch.analysis`` over the port with the checked-in empty
+   baseline exits 0 (checked); (c) ``LaunchGuard`` over the steady-state
+   rounds of two cells, tests/test_analysis.py's JitGuard cell (2
+   satellites, the 256 px "jg" scene; rounds 3 and 4, their launches by
+   entry equal, checked) and phase 6's cell (round 3), each after 2
+   warm-up rounds on an emptied allocator cache: no kernel library
+   loaded and no new allocator segment (checked), syncs printed.
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
 first phase 2 case and its launches on the main paths: the Mission's
 runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
-phase 8, serve's Missions of phase 9, phase 10's runs, qwen3-8b's of
-phase 5 and ``int8_matmul``'s one path), then the
+phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
+monolith runs, qwen3-8b's of phase 5 and ``int8_matmul``'s one path),
+then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
 """
@@ -1054,9 +1068,10 @@ def phase_fleet(dev, kernels):
     summ = fl.summary()
     ledger = {f: getattr(fl.ledger, f)[:FLEET_SATS].copy() for f in LEDGER_LANES}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    # every segment keeps its two tile tensors (a 64-row bucket of 416 px
-    # tiles each, ~0.27 GB a pass), so each run's driver is dropped
-    # before the next run and only its host results are kept
+    # a Mission's segments keep their two tile tensors (a 64-row bucket
+    # of 416 px tiles each, ~0.27 GB a pass; a fleet's keep none), so
+    # each run's Fleet or Missions are dropped before the next run and
+    # only their host results are kept
     del fl
 
     stages = {}
@@ -2168,6 +2183,181 @@ def phase_examples(dev, kernels, pair):
 
 # ---------------------------------------------------------------------------
 
+# ---------------------------------------------------------------------------
+# phase 11: the frozen monolith, the static analysis, the steady-state guard
+# ---------------------------------------------------------------------------
+
+# 11a: the clustering policies also run the monolith's reference path
+LEGACY_REFERENCE = ("kodan", "targetfuse")
+# 11c: tests/test_analysis.py's JitGuard cell (2 satellites, the 256 px
+# "jg" scene, targetfuse at score 0.25, rng 17, one frame a pass) and
+# phase 6's cell, with their warm-up and guarded rounds
+GUARD_JG_SPEC = ("jg", 256, (6, 12), (10, 20), 0.2)
+GUARD_WARMUP, GUARD_ROUNDS = 2, 2
+
+
+def phase_legacy(dev, kernels):
+    """11a: phase 3's cell (full-width counters, 576 xview tiles) through
+    ``core/_legacy.py``'s ``run_pipeline_legacy``, on the engine path for
+    every policy and on the reference path for kodan and targetfuse, each
+    bit for bit the port's Mission with the same config: per-tile
+    predictions, ground truth and the summary (checked). Prints each
+    run's wall time beside the Mission's and its launches by entry ->
+    launches by kernel and by entry of the monolith's runs."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core._legacy import run_pipeline_legacy
+    from repro_torch.core.mission import Mission
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.synthetic import DATASETS
+
+    space, ground = counters((get_config("targetfuse-space"), get_config("targetfuse-ground")),
+                             dev)
+    frames = scene_frames(DATASETS["xview"], XVIEW_SCENES, XVIEW_REVISITS, SEED)
+    n_tiles = len(frames) * (DATASETS["xview"].scene_px // 128) ** 2
+    total, total_entries = {}, {}
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    runs = ([(m, True) for m in POLICIES] + [(m, False) for m in LEGACY_REFERENCE])
+    for method, use_engine in runs:
+        pcfg = PipelineConfig(method=method, score_thresh=NMS_SCORE, seed=SEED,
+                              use_engine=use_engine)
+        want, mission_s = timed(lambda: Mission(space, ground, pcfg, device=dev).run(frames))
+        (got, legacy_s), launches, entries = counted_run(
+            kernels, lambda: timed(lambda: run_pipeline_legacy(frames, space, ground, pcfg,
+                                                               device=dev)))
+        for name, n in launches.items():
+            total[name] = total.get(name, 0) + n
+        for sym, n in entries.items():
+            total_entries[sym] = total_entries.get(sym, 0) + n
+        equal = (np.array_equal(got.per_tile_pred, want.per_tile_pred)
+                 and np.array_equal(got.per_tile_true, want.per_tile_true)
+                 and got.summary() == want.summary())
+        path = "engine" if use_engine else "reference"
+        row = dict(tiles=got.tiles_total, legacy_s=legacy_s, mission_s=mission_s,
+                   launches_by_entry={s: n for s, n in entries.items() if n},
+                   total_pred=got.total_pred, downlinked=got.tiles_downlinked,
+                   processed=got.tiles_processed_space)
+        print(f"legacy {method} {path}: bit-identical to the Mission {equal}; "
+              + json.dumps(row), flush=True)
+        check(equal, f"legacy {method} {path}: differs from the Mission")
+        check(got.tiles_total == n_tiles and np.isfinite(got.per_tile_pred).all(),
+              f"legacy {method} {path}: bad results")
+        check(entries["nms_keep_f32"] > 0 and entries["iou_matrix_f32"] == 0
+              and (entries["kmeanspp_seed_f32"] > 0) == (method in LEGACY_REFERENCE),
+              f"legacy {method} {path}: launches by entry {entries}")
+    print(f"legacy launches by entry: {total_entries}", flush=True)
+    return total, total_entries
+
+
+def phase_analysis():
+    """11b: ``python -m repro_torch.analysis`` over src/repro_torch with
+    the checked-in baseline (analysis_baseline_torch.json): exit 0."""
+    import os
+    t0 = time.perf_counter()
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-m", "repro_torch.analysis"], cwd=ROOT, env=env,
+                         capture_output=True, text=True, timeout=300)
+    last = (out.stdout.strip().splitlines() or [""])[-1]
+    print(f"analysis: exit {out.returncode} in {time.perf_counter() - t0:.2f} s: {last}",
+          flush=True)
+    check(out.returncode == 0, f"analysis: {out.stdout[-2000:]}{out.stderr[-2000:]}")
+
+
+def guard_rounds(label, round_fn, guarded):
+    """``GUARD_WARMUP`` rounds, then ``guarded`` rounds each under a
+    ``LaunchGuard``: prints each guarded round's builds, new allocator
+    segments, launches by entry and syncs, in all and by call site -> the
+    guards. The allocator's
+    cache is emptied first, so the warm-up rounds, not the phases before,
+    decide what the guarded rounds may reuse."""
+    import torch
+    from repro_torch.analysis import LaunchGuard
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for _ in range(GUARD_WARMUP):
+        round_fn()
+    torch.cuda.synchronize()
+    guards = []
+    for r in range(guarded):
+        live0 = torch.cuda.memory_stats()["allocated_bytes.all.current"]
+        t0 = time.perf_counter()
+        with LaunchGuard(f"{label} round {GUARD_WARMUP + r + 1}") as g:
+            round_fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        stats = torch.cuda.memory_stats()
+        print(f"guard {g.label}: builds {g.builds} new segments {g.new_segments} syncs "
+              f"{g.syncs} (counted {g.counts_syncs}); {wall:.4f} s; live memory "
+              f"{(stats['allocated_bytes.all.current'] - live0) / 1e6:+.1f} MB, reserved "
+              f"{stats['reserved_bytes.all.current'] / 1e9:.3f} GB; launches by entry "
+              f"{json.dumps(g.launches)}; syncs by site {json.dumps(g.sync_sites)}", flush=True)
+        guards.append(g)
+    return guards
+
+
+def phase_guard(dev):
+    """11c: ``LaunchGuard`` at two cells. (1) tests/test_analysis.py's
+    JitGuard cell on phase 3's counters: a 2-satellite Fleet ingesting
+    one frame a satellite a round; 2 warm-up rounds, 2 guarded rounds,
+    whose launches by entry must be equal. (2) phase 6's cell (32
+    satellites, 8 stations): a Fleet driven round by round (ingest, then
+    the round's ContactPlan at depth 0), round 3 guarded after 2 warm-up
+    rounds. In both, ``assert_steady_state``: no kernel library loaded and
+    no new allocator segment (checked); syncs are reported."""
+    import numpy as np
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.core import fleet as F
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.scenarios import generate_scenario
+    from repro_torch.data.synthetic import SceneSpec, make_scene, revisit_frames
+
+    space, ground = counters((get_config("targetfuse-space"), get_config("targetfuse-ground")),
+                             dev)
+    name, px, n_obj, size, cloud = GUARD_JG_SPEC
+    rng = np.random.default_rng(17)
+    img, b, c = make_scene(rng, SceneSpec(name, px, n_obj, size, cloud_fraction=cloud))
+    fleet = F.Fleet(space, ground, PipelineConfig(method="targetfuse", score_thresh=0.25),
+                    n_sats=2, device=dev)
+
+    def jg_round():
+        fleet.ingest([revisit_frames(rng, img, b, c, 1) for _ in range(2)])
+    jg = guard_rounds("jg cell", jg_round, GUARD_ROUNDS)
+    jg_results = fleet.finalize()
+    del fleet
+
+    sc = generate_scenario(contact_spec(FLEET_SATS, FLEET_STATIONS, FLEET_SEED))
+    n = FLEET_SATS
+    check(len(sc.rounds) == GUARD_WARMUP + 1, f"phase 6's cell has {len(sc.rounds)} rounds")
+    fleet = F.Fleet(space, ground, PipelineConfig(method="targetfuse", score_thresh=NMS_SCORE,
+                                                  seed=SEED), n_sats=n, device=dev)
+    rounds = iter(sc.rounds)
+
+    def fleet_round():
+        rnd = next(rounds)
+        fleet.ingest(rnd.frames_per_sat(n), rnd.harvest_per_sat(n))
+        if rnd.contacts:
+            fleet.contact_round(plan=rnd.contact_plan(n))
+    cell = guard_rounds("phase 6 cell", fleet_round, 1)
+    cell_results = fleet.finalize()
+    del fleet
+    check(all(np.isfinite(r.per_tile_pred).all() for r in jg_results + cell_results),
+          "guard cells: bad results")
+    check(jg[0].launches == jg[1].launches and jg[0].launches,
+          f"jg cell: launches by entry differ between the guarded rounds "
+          f"{jg[0].launches} / {jg[1].launches}")
+    for g in jg + cell:
+        g.assert_steady_state()
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -2251,6 +2441,15 @@ def main():
             entry_launches[sym] += n
     print(f"phase reference path, tile search and examples: "
           f"{time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    got, got_entries = phase_legacy(dev, mission_kernels)
+    for name, n in got.items():
+        launches[name] += n
+    for sym, n in got_entries.items():
+        entry_launches[sym] += n
+    phase_analysis()
+    phase_guard(dev)
+    print(f"phase legacy, analysis and guard: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

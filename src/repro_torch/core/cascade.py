@@ -49,6 +49,8 @@ def _count_forward(params, cfg, t, batch: int, score_thresh, nms_iou) -> np.ndar
         c, f = count_tiles(params, cfg, chunk, score_thresh, nms_iou)
         outs_c.append(c)
         outs_f.append(f)
+    # analysis: waive(host-sync): the designed single host copy of a
+    # counting batch (counts and confidences together)
     return torch.stack([torch.cat(outs_c), torch.cat(outs_f)]).cpu().numpy()
 
 
@@ -83,11 +85,8 @@ def _count_tiles_chunks(params, cfg: DetectorConfig, chunks, score_thresh: float
 
 def _count_forward_device(params, cfg, t, batch: int, score_thresh,
                           nms_iou) -> torch.Tensor:
-    """:func:`_count_forward` without the host copy -> (2, n_rows_padded)
-    on the device."""
-    pad = -t.shape[0] % batch
-    if pad:
-        t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
+    """:func:`_count_forward` over whole ``batch`` chunks, without the
+    host copy -> (2, n_rows) on the device."""
     c, f = _count_tiles_chunks(params, cfg, t.reshape(-1, batch, *t.shape[1:]),
                                score_thresh, nms_iou)
     return torch.stack([c.reshape(-1), f.reshape(-1)])
@@ -99,12 +98,14 @@ def count_tiles_multi(params, cfg, parts, batch: int = 64, score_thresh=0.3,
 
     Counterpart of ``repro/core/cascade.py``'s ``count_tiles_multi``.
     ``parts``: list of ``(tiles, idx)``, e.g. one a satellite, each
-    gathering a subset of its own bucketed tile tensor. Each gather is
-    padded to a power-of-two size (floor 2; pad slots gather tile 0 and
-    are trimmed), the gathers are concatenated and counted in batches of
-    one size tier, and the results split back per part: the same counts
-    as :func:`count_tiles_batched` per part, with the trailing batch's
-    padding paid once for the fleet.
+    gathering a subset of its own tile tensor. Each gather is padded to a
+    power-of-two size (floor 2; pad slots gather tile 0 and are trimmed)
+    and lands in its slot of one buffer of whole batches of one size
+    tier (zero rows after the last slot), which is counted batch by
+    batch, and the results split back per part: the same counts as
+    :func:`count_tiles_batched` per part, with the trailing batch's
+    padding paid once for the fleet. The buffer is the one device
+    allocation of the gathers, sized by the batch count alone.
 
     -> ``[(counts, conf), ...]`` host arrays aligned with ``parts``. With
     ``defer=True`` the forwards are launched but not copied back: a
@@ -116,24 +117,28 @@ def count_tiles_multi(params, cfg, parts, batch: int = 64, score_thresh=0.3,
     if sum(sizes) == 0:
         out = [empty for _ in parts]
         return (lambda: out) if defer else out
-    gathered, spans, off = [], [], 0
-    for (tiles, idx), k in zip(parts, sizes):
+    spans, off = [], 0
+    for k in sizes:
+        spans.append((off, k) if k else (0, 0))
+        off += bucket_size(k, 2) if k else 0
+    tier = _tier_batch(off, batch)
+    t = None
+    for ((tiles, idx), k), (o, _) in zip(zip(parts, sizes), spans):
         if not k:
-            spans.append((0, 0))
             continue
-        k_pad = bucket_size(k, 2)
-        idx_pad = np.zeros(k_pad, np.int64)
+        if t is None:
+            t = tiles.new_empty((-(-off // tier) * tier, *tiles.shape[1:]))
+            t[off:].zero_()
+        idx_pad = np.zeros(bucket_size(k, 2), np.int64)
         idx_pad[:k] = np.asarray(idx)
-        gathered.append(tiles.index_select(
-            0, xfer.device_constant(idx_pad, tiles.device)))
-        spans.append((off, k))
-        off += k_pad
-    t = gathered[0] if len(gathered) == 1 else torch.cat(gathered)
-    fwd = _count_forward_device(params, cfg, t, _tier_batch(off, batch),
-                                score_thresh, nms_iou)
+        torch.index_select(tiles, 0, xfer.device_constant(idx_pad, tiles.device),
+                           out=t[o:o + len(idx_pad)])
+    fwd = _count_forward_device(params, cfg, t, tier, score_thresh, nms_iou)
 
     def resolve():
-        out = fwd.cpu().numpy()  # the one host copy
+        # analysis: waive(host-sync): the single deferred host copy of the
+        # shared batches; callers resolve() at a pipeline boundary
+        out = fwd.cpu().numpy()
         return [(out[0, o:o + k], out[1, o:o + k]) if k else empty
                 for o, k in spans]
     return resolve if defer else resolve()

@@ -42,7 +42,7 @@ import torch
 
 from repro_torch.core.cascade import count_tiles_multi
 from repro_torch.core.faults import FaultContext, WorkerCrash
-from repro_torch.core.mission import WindowReport, policy_context
+from repro_torch.core.mission import WindowReport, policy_context, recount_tiles
 from repro_torch.core.policies import PolicyContextBatch
 from repro_torch.core.throttle import clamp_budget_bytes
 
@@ -352,10 +352,10 @@ class _RecountWork:
         self.agg = agg
 
     def device(self) -> Optional[torch.device]:
-        """The device of the tiles to recount (None: nothing to count)."""
+        """The device the recount runs on (None: nothing to count)."""
         for items in self.by_thresh.values():
-            for _, seg, _ in items:
-                return seg.tiles_gd.device
+            for m, _, _ in items:
+                return m.device
         return None
 
 
@@ -390,8 +390,7 @@ def _recount_run(work: _RecountWork,
     for thresh, items in work.by_thresh.items():
         if cancel is not None and cancel.is_set():
             return
-        parts = [(seg.tiles_gd, down) for _, seg, down in items]
-        results = count_tiles_multi(params, cfg, parts, score_thresh=thresh)
+        results = count_tiles_multi(params, cfg, recount_tiles(items), score_thresh=thresh)
         if cancel is not None and cancel.is_set():
             return  # abandoned mid-count: discard, write nothing
         for (m, seg, down), (c, _) in zip(items, results):
@@ -584,15 +583,16 @@ class GroundSegment:
     ``torch.cuda.Stream`` the segment owns (the kernel wrappers and the
     convolutions take the thread's current stream). At dispatch the
     foreground records an event on its own stream, which the worker's
-    stream waits for before its first read: ingest wrote the segment
-    tiles on the foreground stream. The tiles are marked as used on the
-    worker stream (``record_stream``), so freeing them on the foreground
-    cannot hand their memory on while the worker reads them; the
-    index vectors a worker uploads are its stream's own
-    (:func:`repro_torch.core.xfer.device_constant`). A worker's results
-    reach the host by the counting's own copies, so its stream is idle
-    when the thread ends and retirement only joins the thread. On the
-    CPU the same code runs without the stream steps.
+    stream waits for before its first launch, so what the foreground
+    queued before the round comes first. A fleet's segments keep no
+    tiles on the device: the worker makes the ground tiles it gathers
+    from the segments' frames on its own stream
+    (:func:`~repro_torch.core.mission.recount_tiles`), so it reads no
+    tensor the foreground may free; the index vectors a worker uploads
+    are its stream's own (:func:`repro_torch.core.xfer.device_constant`).
+    A worker's results reach the host by the counting's own copies, so
+    its stream is idle when the thread ends and retirement only joins
+    the thread. On the CPU the same code runs without the stream steps.
 
     **Watchdog** (``watchdog_s``): each retirement joins with that
     timeout; a worker still alive past it is cancelled (it writes
@@ -681,9 +681,6 @@ class GroundSegment:
             rnd.stream = self._stream
             rnd.ready = torch.cuda.Event()
             rnd.ready.record(torch.cuda.current_stream(dev))
-            for items in work.by_thresh.values():
-                for _, seg, _ in items:
-                    seg.tiles_gd.record_stream(self._stream)
         rnd.thread = threading.Thread(target=_recount_job, args=(rnd,),
                                       name="ground-recount", daemon=True)
         self.rounds_deferred += 1

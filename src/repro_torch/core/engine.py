@@ -108,6 +108,8 @@ def _assemble(parts, frames, tile_size: int, n: int = None) -> PreparedFrames:
     tiles_sp = pad(cat(0))
     tiles_gd = pad(cat(1))
     moments = pad(cat(2)) if with_stats else None
+    # analysis: waive(host-sync): the per-workload roi_std copy is the
+    # designed transfer point (RoiFilter reads it on the host)
     roi_std = pad(cat(3))[:n].cpu().numpy() if with_stats else None
     true = np.concatenate([
         tile_counts(boxes, np.shape(img)[0], tile_size)
@@ -157,6 +159,47 @@ def prepare_frames(frames, tile_size: int, sp_size: int, gd_size: int,
     return _assemble(parts, frames, tile_size)
 
 
+def _ground_program(imgs: torch.Tensor, tile_size: int, gd_size: int) -> torch.Tensor:
+    """The frame program's ground tier alone: (B, H, W, C) frames ->
+    tiles_gd, the same rows as :func:`_frame_program`'s."""
+    return tiling.resize_tiles(tiling.tile_image(imgs, tile_size), gd_size)
+
+
+def ground_tiles(frames, tile_size: int, gd_size: int, device="cuda") -> torch.Tensor:
+    """The real rows of ``prepare_frames(frames, ...).tiles_gd``, bit for
+    bit: each resolution's frames through the ground tier in buckets of
+    ``FRAME_BUCKET`` (each row of a bucket depends on its own frame
+    only). Only the real frames are uploaded, from pinned memory without
+    a host sync, and the pad frames are made on the device. A recount
+    makes a pending segment's tiles here."""
+    device = resolve_device(device)
+    if not frames:
+        return torch.zeros((0, gd_size, gd_size, 3), dtype=torch.float32, device=device)
+    groups: dict = {}
+    for i, (img, _, _) in enumerate(frames):
+        groups.setdefault(np.shape(img), []).append(i)
+    rows = [None] * len(frames)
+    for shape, idxs in groups.items():
+        host = torch.empty((len(idxs), *shape), dtype=torch.float32,
+                           pin_memory=device.type == "cuda")
+        staged = host.numpy()
+        for j, i in enumerate(idxs):
+            staged[j] = frames[i][0]
+        x = host.to(device, non_blocking=True)
+        pad = -len(idxs) % FRAME_BUCKET
+        if pad:
+            x = torch.cat([x, x.new_zeros((pad, *shape))])
+        chunks = [_ground_program(x[c0:c0 + FRAME_BUCKET], tile_size, gd_size)
+                  for c0 in range(0, x.shape[0], FRAME_BUCKET)]
+        t = chunks[0] if len(chunks) == 1 else torch.cat(chunks)
+        ntile = t.shape[0] // x.shape[0]
+        if len(groups) == 1:
+            return t[:len(frames) * ntile]
+        for j, i in enumerate(idxs):
+            rows[i] = t[j * ntile:(j + 1) * ntile]
+    return torch.cat(rows)
+
+
 def _assemble_lane(parts, frames, tile_size: int, roi_std=None,
                    defer_stats: bool = False) -> PreparedFrames:
     """One workload's exact pieces (no pad frames) -> a bucket-padded
@@ -182,6 +225,8 @@ def _assemble_lane(parts, frames, tile_size: int, roi_std=None,
     moments = pad(cat(2)) if with_stats else None
     if roi_std is None and with_stats:
         rs = cat(3)[:n]
+        # analysis: waive(host-sync): the per-workload roi_std copy is the
+        # designed transfer point; defer_stats keeps it on the device
         roi_std = rs if defer_stats else rs.cpu().numpy()
     true = np.concatenate([
         tile_counts(boxes, np.shape(img)[0], tile_size)
@@ -229,7 +274,9 @@ def prepare_frames_multi(workloads, tile_size: int, sp_size: int,
                [torch.cat([ck[j] for ck in chunks]) for j in range(len(chunks[0]))])
         roi_all = cat[3] if with_stats else None
         if with_stats and not defer_stats:
-            roi_all = roi_all.cpu().numpy()  # one copy for the fleet
+            # analysis: waive(host-sync): ONE fleet-wide ROI-stat copy an
+            # ingest; defer_stats leaves it to the caller
+            roi_all = roi_all.cpu().numpy()
         for w in workloads:
             if not w:
                 out.append(_empty_prepared(sp_size, gd_size, device, with_stats))

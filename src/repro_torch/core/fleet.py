@@ -31,6 +31,14 @@ with ``fleet=False``) per satellite, at every depth. A satellite on the
 reference path (``use_engine=False``) leaves the lanes: it takes its
 Mission's sequential ingest and scalar contact window.
 
+A batched segment keeps no tiles on the device once its ingest ends:
+its space tiles go after OnboardCount, and a recount makes the ground
+tiles it gathers from the segment's frames
+(:func:`~repro_torch.core.mission.recount_tiles`). The card
+holds one round's working set, not the backlog of segments waiting for
+a contact window, so a round that repeats the last one's shapes
+allocates nothing new.
+
 The fleet runs on one device (the reference's ``mesh`` and
 ``strict_parity`` options are not ported: every lane here already
 equals its one-lane Mission bit for bit).
@@ -272,9 +280,9 @@ class Fleet:
             for i, prep in zip(ids, preps):
                 seg = Segment(frames=list(frames_per_sat[i]),
                               energy_grant_override=energy_budgets_j[i])
-                seg.prep = prep
-                seg.tiles_sp, seg.tiles_gd = prep.tiles_sp, prep.tiles_gd
-                seg.true, seg.n = prep.true, prep.n
+                # a pending segment keeps no ground tiles on the device:
+                # a recount makes those it downlinks again from the frames
+                seg.hold(prep, ground=False)
                 segs[i] = seg
 
         if overlap:
@@ -331,6 +339,8 @@ class Fleet:
                 if dedup_fetch is not None:
                     dedup_fetch()  # seg.rep_of writes (no ledger)
                 self._onboard_count_batched(count_sats, segs, defer=True)
+                for seg in segs.values():
+                    seg.tiles_sp = None  # OnboardCount was their last reader
                 for i in sats:
                     m, seg = self.missions[i], segs[i]
                     reports[i].tiles_processed_space = seg.n_processed
@@ -339,6 +349,8 @@ class Fleet:
             self._ingest_rounds_deferred += 1
         else:
             self._onboard_count_batched(count_sats, segs)
+            for seg in segs.values():
+                seg.tiles_sp = None  # OnboardCount was their last reader
 
         for i in sats:
             m, seg = self.missions[i], segs[i]

@@ -79,6 +79,47 @@ class Segment:
     requeued: bool = False
     corrupted: bool = False
 
+    def hold(self, prep: engine.PreparedFrames, ground: bool = True) -> None:
+        """Take Capture's output: the segment becomes the one holder of
+        ``prep``'s tiles (``prep`` keeps its statistics). With
+        ``ground=False`` it keeps no ground-tier tiles, and a recount
+        makes those it needs again (:func:`recount_tiles`)."""
+        self.prep, self.true, self.n = prep, prep.true, prep.n
+        self.tiles_sp = prep.tiles_sp
+        self.tiles_gd = prep.tiles_gd if ground else None
+        prep.tiles_sp = prep.tiles_gd = None
+
+
+def recount_tiles(items) -> list:
+    """The ground-tier tiles each ``(mission, seg, rows)`` recount gathers
+    from, as ``(tiles, idx)`` with ``tiles[idx]`` its rows. A segment
+    that holds its ground tiles gives them. For those that hold none (a
+    fleet's), the frames that hold their rows are made again, all in one
+    call that shares the frame buckets (:func:`repro_torch.core.engine.
+    ground_tiles`), and each segment's rows are renumbered into it."""
+    out = [None] * len(items)
+    remake: dict = {}  # (tile, ground input, device) -> (frames, [(k, idx)])
+    for k, (m, seg, rows) in enumerate(items):
+        if seg.tiles_gd is not None:
+            out[k] = (seg.tiles_gd, rows)
+            continue
+        rows = np.asarray(rows, np.int64)
+        tile = m.pcfg.tile_size
+        start = np.cumsum([0] + [tiling.n_tiles(np.shape(img)[:2], tile)
+                                 for img, _, _ in seg.frames])
+        frame = np.searchsorted(start, rows, side="right") - 1
+        need, pos = np.unique(frame, return_inverse=True)
+        frames, parts = remake.setdefault((tile, m.ground[1].input_size, m.device), ([], []))
+        n_before = sum(tiling.n_tiles(np.shape(img)[:2], tile) for img, _, _ in frames)
+        at = n_before + np.cumsum([0, *(start[need + 1] - start[need])])
+        parts.append((k, at[pos] + rows - start[frame]))
+        frames.extend(seg.frames[f] for f in need)
+    for (tile, gd_size, device), (frames, parts) in remake.items():
+        tiles = engine.ground_tiles(frames, tile, gd_size, device=device)
+        for k, idx in parts:
+            out[k] = (tiles, idx)
+    return out
+
 
 @dataclass
 class ContactWindow:
@@ -138,9 +179,7 @@ class Capture(Stage):
             prep = engine.prepare_frames(seg.frames, pcfg.tile_size, sp_size,
                                          gd_size, with_stats=with_stats,
                                          device=mission.device)
-            seg.prep = prep
-            seg.tiles_sp, seg.tiles_gd = prep.tiles_sp, prep.tiles_gd
-            seg.true, seg.n = prep.true, prep.n
+            seg.hold(prep)
         elif not seg.frames:
             seg.n = 0
             seg.true = np.zeros(0, np.float64)
@@ -319,7 +358,8 @@ class GroundRecount(Stage):
         counts_gd = np.zeros(seg.n)
         down = seg.selection.downlink
         if len(down):
-            c, _ = mission._count(mission.ground, seg.tiles_gd, down)
+            (tiles, idx), = recount_tiles([(mission, seg, down)])
+            c, _ = mission._count(mission.ground, tiles, idx)
             counts_gd[down] = c
         seg.counts_gd = counts_gd[seg.rep_of]
 

@@ -83,6 +83,61 @@ def test_prepare_frames_matches_reference(case):
     np.testing.assert_array_equal(got.roi_std > 0.02, np.asarray(want.roi_std) > 0.02)
 
 
+@pytest.mark.parametrize("case", ["one_resolution", "mixed_resolution", "one_frame", "empty"])
+def test_ground_tiles_are_the_real_rows_of_prepare_frames(case):
+    """A fleet's recount makes a segment's ground tiles again from its
+    frames: the real rows of ``prepare_frames``' ground tier, bit for bit
+    (here at 96 px, the space tier at 64)."""
+    frames = {"one_resolution": _frames(42, SPEC, 5), "one_frame": _frames(5, SPEC, 1),
+              "empty": []}.get(case)
+    if frames is None:
+        big, small = _frames(42, SPEC, 3), _frames(3, SMALL, 2)
+        frames = [big[0], small[0], big[1], small[1], big[2]]
+    want = engine.prepare_frames(frames, 128, 64, 96, device="cpu")
+    got = engine.ground_tiles(frames, 128, 96, device="cpu")
+    assert got.shape == (want.n, 96, 96, 3)
+    np.testing.assert_array_equal(got.numpy(), want.tiles_gd[:want.n].numpy())
+
+
+@pytest.mark.parametrize("rows", ["scattered", "one_frame", "last_tile", "none"])
+def test_recount_tiles_remake_only_the_frames_of_the_rows(rows):
+    """Segments that hold no ground tiles get only the frames that hold
+    their recounted rows made again, in one call over all of them, and
+    their rows renumbered into it: ``tiles[idx]`` is ``prepare_frames``'
+    ground tier at those rows, bit for bit (mixed resolutions, 9 and 4
+    tiles a frame); a segment that holds its tiles gives them."""
+    from types import SimpleNamespace
+
+    from repro_torch.core.mission import Segment, recount_tiles
+    big, small = _frames(42, SPEC, 3), _frames(3, SMALL, 2)
+    frames = [big[0], small[0], big[1], small[1], big[2]]  # rows 0 9 13 22 26 (35)
+    picked = {"scattered": [2, 10, 11, 30, 34], "one_frame": [22, 25, 23],
+              "last_tile": [34], "none": []}[rows]
+    made = {"scattered": 9 + 4 + 9, "one_frame": 4, "last_tile": 9, "none": 0}[rows]
+    mission = SimpleNamespace(pcfg=SimpleNamespace(tile_size=128),
+                              ground=(None, SimpleNamespace(input_size=96)), device="cpu")
+    want = engine.prepare_frames(frames, 128, 64, 96, device="cpu")
+    other = frames[::-1]  # a second segment, its frames in another order
+    want_other = engine.prepare_frames(other, 128, 64, 96, device="cpu")
+    segs = []
+    for fr, ground in ((frames, False), (other, False), (frames, True)):
+        seg = Segment(frames=fr)
+        seg.hold(engine.prepare_frames(fr, 128, 64, 96, device="cpu"), ground=ground)
+        assert seg.prep.tiles_sp is None and seg.prep.tiles_gd is None
+        assert (seg.tiles_gd is None) != ground
+        segs.append(seg)
+    other_rows = [0, 8, 9]  # the reversed list's first two frames: 9 and 4 rows
+    (t0, i0), (t1, i1), (t2, i2) = recount_tiles(
+        [(mission, segs[0], np.asarray(picked, np.int64)), (mission, segs[1], other_rows),
+         (mission, segs[2], picked)])
+    assert t0 is t1 and t0.shape[0] == made + 9 + 4
+    np.testing.assert_array_equal(t0[torch.as_tensor(i0, dtype=torch.long)].numpy(),
+                                  want.tiles_gd[picked].numpy())
+    np.testing.assert_array_equal(t1[torch.as_tensor(i1, dtype=torch.long)].numpy(),
+                                  want_other.tiles_gd[other_rows].numpy())
+    assert i2 is picked and t2.shape == want.tiles_gd.shape
+
+
 def test_prepare_frames_without_stats_and_empty():
     frames = _frames(1, SMALL, 2)
     got = engine.prepare_frames(frames, 128, 64, 64, with_stats=False, device="cpu")

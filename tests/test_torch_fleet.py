@@ -323,6 +323,17 @@ def test_fleet_equals_looped_missions(method, run):
     assert fl.summary()["dedup_batched"] and fl.summary()["windows_served"] > 0
 
 
+def test_fleet_segments_keep_no_device_tiles(run):
+    """A fleet's segments drop their space tiles after OnboardCount and
+    keep no ground tiles: the recount makes those again from the frames
+    (the results above equal the reference's and the looped Missions')."""
+    _, fl = run("port", "targetfuse")
+    segs = [s for m in fl.missions for s in m._segments]
+    assert len(segs) == 12 and sum(len(s.selection.downlink) for s in segs) > 0
+    assert all(s.tiles_sp is None and s.tiles_gd is None and s.prep.tiles_sp is None
+               and s.prep.tiles_gd is None and s.prep.moments is not None for s in segs)
+
+
 @pytest.mark.parametrize("method", METHODS)
 def test_batched_contact_plan_equals_fifo_reference(method, run):
     got, fl = run("port", method)

@@ -329,11 +329,16 @@ for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
           "repro_torch.core.xfer", "repro_torch.core.fleet_sharding",
           "repro_torch.data.scenarios", "repro_torch.orbits.propagation",
           "repro_torch.orbits.visibility", "repro_torch.orbits.schedule",
-          "repro_torch.runtime.supervisor", "repro_torch.core.metrics"):
+          "repro_torch.runtime.supervisor", "repro_torch.core.metrics",
+          "repro_torch.core._legacy", "repro_torch.analysis.engine",
+          "repro_torch.analysis.rules_sync", "repro_torch.analysis.rules_threads",
+          "repro_torch.analysis.rules_determinism", "repro_torch.analysis.launchguard",
+          "repro_torch.analysis.__main__"):
     assert m in mods, m
 import torch
 assert not torch.cuda.is_available()
 from repro_torch.configs import get_config, reduced
+from repro_torch.core._legacy import run_pipeline_legacy
 from repro_torch.core.engine import prepare_frames
 from repro_torch.core.fleet import Fleet, run_scenario
 from repro_torch.core.metrics import ap50
@@ -351,6 +356,7 @@ for call in (lambda: Mission((p, cfg), (p, cfg)),
              lambda: Fleet((p, cfg), (p, cfg), PipelineConfig(), n_sats=2),
              lambda: run_scenario((p, cfg), (p, cfg), PipelineConfig(), sc),
              lambda: run_pipeline([], (p, cfg), (p, cfg)),
+             lambda: run_pipeline_legacy([], (p, cfg), (p, cfg), PipelineConfig()),
              lambda: Mission((p, cfg), (p, cfg), PipelineConfig(use_engine=False)),
              lambda: ap50([], [], []),
              lambda: prepare_frames([], 128, 64, 64),

@@ -43,7 +43,7 @@ from repro.data.synthetic import SceneSpec as JSceneSpec
 from repro.data.synthetic import make_scene, revisit_frames
 import repro_torch.core.dedup as dd
 from repro_torch.configs import get_config, reduced
-from repro_torch.core import cascade, fleet, faults, tiling
+from repro_torch.core import cascade, engine, fleet, faults, tiling
 from repro_torch.core import mission as tmission
 from repro_torch.core.pipeline import PipelineConfig, run_pipeline
 from repro_torch.core.policies import PolicyContextBatch, get_policy
@@ -90,7 +90,20 @@ class ReplayDedup(tmission.Dedup):
         seg.rep_of = self.ref_rep_of(mission).copy()
 
 
-def _same_partition(seg, mine, theirs):
+def _space_tiles(seg, mission):
+    """A segment's space-tier tiles on the host: the reference path keeps
+    them there, a Mission's engine path on its device; a fleet's segment
+    drops them after ingest, so they are made again from its frames."""
+    if isinstance(seg.tiles_sp, np.ndarray):
+        return seg.tiles_sp
+    if seg.tiles_sp is not None:
+        return seg.tiles_sp.numpy()
+    return engine.prepare_frames(seg.frames, mission.pcfg.tile_size,
+                                 mission.space[1].input_size, mission.ground[1].input_size,
+                                 device="cpu").tiles_sp.numpy()
+
+
+def _same_partition(seg, mine, theirs, mission):
     """Same clusters; where the representative differs, a tie: both at
     the same distance from their cluster's mean (float64 normalized
     moments of the active tiles, atol 1e-6)."""
@@ -98,7 +111,7 @@ def _same_partition(seg, mine, theirs):
     pairs = set(zip(mine[act].tolist(), theirs[act].tolist()))
     assert len(pairs) == len(set(mine[act].tolist())) == len(set(theirs[act].tolist())), \
         "the port's clusters differ from the reference's"
-    tiles = seg.tiles_sp if isinstance(seg.tiles_sp, np.ndarray) else seg.tiles_sp.numpy()
+    tiles = _space_tiles(seg, mission)
     x = _moments64(tiles[act])
     for a, b in pairs:
         if a != b:
@@ -161,9 +174,9 @@ def test_reference_path_mission_matches_repro(method, counters, port_counters):
         assert isinstance(seg.tiles_sp, np.ndarray) and seg.prep is None
     if replay is not None:
         assert len(replay.own) == 2
-        for (_, _, seg, mine), jseg in zip(replay.own, jm._segments):
+        for (m, _, seg, mine), jseg in zip(replay.own, jm._segments):
             np.testing.assert_array_equal(seg.active, jseg.active)
-            _same_partition(seg, mine, jseg.rep_of)
+            _same_partition(seg, mine, jseg.rep_of, m)
         assert got.tiles_processed_space > 0
     if method != "space_only":
         assert got.tiles_downlinked > 0
@@ -472,7 +485,7 @@ def test_mixed_fleet_matches_repro(method, counters, port_counters, scenes):
         assert len(own) == 12
         for m, k, seg, mine in own:
             i = next(i for i, mi in enumerate(fl.missions) if mi is m)
-            _same_partition(seg, mine, jf.missions[i]._segments[k].rep_of)
+            _same_partition(seg, mine, jf.missions[i]._segments[k].rep_of, m)
     else:
         got, fl = fleet.run_scenario(*port_counters, _mixed(PipelineConfig, method), tsc,
                                      device="cpu")
