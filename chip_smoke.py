@@ -16,7 +16,9 @@ nothing of JAX or of the reference package ``repro``. Phases:
    ``flash_attention`` also against the plain version on its inputs
    upcast to float32, within one bf16 rounding; every case checks which
    entry of its library it launched; the prefill's attention and a
-   qwen3-8b projection's int8 product run on both routes; the dedup's
+   qwen3-8b projection's int8 product run on both routes, and
+   deepseek-v2-lite's prefill attention (D 192) on the CUDA cores, timed
+   beside ``scaled_dot_product_attention``; the dedup's
    k-means++ seeding gives the plain version's centroids and picks, and
    ``kmeans_assign_f32`` its assignments and distances bit for bit;
    ``tile_moments`` runs at C 1, 3, 5 and 64, ragged and misaligned
@@ -113,13 +115,35 @@ nothing of JAX or of the reference package ``repro``. Phases:
    entry equal, checked) and phase 6's cell (round 3), each after 2
    warm-up rounds on an emptied allocator cache: no kernel library
    loaded and no new allocator segment (checked), syncs printed.
+12. MoE and MLA serving: (a) qwen2-moe-a2.7b at full width as published
+   (60 routed experts padded to 64, capacity factor 1.25; seeded random
+   bf16 weights drawn on the card) prefills 2 prompts of 4096 tokens and
+   decodes 32 greedy tokens: ``flash_attention`` once a layer in the
+   prefill, all on its tensor-core entry, none in decode; a second
+   prefill's logits, and decode from its cache, bit-equal (checked);
+   ``LaunchGuard`` over decode steps 3-32: no kernel library loaded, no
+   new allocator segment (checked), syncs by site printed; prefill and
+   decode tokens/s, the decode step against its byte bound, peak memory,
+   the share of routed copies dropped at capacity (by layer) and
+   torch.profiler's view of a decode step; (b) a drop-free copy of it
+   (capacity factor n_routed) decodes 8 steps after 2 x 256 prompt
+   tokens, held against ``forward_train`` at each (row, position) whose
+   top-k expert sets agree in every layer; (c) its MoE layer 0 on 256
+   tokens, card against CPU: kept copies equal, outputs and aux within
+   stated limits; (d) deepseek-v2-lite-16b at full width as (a), its
+   prefill on the CUDA-core ``flash_attention_bf16`` (q/k heads of 192),
+   the last decode step run again naive (the expanded cache) against
+   the absorbed one, whole and for layer 0's attention alone; (e) both
+   reduced in float32, card against CPU as phase 7 (deepseek absorbed
+   and naive).
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
 first phase 2 case and its launches on the main paths: the Mission's
 runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
 phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
-monolith runs, qwen3-8b's of phase 5 and ``int8_matmul``'s one path),
+monolith runs, the LM prefills of phases 5, 12a and 12d and
+``int8_matmul``'s one path),
 then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
@@ -158,6 +182,32 @@ LM_DECODE_RTOL = 0.03
 # kernel's one rounding of its output to bf16 is at most 2**-8 of the
 # value, so twice that relative, and float32 sums in another order
 FLASH_BF16_RTOL, FLASH_BF16_ATOL = 2.0 ** -7, 1e-5
+# phase 12b: a drop-free copy of qwen2-moe (capacity factor n_routed):
+# B 2 x 256 prompt tokens, 8 decode steps, then the forward
+MOE_CHECK_PROMPT, MOE_CHECK_STEPS = 256, 8
+# phase 12b: relative norm of decode logits against the forward's at each
+# (row, position) where no layer's top-k expert set differs between the
+# two. bf16 noise (as phase 5's) flips near-ties: 12% of (layer, row,
+# position), 10 of the 18 (row, position), up to 0.20 there; without a
+# flip measured 7.7e-3 to 1.74e-2 on the H100 (PERF.md), so about twice
+# that
+MOE_DECODE_RTOL = 0.035
+# phase 12c: one MoE layer card vs CPU on 256 tokens at the published
+# capacity. A token's copies may differ only where its k-th and (k+1)-th
+# router probabilities lie within MOE_ROUTE_GAP (float32 router products
+# summed in another order; the smallest gap measured 5.6e-6, no copy
+# differed). Outputs: relative norm, measured 8.8e-4 (cuBLAS and the
+# CPU's bf16 products round 4.5% of values otherwise); aux: measured 1e-7
+MOE_LAYER_TOKENS = 256
+MOE_ROUTE_GAP = 1e-6
+MOE_LAYER_RTOL, MOE_AUX_ATOL = 2e-3, 1e-6
+# phase 12d: deepseek's last decode step naive against absorbed, the
+# logits' relative norm: the two round q_lat and k_nope to bf16 at other
+# places, and the difference grows through 26 MoE layers whose routing
+# it flips: measured 9.04e-2 on the H100, so about twice that. Layer 0's
+# attention alone (no routing between the paths): measured 4.8e-3
+MLA_ABSORB_RTOL = 0.2
+MLA_LAYER_RTOL = 1e-2
 
 
 # phase 2's tile_moments cases, (shape, data); the first is the main
@@ -472,7 +522,10 @@ def kernel_cases(dev):
     tc, cc = flash_attention.TENSOR_CORE, flash_attention.CUDA_CORE
     bf16, f32 = torch.bfloat16, torch.float32
     main = (2, 4096, 4096, 32, 8, 128)
-    attn = [(main, bf16, True, tc), (main, bf16, True, cc),
+    # deepseek-v2-lite's prefill (phase 12d): q/k heads of 128 + 64, v
+    # zero-padded to 192, Hq = Hkv = 16, on the CUDA cores
+    mla = (2, 4096, 4096, 16, 16, 192)
+    attn = [(main, bf16, True, tc), (mla, bf16, True, cc), (main, bf16, True, cc),
             ((1, 200, 200, 4, 2, 128), bf16, True, tc),
             ((2, 256, 256, 4, 2, 64), bf16, False, tc),
             ((1, 384, 384, 8, 8, 128), bf16, True, tc),
@@ -500,7 +553,7 @@ def kernel_cases(dev):
             plain=lambda q=q, k=k, v=v, c=causal: ref.attention(q, k, v, causal=c),
             library=lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=c,
-                enable_gqa=True),
+                enable_gqa=True), time_library=(b, sq, skv, hq, hkv, d) == mla,
             upcast=None if dt == f32 else (
                 lambda q=q, k=k, v=v, c=causal: ref.attention(q.float(), k.float(), v.float(),
                                                               causal=c)),
@@ -656,7 +709,8 @@ def phase_kernels(dev):
             plain_ms = (t_plain[0].elapsed_time(t_plain[1]) if case.get("plain_once")
                         else cuda_ms(case["plain"], reps=5, warmup=1))
             b_ms, b_by = bound_ms(case["bytes"], case["flops"], case.get("rate", FP32_FLOPS))
-            lib_ms = cuda_ms(case["library"], reps=20) if i == 0 and "library" in case else None
+            lib_ms = (cuda_ms(case["library"], reps=20)
+                      if (i == 0 or case.get("time_library")) and "library" in case else None)
             chain = "" if "chain" not in case else (
                 f" chain of {case['chain'][0]} {case['chain'][1]}, "
                 f"{1e3 * ms / max(case['chain'][0], 1):.4f} us a step")
@@ -671,7 +725,7 @@ def phase_kernels(dev):
             # each entry of the library at its first case
             rows[name]["entries"].setdefault(symbol, dict(
                 shape=case["shape"], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                bound_ms=b_ms, bound_by=b_by))
+                bound_ms=b_ms, bound_by=b_by, library_ms=lib_ms))
         torch.cuda.empty_cache()
     for name, why in LIBRARY_NOTE.items():
         print(f"kernel {name}: library_ms {why}")
@@ -1475,9 +1529,7 @@ def phase_lm_serving(dev, flash):
           f"prefill launched flash_attention {prefill_launches} times, not {cfg.n_layers}")
     check(routes[TC_SYMBOL] == cfg.n_layers,
           f"prefill's flash_attention launches by entry {routes}: not all on {TC_SYMBOL}")
-    cache = lm.init_cache(cfg, b, s + steps, device=dev)
-    for kk in ("k", "v"):
-        cache["blocks_dense"][kk][:, :, :s] = pre["blocks_dense"][kk]
+    cache = extended_cache(cfg, pre, s + steps, dev)
     del pre
     outs, tokens, step_s = [logits], [], []
     for i in range(steps):
@@ -1505,7 +1557,7 @@ def phase_lm_serving(dev, flash):
     q = torch.randn((b, s, cfg.n_heads, cfg.head_dim), generator=g, device=dev).bfloat16()
     k, v = (torch.randn((b, s, cfg.n_kv_heads, cfg.head_dim), generator=g,
                         device=dev).bfloat16() for _ in range(2))
-    block_s = min(synced(lambda: lm._block(layer0, cfg, x, positions, "train"))[1]
+    block_s = min(synced(lambda: lm._block(layer0, cfg, x, positions, "train", False))[1]
                   for _ in range(3))
     attn_s = min(synced(lambda: ops.attention(q, k, v, causal=True))[1] for _ in range(3))
     print(f"lm prefill split, one layer: {1e3 * block_s:.4f} ms, of which attention "
@@ -1563,39 +1615,380 @@ def _leaves(tree):
         yield tree
 
 
-def phase_lm_cuda_vs_cpu(dev, flash):
-    """Reduced qwen3 in float32: prefill of 6 tokens and 3 decode steps
-    on the card (the kernel) and on the CPU (the plain version); logits
-    within 1e-4 (float32 sums in another order)."""
+def extended_cache(cfg, pre, total, dev):
+    """A zeroed cache of ``total`` positions holding the prefill's cache
+    ``pre`` in its first positions (axis 2 of every leaf)."""
+    from repro_torch.models import lm
+    b = next(iter(next(iter(pre.values())).values())).shape[1]
+    cache = lm.init_cache(cfg, b, total, device=dev)
+    for name, stack in cache.items():
+        for kk, c in stack.items():
+            c[:, :, :pre[name][kk].shape[2]] = pre[name][kk]
+    return cache
+
+
+def phase_lm_cuda_vs_cpu(dev, flash, arch="qwen3-8b", absorb=True):
+    """Reduced ``arch`` in float32: prefill of 6 tokens and 3 decode steps
+    (MLA's ``absorb`` path) on the card (the kernel) and on the CPU (the
+    plain version); logits within 1e-4 (float32 sums in another order),
+    ``flash_attention_f32`` launched once a layer on the card, never on
+    the CPU."""
     import numpy as np
     import torch
     from repro_torch.configs import get_config, reduced
     from repro_torch.models import lm
 
-    cfg = reduced(get_config("qwen3-8b"))
+    cfg = reduced(get_config(arch))
     p_cpu = lm.init(torch.Generator().manual_seed(SEED), cfg, device="cpu")
     tokens = np.random.default_rng(SEED).integers(0, cfg.vocab_size, (2, 9))
     runs = {}
-    for device, p in (("cpu", p_cpu), (dev, lm.from_numpy(p_cpu, cfg, dev))):
+    for device, p in (("cpu", p_cpu), (dev, lm.from_numpy(p_cpu, dev))):
         t = torch.from_numpy(tokens).to(device)
         before = flash.symbol_launches["flash_attention_f32"]
         log, pre = lm.prefill(p, cfg, t[:, :6])
         launched = flash.symbol_launches["flash_attention_f32"] - before
-        cache = lm.init_cache(cfg, 2, 9, device=device)
-        for kk in ("k", "v"):
-            cache["blocks_dense"][kk][:, :, :6] = pre["blocks_dense"][kk]
+        cache = extended_cache(cfg, pre, 9, device)
         logits = [log]
         for pos in range(6, 9):
-            log, cache = lm.decode_step(p, cfg, t[:, pos:pos + 1], cache, pos)
+            log, cache = lm.decode_step(p, cfg, t[:, pos:pos + 1], cache, pos, absorb=absorb)
             logits.append(log)
         runs[str(device)] = (torch.stack(logits).cpu(), launched)
     (want, cpu_launched), (got, gpu_launched) = runs["cpu"], runs[str(dev)]
     err = (got - want).abs().max().item()
-    print(f"lm cuda vs cpu: reduced qwen3 prefill + 3 decode steps, logits max_abs_err "
+    what = cfg.name + ("" if cfg.mla is None else f" ({'absorbed' if absorb else 'naive'} decode)")
+    print(f"lm cuda vs cpu: reduced {what} prefill + 3 decode steps, logits max_abs_err "
           f"{err:.3e}; flash_attention_f32 (CUDA-core) launches on the card {gpu_launched}, "
           f"on the CPU {cpu_launched}", flush=True)
-    check(gpu_launched == cfg.n_layers and cpu_launched == 0, "flash_attention dispatch")
-    check(torch.allclose(got, want, atol=1e-4, rtol=1e-4), f"CUDA and CPU logits differ by {err}")
+    check(gpu_launched == cfg.n_layers and cpu_launched == 0, f"{what}: flash_attention dispatch")
+    check(torch.allclose(got, want, atol=1e-4, rtol=1e-4),
+          f"{what}: CUDA and CPU logits differ by {err}")
+
+
+# ---------------------------------------------------------------------------
+# phase 12: MoE and MLA serving
+# ---------------------------------------------------------------------------
+
+class MoeProbe:
+    """While active, wraps ``moe._dispatch`` (which ``moe_block`` looks up
+    at each call): sums each call's routed (token, k) copies and the
+    dropped ones on the card (no sync), and keeps its ``meta`` (order,
+    slot, valid, topw, tok) and top-k expert ids (G, S, k) if ``keep``.
+    The wrapper adds a few small launches a MoE layer, so timed runs go
+    without it."""
+
+    def __init__(self, keep=False):
+        self.keep = keep
+        self.dropped, self.copies, self.metas, self.topi = [], 0, [], []
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig = orig = moe._dispatch
+
+        import torch
+
+        def dispatch(xg, probs, k, n_exp, cap):
+            buf, meta = orig(xg, probs, k, n_exp, cap)
+            self.dropped.append((~meta[2]).sum())
+            self.copies += meta[2].numel()
+            if self.keep:
+                self.metas.append(meta)
+                self.topi.append(torch.topk(probs, k, dim=-1).indices)
+            return buf, meta
+        moe._dispatch = dispatch
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe._dispatch = self._orig
+        return False
+
+    def drop_share(self) -> float:
+        import torch
+        return float(torch.stack(self.dropped).sum()) / self.copies
+
+    def drop_shares(self, n_layers: int) -> list:
+        """The share dropped by MoE layer, over the calls recorded (one a
+        layer a forward)."""
+        import torch
+        per = torch.stack(self.dropped).reshape(-1, n_layers).sum(0).float()
+        return (per * n_layers / self.copies).tolist()
+
+
+def serve_full_width(dev, flash, arch, symbol):
+    """12a / 12d: ``arch`` at full width as published (seeded random bf16
+    weights drawn on the card): a warm-up prefill, then prefill of
+    LM_BATCH x LM_PROMPT tokens and LM_STEPS greedy decode steps (MLA:
+    absorbed), steps 1-2 the warm-up after an emptied allocator cache,
+    steps 3-LM_STEPS under one ``LaunchGuard`` with CUDA events a step.
+
+    Checks: ``flash_attention`` launches once a layer in the prefill, all
+    on ``symbol``, none in decode; 0 builds and 0 new allocator segments
+    over the guarded steps; a second prefill of the prompt gives
+    bit-equal logits, and decode from its cache the same tokens' logits
+    bit for bit (both with ``MoeProbe`` on, which gives the drop shares).
+    -> (params, cfg, prompt, flash launches by entry in the serving run,
+    the last decode step's (token, cache, position, logits))."""
+    import torch
+    from repro_torch.analysis import LaunchGuard
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+
+    cfg = get_config(arch)
+    b, s, steps = LM_BATCH, LM_PROMPT, LM_STEPS
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params, init_s = synced(lambda: lm.init(g, cfg, device=dev))
+    torch.cuda.empty_cache()
+    weight_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    lm.prefill(params, cfg, prompt[:, :256])  # warm-up: cuBLAS handles, kernel load
+    print(f"{arch}: {cfg.n_layers} layers d_model {cfg.d_model}, {cfg.n_params / 1e9:.3f} B "
+          f"params ({cfg.n_active_params / 1e9:.3f} B active a token), "
+          f"{weight_bytes / 1e9:.2f} GB of weights drawn in {init_s:.2f} s; B {b} prompt {s} "
+          f"decode {steps}", flush=True)
+
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset()
+    (logits, pre), prefill_s = synced(lambda: lm.prefill(params, cfg, prompt))
+    routes = {k: n for k, n in flash.symbol_launches.items() if n}
+    check(flash.launches == cfg.n_layers and routes == {symbol: cfg.n_layers},
+          f"{arch} prefill: flash_attention launches by entry {routes}, not {cfg.n_layers} "
+          f"on {symbol}")
+    cache = extended_cache(cfg, pre, s + steps, dev)
+    del pre
+    # logits and tokens of every step in buffers made before the loop, so
+    # the guarded steps allocate only what a step frees again
+    outs = logits.new_empty((steps + 1, *logits.shape))
+    outs[0] = logits
+    tokens = torch.empty((steps, b, 1), dtype=torch.int64, device=dev)
+
+    def step(i):
+        torch.argmax(outs[i], -1, keepdim=True, out=tokens[i])
+        outs[i + 1] = lm.decode_step(params, cfg, tokens[i], cache, s + i)[0]
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    warm_s = [synced(lambda: step(i))[1] for i in range(GUARD_WARMUP)]
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(steps - GUARD_WARMUP + 1)]
+    with LaunchGuard(f"{arch} decode steps {GUARD_WARMUP + 1}-{steps}") as guard:
+        events[0].record()
+        for i in range(GUARD_WARMUP, steps):
+            step(i)
+            events[i - GUARD_WARMUP + 1].record()
+    torch.cuda.synchronize()
+    step_ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    check(flash.launches == cfg.n_layers and {k: n for k, n in flash.symbol_launches.items()
+                                              if n} == routes, f"{arch}: decode launched flash")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    print(f"guard {guard.label}: builds {guard.builds} new segments {guard.new_segments} syncs "
+          f"{guard.syncs}; launches by entry {json.dumps(guard.launches)}; syncs by site "
+          f"{json.dumps(guard.sync_sites)}", flush=True)
+    guard.assert_steady_state()
+    decode_ms = sum(step_ms) / len(step_ms)
+    bound = 1e3 * weight_bytes / HBM_BYTES_PER_S
+    print(f"{arch} prefill: {prefill_s:.4f} s, {b * s / prefill_s:.1f} tokens/s; flash_attention "
+          f"launches {flash.launches} by entry {routes}", flush=True)
+    print(f"{arch} decode: {decode_ms:.4f} ms/step over the guarded steps (warm-up steps "
+          f"{', '.join(f'{1e3 * t:.4f}' for t in warm_s)} ms; median "
+          f"{sorted(step_ms)[len(step_ms) // 2]:.4f}), {1e3 * b / decode_ms:.1f} tokens/s; byte "
+          f"bound (all weights read once) {bound:.4f} ms, share {bound / decode_ms:.3f}; peak "
+          f"memory {peak_gb:.2f} GB", flush=True)
+
+    # the same prompt again, and decode from its cache: bit for bit
+    with MoeProbe() as pre_probe:
+        again, pre = lm.prefill(params, cfg, prompt)
+    check(bit_equal(again, logits), f"{arch}: a second prefill's logits differ")
+    cache2 = extended_cache(cfg, pre, s + steps, dev)
+    del pre
+    with MoeProbe() as dec_probe:
+        same = all(bit_equal(lm.decode_step(params, cfg, tokens[i], cache2, s + i)[0], outs[i + 1])
+                   for i in range(steps))
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    by_layer = [round(x, 4) for x in pre_probe.drop_shares(n_moe)]
+    print(f"{arch}: second prefill bit-equal True; decode from its cache bit-equal {same}; "
+          f"routed copies dropped at capacity: prefill {pre_probe.drop_share():.4f} of "
+          f"{pre_probe.copies} (by MoE layer {by_layer}), decode {dec_probe.drop_share():.4f} "
+          f"of {dec_probe.copies}", flush=True)
+    check(same, f"{arch}: decode from the second prefill's cache differs")
+    del cache2
+    profile_step(f"{arch} decode", lambda: lm.decode_step(params, cfg, tokens[-1], cache,
+                                                          s + steps - 1))
+    return params, cfg, prompt, routes, (tokens[-1], cache, s + steps - 1, outs[-1])
+
+
+def moe_decode_vs_forward(dev, params, cfg, prompt):
+    """12b: a drop-free copy of ``cfg`` (``capacity_factor = n_routed``,
+    the reduced config's rule; every width and the weights kept): prefill
+    of B x MOE_CHECK_PROMPT tokens, MOE_CHECK_STEPS greedy decode steps,
+    then ``forward_train`` over prompt and generated tokens. Under the
+    published capacity decode and forward drop different copies by
+    design. Prints the share of (layer, row, position) whose top-k expert
+    sets differ between decode and forward (bf16 noise flips near-ties).
+    Checks the relative norm of the logits at each (row, position) where
+    no layer's set differs against MOE_DECODE_RTOL, and that at least a
+    quarter of them have no flip."""
+    import dataclasses
+    import torch
+    from repro_torch.models import lm
+
+    free = dataclasses.replace(cfg, moe=dataclasses.replace(
+        cfg.moe, capacity_factor=float(cfg.moe.n_routed)))
+    b, s, steps = prompt.shape[0], MOE_CHECK_PROMPT, MOE_CHECK_STEPS
+    n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+    with MoeProbe(keep=True) as probe:
+        log, pre = lm.prefill(params, free, prompt[:, :s])
+        cache = extended_cache(free, pre, s + steps, dev)
+        del pre
+        outs, tokens = [log], []
+        for i in range(steps):
+            tokens.append(outs[-1].argmax(-1, keepdim=True))
+            outs.append(lm.decode_step(params, free, tokens[-1], cache, s + i)[0])
+        seq = torch.cat([prompt[:, :s]] + tokens, dim=1)
+        full, _ = lm.forward_train(params, free, seq)
+    check(probe.drop_share() == 0.0, "the drop-free copy dropped copies")
+    want = full[:, s - 1:].float()
+    got = torch.stack(outs, dim=1).float()
+    del full
+    # routing by (layer, row, position): the prefill's last position, each
+    # decode step, and the forward (one group each, rows one after another)
+    topi = [t.reshape(b, -1, cfg.moe.top_k).sort(-1).values for t in probe.topi]
+    pre_t, dec_t, fwd_t = topi[:n_moe], topi[n_moe:-n_moe], topi[-n_moe:]
+    routed = torch.stack([torch.cat([pre_t[j][:, s - 1:]] + dec_t[j::n_moe], dim=1)
+                          for j in range(n_moe)])       # (layer, b, steps + 1, k)
+    fwd = torch.stack([f[:, s - 1:] for f in fwd_t])
+    flips = (routed != fwd).any(-1)                      # (layer, b, position)
+    # relative norm per (row, position), held where no layer's top-k set
+    # differs: a flipped expert is a different function, not noise
+    rel = (got - want).norm(dim=-1) / want.norm(dim=-1)  # (b, position)
+    clean = ~flips.any(0)
+    worst = rel[clean].max().item() if bool(clean.any()) else float("nan")
+    print(f"{cfg.name} 12b (capacity factor {free.moe.capacity_factor:g}, drop-free): decode vs "
+          f"forward relative norm by (row, position) {[[round(r, 5) for r in row] for row in rel.tolist()]}; "
+          f"top-k sets differ at {flips.float().mean().item():.4f} of (layer, row, position), "
+          f"{int((~clean).sum())} of {clean.numel()} (row, position) have a flip; max "
+          f"{worst:.4e} over the {int(clean.sum())} without (limit {MOE_DECODE_RTOL}), "
+          f"{rel.max().item():.4e} over all; argmax agrees at "
+          f"{(got.argmax(-1) == want.argmax(-1)).float().mean().item():.3f}", flush=True)
+    check(got.shape == want.shape and bool(torch.isfinite(got).all()), "12b: bad logits")
+    check(int(clean.sum()) >= clean.numel() // 4,
+          f"12b: only {int(clean.sum())} (row, position) without a flip")
+    check(worst <= MOE_DECODE_RTOL, f"12b: decode logits off the forward's by {worst:.4e}")
+
+
+def moe_layer_card_vs_cpu(dev, params, cfg, prompt):
+    """12c: MoE layer 0 at full width and the published capacity on
+    MOE_LAYER_TOKENS tokens (so copies drop), on the card and on the CPU
+    from the same bf16 weights and inputs (``ln2`` of the prompt's
+    embeddings). Checks: the kept (token, expert, slot) copies are equal,
+    but for copies of tokens at a near-tie of the router (k-th and
+    (k+1)-th probability within MOE_ROUTE_GAP, counted); the outputs of
+    the tokens whose copies agree within MOE_LAYER_RTOL (relative norm);
+    aux within MOE_AUX_ATOL."""
+    import torch
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm, moe
+
+    layer = lm._map(lambda a: a[0], params["blocks_moe"])
+    x = L.rmsnorm(params["embed"][prompt[:, :MOE_LAYER_TOKENS // prompt.shape[0]]],
+                  layer["ln2"], cfg.norm_eps)
+    k, tokens = cfg.moe.top_k, x.shape[0] * x.shape[1]
+    runs = []
+    for device in (dev, torch.device("cpu")):
+        p = lm._map(lambda a: a.to(device), layer["moe"])
+        with MoeProbe(keep=True) as probe:
+            out, aux = moe.moe_block(p, cfg, x.to(device))
+        _, slot, valid, _, tok = (t.cpu() for t in probe.metas[0])
+        topi = probe.topi[0].cpu()
+        v = valid.reshape(-1)
+        runs.append(dict(
+            out=out.cpu().reshape(tokens, -1), aux=aux.item(), drop=probe.drop_share(),
+            kept=set(zip(tok.reshape(-1)[v].tolist(), slot.reshape(-1)[v].tolist())),
+            topi=topi.reshape(tokens, k).sort(-1).values))
+    gpu, cpu = runs
+    probs = torch.softmax(x.cpu().reshape(tokens, -1).float() @ layer["moe"]["router"].cpu(), -1)
+    top = probs.sort(-1, descending=True).values
+    gap = top[:, k - 1] - top[:, k]
+    cap = moe.capacity(cfg.moe, moe._group_shape(tokens)[1])
+    differ = gpu["kept"] ^ cpu["kept"]
+    touched = sorted({t for t, _ in differ})
+    agree = torch.ones(tokens, dtype=torch.bool)
+    agree[touched] = False
+    o, co = gpu["out"][agree].float(), cpu["out"][agree].float()
+    rel = ((o - co).norm() / co.norm()).item()
+    rerouted = int((gpu["topi"] != cpu["topi"]).any(-1).sum())
+    print(f"{cfg.name} 12c: one MoE layer on {tokens} tokens (capacity {cap} a group), card vs "
+          f"CPU: kept (token, expert, slot) {len(gpu['kept'])} / {len(cpu['kept'])}, "
+          f"differing {len(differ)} of {len(touched)} tokens; tokens rerouted {rerouted}; "
+          f"near-ties under {MOE_ROUTE_GAP:g}: {int((gap < MOE_ROUTE_GAP).sum())} (smallest gap "
+          f"{gap.min().item():.3e}); dropped {gpu['drop']:.4f} / {cpu['drop']:.4f}; output "
+          f"relative norm {rel:.4e} over {int(agree.sum())} tokens (limit {MOE_LAYER_RTOL}), "
+          f"bit-equal {(gpu['out'] == cpu['out']).float().mean().item():.4f}; aux "
+          f"{gpu['aux']:.7f} / {cpu['aux']:.7f} (limit {MOE_AUX_ATOL})", flush=True)
+    check(gpu["drop"] > 0, "12c: no copy dropped at the published capacity")
+    check(all(bool(gap[t] < MOE_ROUTE_GAP) for t in touched),
+          "12c: kept copies differ away from a near-tie of the router")
+    check(bool(torch.isfinite(gpu["out"].float()).all()) and rel <= MOE_LAYER_RTOL,
+          f"12c: card and CPU outputs differ by {rel:.4e}")
+    check(abs(gpu["aux"] - cpu["aux"]) <= MOE_AUX_ATOL, "12c: aux differs")
+
+
+def phase_moe_serving(dev, flash):
+    """Phase 12: qwen2-moe (12a-12c) and deepseek-v2-lite (12d) at full
+    width, then the reduced configs card vs CPU (12e) -> flash launches
+    by entry in 12a and 12d's serving runs."""
+    import torch
+    entries = {}
+    t0 = time.perf_counter()
+    params, cfg, prompt, routes, _ = serve_full_width(dev, flash, "qwen2-moe-a2.7b", TC_SYMBOL)
+    entries.update(routes)
+    print(f"phase 12a: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    moe_decode_vs_forward(dev, params, cfg, prompt)
+    print(f"phase 12b: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    moe_layer_card_vs_cpu(dev, params, cfg, prompt)
+    print(f"phase 12c: {time.perf_counter() - t0:.1f} s", flush=True)
+    del params, prompt
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    params, cfg, prompt, routes, (tok, cache, pos, absorbed) = serve_full_width(
+        dev, flash, "deepseek-v2-lite-16b", "flash_attention_bf16")
+    for sym, n in routes.items():
+        entries[sym] = entries.get(sym, 0) + n
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+    naive, _ = lm.decode_step(params, cfg, tok, cache, pos, absorb=False)
+    rel = ((naive.float() - absorbed.float()).norm() / absorbed.float().norm()).item()
+    # the dense layer 0's attention alone, both ways, on its decode input
+    # and cache: no MoE routing between the two paths
+    layer = lm._map(lambda a: a[0], params["blocks_dense"])
+    c0 = lm._map(lambda a: a[0], cache["blocks_dense"])
+    h = L.rmsnorm(params["embed"][tok], layer["ln1"], cfg.norm_eps)
+    at = torch.full(tok.shape, pos, dtype=torch.int32, device=dev)
+    a_abs, a_naive = (lm._mla_attend(layer["attn"], cfg, h, at, "decode", c0, pos, absorb=a)
+                      for a in (True, False))
+    rel0 = ((a_naive.float() - a_abs.float()).norm() / a_abs.float().norm()).item()
+    m = cfg.mla
+    mla_bytes = 2 * (m.kv_lora_rank + m.qk_rope_head_dim)
+    gqa_bytes = 2 * 2 * cfg.n_kv_heads * cfg.head_dim
+    print(f"{cfg.name} 12d: the last step naive (expanded cache) vs absorbed: logits relative "
+          f"norm {rel:.4e} (limit {MLA_ABSORB_RTOL}), argmax agrees "
+          f"{(naive.argmax(-1) == absorbed.argmax(-1)).float().mean().item():.3f}; layer 0's "
+          f"attention alone {rel0:.4e} (limit {MLA_LAYER_RTOL}); cache "
+          f"{mla_bytes} bytes a token a layer ({mla_bytes * cfg.n_layers} over {cfg.n_layers} "
+          f"layers) against {gqa_bytes} for a GQA cache of the same widths", flush=True)
+    check(rel0 <= MLA_LAYER_RTOL, f"12d: layer 0's naive and absorbed attention differ by {rel0:.4e}")
+    check(rel <= MLA_ABSORB_RTOL, f"12d: naive and absorbed decode differ by {rel:.4e}")
+    del params, prompt, cache, tok, absorbed, naive, c0, layer
+    torch.cuda.empty_cache()
+    print(f"phase 12d: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    t0 = time.perf_counter()
+    for arch, absorb in (("qwen2-moe-a2.7b", True), ("deepseek-v2-lite-16b", True),
+                         ("deepseek-v2-lite-16b", False)):
+        phase_lm_cuda_vs_cpu(dev, flash, arch, absorb)
+    print(f"phase 12e: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
 
 
 # ---------------------------------------------------------------------------
@@ -2450,6 +2843,12 @@ def main():
     phase_analysis()
     phase_guard(dev)
     print(f"phase legacy, analysis and guard: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    moe_entries = phase_moe_serving(dev, kernel["flash_attention"])
+    launches["flash_attention"] += sum(moe_entries.values())
+    for sym, n in moe_entries.items():
+        entry_launches[sym] = entry_launches.get(sym, 0) + n
+    print(f"phase moe and mla serving: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

@@ -1,24 +1,31 @@
-"""Decoder-only LM of the port: dense GQA serving (prefill and decode).
+"""Decoder-only LM of the port: serving (prefill and decode) of all four
+LMs.
 
-Counterpart of ``repro/models/lm.py`` for the dense configs (qwen3-8b,
-phi4-mini): RoPE, GQA with optional qk-norm, SwiGLU FFN, a KV cache.
-MoE and MLA are not ported (``init`` refuses them; ROADMAP queue 1), nor
-is the backward: ``forward_train`` is the forward alone.
+Counterpart of ``repro/models/lm.py``: RoPE, GQA with optional qk-norm
+(qwen3-8b, phi4-mini), SwiGLU dense FFN, the MoE FFN of
+:mod:`repro_torch.models.moe` (qwen2-moe, deepseek), MLA attention with
+its compressed cache and both decode paths (deepseek), a KV cache. The
+backward is not ported: ``forward_train`` is the forward alone.
 
 Layouts are the reference's at the public functions, so the tests
 compare like with like: parameters are a dict of tensors with dense
-weights (d_in, d_out) used as ``x @ w``, the layers stacked on a leading
-axis under ``blocks_dense``, and the cache is
-``{"blocks_dense": {"k", "v"}: (L, B, S, Hkv, D)}``. The layers run in
-a Python loop. Prefill attention goes through ``ops.attention`` (the
-``flash_attention`` kernel on CUDA), decode attention through
-``ops.decode_attention`` (plain tensor ops, as in the reference).
+weights (d_in, d_out) used as ``x @ w``; ``first_dense_layers`` layers
+(all of them without MoE) stacked on a leading axis under
+``blocks_dense``, then the MoE layers under ``blocks_moe``; each stack's
+cache is ``{"k", "v"}: (L, B, S, Hkv, D)``, or for MLA
+``{"c_kv": (L, B, S, rank), "k_rope": (L, B, S, rope_dim)}``. The layers
+run in a Python loop. Prefill attention goes through ``ops.attention``
+(the ``flash_attention`` kernel on CUDA), decode attention through
+``ops.decode_attention`` or, for absorbed MLA, plain products (both
+plain tensor ops, as in the reference).
 
 Entry points run on ``device="cuda"`` and raise without a card unless
 the caller passes ``device="cpu"``; the device of the parameters decides
 where ``forward_train``, ``prefill`` and ``decode_step`` run.
 """
 from __future__ import annotations
+
+import math
 
 import numpy as np
 import torch
@@ -27,6 +34,7 @@ from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.models.moe import init_moe, moe_block
 
 
 def _dt(cfg: LMConfig) -> torch.dtype:
@@ -44,64 +52,102 @@ def _map(fn, tree):
 # ---------------------------------------------------------------------------
 
 
-def init(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
-    """Random weights in ``cfg.param_dtype``, drawn from ``gen``, which
-    must live on ``device`` (so full-width weights are drawn on the card,
-    not on the host). Truncated normals as the reference's: stddev
-    1/sqrt(d_in) for the dense weights, 0.02 for the embedding and head;
-    norms at one."""
-    device = resolve_device(device)
-    if cfg.moe is not None or cfg.mla is not None:
-        raise NotImplementedError(
-            f"{cfg.name}: MoE and MLA are not ported yet (ROADMAP queue 1)")
-    if gen.device.type != device.type:
-        raise ValueError(f"the generator lives on {gen.device}, the weights go to {device}")
-    dt = _dt(cfg)
-    d, n, hd = cfg.d_model, cfg.n_layers, cfg.head_dim
+def _stacks(cfg: LMConfig):
+    """(stack name, layers, MoE?) of each non-empty layer stack, in order."""
+    n_dense = cfg.moe.first_dense_layers if cfg.moe else cfg.n_layers
+    stacks = (("blocks_dense", n_dense, False), ("blocks_moe", cfg.n_layers - n_dense, True))
+    return [st for st in stacks if st[1]]
 
-    def ones(*shape):
-        return torch.ones(shape, dtype=dt, device=device)
+
+def _init_attn(gen, cfg: LMConfig, n: int) -> dict:
+    dt, d, h = _dt(cfg), cfg.d_model, cfg.n_heads
 
     def dense(d_in, d_out):
         return L.dense_init(gen, d_in, d_out, dt, lead=(n,))
 
-    attn = {"wq": dense(d, cfg.n_heads * hd), "wk": dense(d, cfg.n_kv_heads * hd),
-            "wv": dense(d, cfg.n_kv_heads * hd), "wo": dense(cfg.n_heads * hd, d)}
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"wq": dense(d, h * (m.qk_nope_head_dim + m.qk_rope_head_dim)),
+                "w_dkv": dense(d, m.kv_lora_rank + m.qk_rope_head_dim),
+                "kv_norm": torch.ones((n, m.kv_lora_rank), dtype=dt, device=gen.device),
+                "w_uk": dense(m.kv_lora_rank, h * m.qk_nope_head_dim),
+                "w_uv": dense(m.kv_lora_rank, h * m.v_head_dim),
+                "wo": dense(h * m.v_head_dim, d)}
+    hd = cfg.head_dim
+    attn = {"wq": dense(d, h * hd), "wk": dense(d, cfg.n_kv_heads * hd),
+            "wv": dense(d, cfg.n_kv_heads * hd), "wo": dense(h * hd, d)}
     if cfg.qk_norm:
-        attn["q_norm"] = ones(n, hd)
-        attn["k_norm"] = ones(n, hd)
-    params = {
-        "embed": L.truncated_normal(gen, (cfg.vocab_size, d), 0.02, dt),
-        "final_norm": ones(d),
-        "blocks_dense": {
-            "ln1": ones(n, d), "ln2": ones(n, d), "attn": attn,
-            "mlp": {"w_gate": dense(d, cfg.d_ff), "w_up": dense(d, cfg.d_ff),
-                    "w_down": dense(cfg.d_ff, d)},
-        },
-    }
+        attn["q_norm"] = torch.ones((n, hd), dtype=dt, device=gen.device)
+        attn["k_norm"] = torch.ones((n, hd), dtype=dt, device=gen.device)
+    return attn
+
+
+def init(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
+    """Random weights in ``cfg.param_dtype`` (the MoE router in float32,
+    as the reference's), drawn from ``gen``, which must live on
+    ``device`` (so full-width weights are drawn on the card, not on the
+    host). Truncated normals as the reference's: stddev 1/sqrt(d_in) for
+    the dense and expert weights, 0.02 for the embedding and head; norms
+    at one."""
+    device = resolve_device(device)
+    if gen.device.type != device.type:
+        raise ValueError(f"the generator lives on {gen.device}, the weights go to {device}")
+    dt, d = _dt(cfg), cfg.d_model
+
+    def ones(*shape):
+        return torch.ones(shape, dtype=dt, device=device)
+
+    params = {"embed": L.truncated_normal(gen, (cfg.vocab_size, d), 0.02, dt),
+              "final_norm": ones(d)}
+    for name, n, use_moe in _stacks(cfg):
+        blk = {"ln1": ones(n, d), "ln2": ones(n, d), "attn": _init_attn(gen, cfg, n)}
+        if use_moe:
+            blk["moe"] = init_moe(gen, cfg, lead=(n,))
+        else:
+            blk["mlp"] = {"w_gate": L.dense_init(gen, d, cfg.d_ff, dt, lead=(n,)),
+                          "w_up": L.dense_init(gen, d, cfg.d_ff, dt, lead=(n,)),
+                          "w_down": L.dense_init(gen, cfg.d_ff, d, dt, lead=(n,))}
+        params[name] = blk
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, d, cfg.vocab_size, dt, 0.02)
     return params
 
 
-def from_numpy(tree, cfg: LMConfig, device="cuda") -> dict:
+def _leaf(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def from_numpy(tree, device="cuda") -> dict:
     """The reference's ``lm.init`` pytree (nested dicts of arrays, layer
-    axis kept) -> the port's parameters in ``cfg.param_dtype`` on
-    ``device``. bf16 arrays come out of JAX as ``ml_dtypes.bfloat16``,
-    which ``torch.from_numpy`` refuses: they go through float32, which
-    holds every bf16 value exactly."""
+    axis kept), or the port's own parameters, -> the port's parameters on
+    ``device``, each leaf in its own dtype: the float32 router of a bf16
+    MoE stays float32. bf16 arrays come out of JAX as
+    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: they go
+    through float32, which holds every bf16 value exactly."""
     device = resolve_device(device)
-    dt = _dt(cfg)
-    return _map(lambda a: torch.from_numpy(np.array(a, np.float32)).to(device, dt), tree)
+    return _map(lambda a: _leaf(a, device), tree)
+
+
+def _cache_shapes(cfg: LMConfig, n: int, batch: int, max_len: int) -> dict:
+    if cfg.mla is not None:
+        m = cfg.mla
+        return {"c_kv": (n, batch, max_len, m.kv_lora_rank),
+                "k_rope": (n, batch, max_len, m.qk_rope_head_dim)}
+    shape = (n, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": shape, "v": shape}
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> dict:
-    """A zeroed KV cache of ``max_len`` positions."""
+    """A zeroed cache of ``max_len`` positions, a dict per layer stack."""
     device = resolve_device(device)
-    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.head_dim)
-    return {"blocks_dense": {
-        "k": torch.zeros(shape, dtype=_dt(cfg), device=device),
-        "v": torch.zeros(shape, dtype=_dt(cfg), device=device)}}
+    return {name: {k: torch.zeros(shape, dtype=_dt(cfg), device=device)
+                   for k, shape in _cache_shapes(cfg, n, batch, max_len).items()}
+            for name, n, _ in _stacks(cfg)}
 
 
 # ---------------------------------------------------------------------------
@@ -138,23 +184,106 @@ def _gqa_attend(p, cfg: LMConfig, x, positions, mode, cache=None, pos=None):
     return o.reshape(b, s, h * hd) @ p["wo"]
 
 
-def _block(p, cfg: LMConfig, x, positions, mode, cache=None, pos=None):
-    a = _gqa_attend(p["attn"], cfg, L.rmsnorm(x, p["ln1"], cfg.norm_eps),
-                    positions, mode, cache, pos)
+def _pad_to(v, d):
+    """Zero-pad the last axis of v to ``d`` (contiguous: the kernel takes
+    contiguous tensors)."""
+    return torch.nn.functional.pad(v, (0, d - v.shape[-1]))
+
+
+def _mla_attend(p, cfg: LMConfig, x, positions, mode, cache=None, pos=None,
+                absorb: bool = True):
+    """MLA, the reference's ``_mla_attend``. ``cache`` is this layer's
+    {"c_kv" (B, S, rank) after ``kv_norm``, "k_rope" (B, S, rope_dim)
+    roped}: prefill fills it, decode writes ``pos`` in place. Prefill
+    attends with q/k heads of nope + rope (v zero-padded to that width
+    and cut back); decode either attends in the latent space (``absorb``:
+    ``w_uk`` folded into q, ``w_uv`` applied after; scores and the latent
+    output in float32 over the stored cache) or expands the cache
+    (``absorb=False``)."""
+    m = cfg.mla
+    b, s, _ = x.shape
+    h = cfg.n_heads
+    nope, rope_d, vd, rank = m.qk_nope_head_dim, m.qk_rope_head_dim, m.v_head_dim, m.kv_lora_rank
+    q = (x @ p["wq"]).reshape(b, s, h, nope + rope_d)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = L.apply_rope(q_rope, positions, cfg.rope_theta)
+    ckv_full = x @ p["w_dkv"]
+    c_kv = L.rmsnorm(ckv_full[..., :rank], p["kv_norm"], cfg.norm_eps)
+    k_rope = L.apply_rope(ckv_full[:, :, None, rank:], positions, cfg.rope_theta)  # one head
+
+    def expand_kv(ckv):
+        t = ckv.shape[1]
+        return ((ckv @ p["w_uk"]).reshape(-1, t, h, nope),
+                (ckv @ p["w_uv"]).reshape(-1, t, h, vd))
+
+    if mode in ("train", "prefill"):
+        k_nope, v = expand_kv(c_kv)
+        k = torch.cat([k_nope, k_rope.expand(b, s, h, rope_d)], -1)
+        qq = torch.cat([q_nope, q_rope], -1)
+        o = kops.attention(qq, k, _pad_to(v, nope + rope_d), causal=True)[..., :vd]
+        if mode == "prefill":
+            cache["c_kv"].copy_(c_kv)
+            cache["k_rope"].copy_(k_rope[:, :, 0])
+    else:  # decode: s == 1
+        cache["c_kv"][:, pos] = c_kv[:, 0]
+        cache["k_rope"][:, pos] = k_rope[:, 0, 0]
+        cc, cr = cache["c_kv"], cache["k_rope"]
+        kv_len = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
+        if absorb:
+            w_uk = p["w_uk"].reshape(rank, h, nope)
+            q_lat = torch.einsum("bshn,lhn->bshl", q_nope, w_uk)  # (b, 1, h, rank)
+            scale = 1.0 / math.sqrt(nope + rope_d)
+            ccf = cc.float()
+            sc = (torch.einsum("bshl,btl->bhst", q_lat.float(), ccf)
+                  + torch.einsum("bshr,btr->bhst", q_rope.float(), cr.float())) * scale
+            valid = torch.arange(cc.shape[1], device=x.device)[None, :] < kv_len[:, None]
+            sc = torch.where(valid[:, None, None, :], sc, -1e30)
+            w = torch.softmax(sc, dim=-1)
+            o_lat = torch.einsum("bhst,btl->bshl", w.to(cc.dtype).float(), ccf)
+            w_uv = p["w_uv"].reshape(rank, h, vd)
+            o = torch.einsum("bshl,lhv->bshv", o_lat.to(x.dtype), w_uv)
+        else:
+            k_nope, v = expand_kv(cc)
+            k = torch.cat([k_nope, cr[:, :, None, :].expand(b, cr.shape[1], h, rope_d)], -1)
+            qq = torch.cat([q_nope, q_rope], -1)
+            o = kops.decode_attention(qq, k, _pad_to(v, nope + rope_d), kv_len=kv_len)[..., :vd]
+    return o.reshape(b, s, h * vd) @ p["wo"]
+
+
+def _block(p, cfg: LMConfig, x, positions, mode, use_moe, cache=None, pos=None,
+           absorb=True):
+    """One layer -> (x, aux loss of its MoE FFN, float32 0 without)."""
+    h = L.rmsnorm(x, p["ln1"], cfg.norm_eps)
+    if cfg.mla is not None:
+        a = _mla_attend(p["attn"], cfg, h, positions, mode, cache, pos, absorb)
+    else:
+        a = _gqa_attend(p["attn"], cfg, h, positions, mode, cache, pos)
     x = x + a
     h = L.rmsnorm(x, p["ln2"], cfg.norm_eps)
-    return x + L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+    if use_moe:
+        f, aux = moe_block(p["moe"], cfg, h)
+    else:
+        f = L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
+        aux = torch.zeros((), device=x.device)
+    return x + f, aux
 
 
-def _trunk(params, cfg: LMConfig, x, positions, mode, caches=None, pos=None):
-    """All layers in order; layer i reads slice i of every stack."""
-    blocks = params["blocks_dense"]
-    layer_caches = None if caches is None else caches["blocks_dense"]
-    for i in range(blocks["ln1"].shape[0]):
-        p = _map(lambda a: a[i], blocks)
-        c = None if layer_caches is None else _map(lambda a: a[i], layer_caches)
-        x = _block(p, cfg, x, positions, mode, c, pos)
-    return x
+def _trunk(params, cfg: LMConfig, x, positions, mode, caches=None, pos=None,
+           absorb=True):
+    """The dense stack, then the MoE stack; layer i of a stack reads slice
+    i of its leaves -> (x, the layers' aux losses summed)."""
+    aux_total = torch.zeros((), device=x.device)
+    for name, n, use_moe in _stacks(cfg):
+        blocks = params[name]
+        layer_caches = None if caches is None else caches[name]
+        aux_stack = torch.zeros((), device=x.device)
+        for i in range(n):
+            p = _map(lambda a: a[i], blocks)
+            c = None if layer_caches is None else _map(lambda a: a[i], layer_caches)
+            x, aux = _block(p, cfg, x, positions, mode, use_moe, c, pos, absorb)
+            aux_stack = aux_stack + aux
+        aux_total = aux_total + aux_stack
+    return x, aux_total
 
 
 def _logits(params, cfg: LMConfig, x):
@@ -170,13 +299,14 @@ def _logits(params, cfg: LMConfig, x):
 
 
 def forward_train(params, cfg: LMConfig, tokens):
-    """tokens (B, S) -> (logits (B, S, V), aux loss 0.0): the training
+    """tokens (B, S) -> (logits (B, S, V), aux loss scalar: the MoE
+    layers' load-balance and z-losses, 0.0 without MoE): the training
     forward (the backward is not ported)."""
     s = tokens.shape[1]
     x = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-    x = _trunk(params, cfg, x, positions, "train")
-    return _logits(params, cfg, x), torch.zeros((), device=x.device)
+    x, aux = _trunk(params, cfg, x, positions, "train")
+    return _logits(params, cfg, x), aux
 
 
 def prefill(params, cfg: LMConfig, tokens):
@@ -185,15 +315,16 @@ def prefill(params, cfg: LMConfig, tokens):
     x = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     caches = init_cache(cfg, b, s, x.device)
-    x = _trunk(params, cfg, x, positions, "prefill", caches)
+    x, _ = _trunk(params, cfg, x, positions, "prefill", caches)
     return _logits(params, cfg, x[:, -1:, :])[:, 0], caches
 
 
-def decode_step(params, cfg: LMConfig, token, caches, pos: int):
+def decode_step(params, cfg: LMConfig, token, caches, pos: int, absorb: bool = True):
     """token (B, 1); caches from ``init_cache``/``prefill``, at least
-    ``pos + 1`` long, written in place at ``pos``. Returns (logits
+    ``pos + 1`` long, written in place at ``pos``; ``absorb`` picks MLA's
+    decode path (weight-absorbed, or the expanded cache). Returns (logits
     (B, V), caches)."""
     x = params["embed"][token]
     positions = torch.full(token.shape, pos, dtype=torch.int32, device=x.device)
-    x = _trunk(params, cfg, x, positions, "decode", caches, pos)
+    x, _ = _trunk(params, cfg, x, positions, "decode", caches, pos, absorb)
     return _logits(params, cfg, x)[:, 0], caches

@@ -1,12 +1,14 @@
-"""The port's dense-GQA LM serving path against the reference, on the CPU.
+"""The port's LM serving path against the reference, on the CPU.
 
 The same inputs, made from a seed with numpy, go through ``repro`` and
 ``repro_torch``: the attention oracle (and the Pallas ``flash_attention``
 kernel in interpret mode), the LM layers, and ``forward_train``,
-``prefill`` and ``decode_step`` of reduced qwen3-8b (qk-norm) and
-phi4-mini (tied embeddings) with the reference's own seeded weights
+``prefill`` and ``decode_step`` of reduced qwen3-8b (qk-norm), phi4-mini
+(tied embeddings), qwen2-moe (MoE, shared experts) and deepseek-v2-lite
+(MLA, a dense layer then MoE) with the reference's own seeded weights
 carried over by ``lm.from_numpy``. The CUDA kernel itself runs only on a
-card (``chip_smoke.py``).
+card (``chip_smoke.py``). The MoE block and MLA attention on their own
+are in ``test_torch_moe.py``.
 """
 import dataclasses
 
@@ -33,7 +35,7 @@ from repro_torch.models import lm
 # starve the timing-sensitive tests of other files
 torch.set_num_threads(1)
 
-LM_ARCHS = ("qwen3-8b", "phi4-mini-3.8b")
+LM_ARCHS = ("qwen3-8b", "phi4-mini-3.8b", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
 
 
 def _qkv(seed, b, sq, skv, hq, hkv, d):
@@ -185,13 +187,20 @@ def test_swiglu_matches_reference(dtype):
 # configs, init and the weight bridge
 # ---------------------------------------------------------------------------
 
+def _fields(c):
+    """A config's fields, the MoE and MLA specs as dicts."""
+    return {f.name: (dataclasses.asdict(v) if dataclasses.is_dataclass(v) else v)
+            for f in dataclasses.fields(c) for v in [getattr(c, f.name)]}
+
+
 @pytest.mark.parametrize("arch", LM_ARCHS)
 def test_lm_configs_match_reference(arch):
     cfg, jcfg = get_config(arch), jget(arch)
-    assert cfg.n_params == jcfg.n_params
     for c, j in ((cfg, jcfg), (reduced(cfg), jreduced(jcfg))):
-        for f in dataclasses.fields(c):
-            assert getattr(c, f.name) == getattr(j, f.name), f.name
+        assert c.n_params == j.n_params and c.n_active_params == j.n_active_params
+        got, want = _fields(c), _fields(j)
+        for name, v in got.items():
+            assert v == want[name], name
     assert [dataclasses.astuple(s)[:4] for s in LM_SHAPES] == \
         [(s.name, s.kind, s.seq_len, s.global_batch) for s in J_LM_SHAPES]
 
@@ -208,7 +217,7 @@ def test_lm_init_has_the_reference_layout(arch):
     for path, t in got.items():
         assert tuple(t.shape) == flat[path].shape and t.dtype == torch.float32, path
     assert ("lm_head" in p) == (not cfg.tie_embeddings)
-    wq = p["blocks_dense"]["attn"]["wq"]
+    wq = p["blocks_moe" if "blocks_dense" not in p else "blocks_dense"]["attn"]["wq"]
     assert abs(wq.std().item() - 0.88 / cfg.d_model ** 0.5) < 0.02  # trunc. normal, ±2σ
 
 
@@ -220,18 +229,30 @@ def _flatten(tree, prefix=()):
             yield prefix + (k,), v
 
 
-def test_lm_init_refuses_moe_and_mla():
-    cfg = reduced(get_config("qwen3-8b"))
-    for bad in (dataclasses.replace(cfg, moe="spec"), dataclasses.replace(cfg, mla="spec")):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            lm.init(torch.Generator().manual_seed(0), bad, device="cpu")
+def test_moe_router_stays_float32():
+    """The reference keeps the MoE router in float32 whatever the param
+    dtype; so do ``lm.from_numpy`` (each leaf keeps its own dtype) and
+    ``lm.init``, while every other leaf of a bf16 config is bf16."""
+    cfg = dataclasses.replace(reduced(get_config("qwen2-moe-a2.7b")), param_dtype="bfloat16")
+    jp = jlm.init(jax.random.PRNGKey(1), dataclasses.replace(
+        jreduced(jget("qwen2-moe-a2.7b")), param_dtype="bfloat16"))
+    for p in (lm.from_numpy(jp, device="cpu"),
+              lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")):
+        for path, t in _flatten(p):
+            want = torch.float32 if path[-1] == "router" else torch.bfloat16
+            assert t.dtype == want, path
+        assert p["blocks_moe"]["moe"]["router"].shape == (cfg.n_layers, cfg.d_model,
+                                                          cfg.moe.n_routed)
+    np.testing.assert_array_equal(
+        lm.from_numpy(jp, device="cpu")["blocks_moe"]["moe"]["router"].numpy(),
+        np.asarray(jp["blocks_moe"]["moe"]["router"]))
 
 
 def test_from_numpy_carries_bf16_exactly():
     cfg = dataclasses.replace(reduced(get_config("qwen3-8b")), param_dtype="bfloat16")
     jp = jlm.init(jax.random.PRNGKey(1), dataclasses.replace(
         jreduced(jget("qwen3-8b")), param_dtype="bfloat16"))
-    p = lm.from_numpy(jp, cfg, device="cpu")
+    p = lm.from_numpy(jp, device="cpu")
     for path, t in _flatten(p):
         j = jp
         for k in path:
@@ -249,18 +270,29 @@ def test_from_numpy_carries_bf16_exactly():
 # compiles the reference's layer scan and keeps the residual sum in
 # float32 inside a block, where the eager port rounds it to bf16:
 # measured 3.0e-3 to 1.0e-2 on the logits and caches of the forward,
-# prefill and decode, over 3 seeds and both configs
+# prefill and decode, over 3 seeds and the dense configs. The MoE
+# configs' bf16 reference runs unrolled (``scan_layers=False``), op by op as
+# the port: under the scan its router sees other bf16 inputs and a
+# near-tie among the top-k flips a token's experts (measured 6.4e-2 and
+# 6.6e-2 on the forward at 2 of 3 seeds, 0.21 on a decode step);
+# unrolled, the port equals it bit for bit at 3 seeds. The reference's
+# absorbed MLA decode does not run in bf16 on the CPU (XLA has no bf16 x
+# bf16 = float32 dot there): the port's naive decode is held against the
+# reference's, and the port's absorbed decode against its naive one
+# (measured 8.5e-3 to 1.1e-2)
 # ---------------------------------------------------------------------------
 
 ATOL = 1e-5
 BF16_RTOL = 2e-2
 
 
-def _bridged(arch, dtype="float32"):
+def _bridged(arch, dtype="float32", seed=0):
     jcfg = dataclasses.replace(jreduced(jget(arch)), param_dtype=dtype)
-    jp = jlm.init(jax.random.PRNGKey(0), jcfg)
+    if jcfg.moe is not None and dtype == "bfloat16":
+        jcfg = dataclasses.replace(jcfg, scan_layers=False)
+    jp = jlm.init(jax.random.PRNGKey(seed), jcfg)
     cfg = dataclasses.replace(reduced(get_config(arch)), param_dtype=dtype)
-    return jcfg, jp, cfg, lm.from_numpy(jp, cfg, device="cpu")
+    return jcfg, jp, cfg, lm.from_numpy(jp, device="cpu")
 
 
 def _close(got, want, dtype):
@@ -273,9 +305,23 @@ def _close(got, want, dtype):
 
 
 def _pad_cache(cache, to):
-    return {"blocks_dense": {
-        k: torch.nn.functional.pad(c, (0, 0, 0, 0, 0, to - c.shape[2]))
-        for k, c in cache["blocks_dense"].items()}}
+    """Every stack's cache leaves padded along their position axis (2)."""
+    return {name: {k: torch.nn.functional.pad(c, (0, 0) * (c.dim() - 3) + (0, to - c.shape[2]))
+                   for k, c in stack.items()} for name, stack in cache.items()}
+
+
+def _jpad_cache(cache, to):
+    return jax.tree_util.tree_map(
+        lambda c: jnp.pad(c, [(0, 0), (0, 0), (0, to - c.shape[2])] + [(0, 0)] * (c.ndim - 3)),
+        cache)
+
+
+def _close_caches(cache, jcache, dtype):
+    assert set(cache) == set(jcache)
+    for name, stack in cache.items():
+        assert set(stack) == set(jcache[name])
+        for kk, got in stack.items():
+            _close(got, jcache[name][kk], dtype)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -283,30 +329,42 @@ def _pad_cache(cache, to):
 def test_lm_serving_matches_reference(arch, dtype):
     jcfg, jp, cfg, p = _bridged(arch, dtype)
     tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 12)).astype(np.int32)
-    jfull, _ = jlm.forward_train(jp, jcfg, jnp.asarray(tokens))
+    jfull, jaux = jlm.forward_train(jp, jcfg, jnp.asarray(tokens))
     full, aux = lm.forward_train(p, cfg, torch.from_numpy(tokens))
-    assert full.shape == (2, 12, cfg.vocab_size) and float(aux) == 0.0
+    assert full.shape == (2, 12, cfg.vocab_size) and aux.dtype == torch.float32
     assert full.dtype == getattr(torch, dtype)
     _close(full, jfull, dtype)
+    assert (float(aux) > 0) == (cfg.moe is not None)
+    np.testing.assert_allclose(float(aux), float(jaux), atol=ATOL)
 
     jlog, jcache = jlm.prefill(jp, jcfg, jnp.asarray(tokens[:, :6]))
     log, cache = lm.prefill(p, cfg, torch.from_numpy(tokens[:, :6]))
     _close(log, jlog, dtype)
-    for kk in ("k", "v"):
-        got = cache["blocks_dense"][kk]
-        assert got.shape == (cfg.n_layers, 2, 6, cfg.n_kv_heads, cfg.head_dim)
-        _close(got, jcache["blocks_dense"][kk], dtype)
+    _close_caches(cache, jcache, dtype)
+    for name, stack in cache.items():
+        for kk, got in stack.items():
+            assert got.shape[1:3] == (2, 6) and got.dtype == getattr(torch, dtype), (name, kk)
 
-    jcache = jax.tree_util.tree_map(
-        lambda c: jnp.pad(c, [(0, 0), (0, 0), (0, 6), (0, 0), (0, 0)]), jcache)
-    cache = _pad_cache(cache, 12)
+    jcache, cache = _jpad_cache(jcache, 12), _pad_cache(cache, 12)
+    # the MLA decode paths: absorbed (the default) and naive; in bf16 the
+    # reference runs only the naive one (see above)
+    paths = [True] if cfg.mla is None else [True, False]
+    ref_paths = [False] if cfg.mla is not None and dtype == "bfloat16" else paths
+    caches = {a: _pad_cache(cache, 12) for a in paths}
+    jcaches = {a: jcache for a in ref_paths}
     for pos in range(6, 9):
         tok = tokens[:, pos:pos + 1]
-        jlog, jcache = jlm.decode_step(jp, jcfg, jnp.asarray(tok), jcache, pos)
-        log, cache = lm.decode_step(p, cfg, torch.from_numpy(tok), cache, pos)
-        _close(log, jlog, dtype)
-        for kk in ("k", "v"):
-            _close(cache["blocks_dense"][kk], jcache["blocks_dense"][kk], dtype)
+        logs = {}
+        for a in paths:
+            logs[a], caches[a] = lm.decode_step(p, cfg, torch.from_numpy(tok), caches[a], pos,
+                                                absorb=a)
+        for a in ref_paths:
+            jlog, jcaches[a] = jlm.decode_step(jp, jcfg, jnp.asarray(tok), jcaches[a], pos,
+                                               absorb=a)
+            _close(logs[a], jlog, dtype)
+            _close_caches(caches[a], jcaches[a], dtype)
+        if len(paths) > 1:
+            _close(logs[True], logs[False].float().numpy(), dtype)
 
 
 @pytest.mark.parametrize("arch", LM_ARCHS)
@@ -318,11 +376,14 @@ def test_lm_block_bf16_rounds_as_reference(arch):
     jcfg, jp, cfg, p = _bridged(arch, "bfloat16")
     tokens = np.random.default_rng(1).integers(0, cfg.vocab_size, (2, 6)).astype(np.int32)
     positions = np.arange(6, dtype=np.int32)[None]
-    jblock = jax.tree_util.tree_map(lambda a: a[0], jp["blocks_dense"])
+    stack = "blocks_dense" if "blocks_dense" in p else "blocks_moe"
+    use_moe = stack == "blocks_moe"
+    jblock = jax.tree_util.tree_map(lambda a: a[0], jp[stack])
     want, _, _ = jlm._block(jblock, jcfg, jp["embed"][tokens], jnp.asarray(positions),
-                            "train", False)
-    got = lm._block(lm._map(lambda a: a[0], p["blocks_dense"]), cfg,
-                    p["embed"][torch.from_numpy(tokens)], torch.from_numpy(positions), "train")
+                            "train", use_moe)
+    got, _ = lm._block(lm._map(lambda a: a[0], p[stack]), cfg,
+                       p["embed"][torch.from_numpy(tokens)], torch.from_numpy(positions),
+                       "train", use_moe)
     _assert_bf16_rounds_as(got, want)
 
 
@@ -337,8 +398,9 @@ def test_lm_prefill_decode_consistency(arch):
         np.random.default_rng(3).integers(0, cfg.vocab_size, (2, 7)).astype(np.int64))
     log, pre = lm.prefill(p, cfg, prompt)
     cache = lm.init_cache(cfg, 2, 7 + 4, device="cpu")
-    for kk in ("k", "v"):
-        cache["blocks_dense"][kk][:, :, :7] = pre["blocks_dense"][kk]
+    for name, stack in cache.items():
+        for kk, c in stack.items():
+            c[:, :, :7] = pre[name][kk]
     logits, seq = [log], prompt
     for pos in range(7, 11):
         tok = logits[-1].argmax(-1, keepdim=True)
