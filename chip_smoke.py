@@ -9,15 +9,16 @@ nothing of JAX or of the reference package ``repro``. Phases:
 1. device: the card's name and power limit, torch/CUDA versions, and
    the build of every hand-written kernel from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel), with ptxas's registers and
-   spills of each kernel entry (a spill or a serialized ``wgmma`` in the
-   tensor-core ``flash_attention`` fails the run);
+   spills of each kernel entry (a spill, a serialized ``wgmma`` or an
+   ignored ``setmaxnreg`` in the tensor-core ``flash_attention``, or a
+   missing instantiation of it at D 64, 128 or 192, fails the run);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at ragged ones (a bf16
    ``flash_attention`` also against the plain version on its inputs
    upcast to float32, within one bf16 rounding; every case checks which
-   entry of its library it launched; the prefill's attention and a
-   qwen3-8b projection's int8 product run on both routes, and
-   deepseek-v2-lite's prefill attention (D 192) on the CUDA cores, timed
+   entry of its library it launched; the prefill's attention of
+   qwen3-8b (D 128) and of deepseek-v2-lite (D 192) and a qwen3-8b
+   projection's int8 product run on both routes, deepseek's shape timed
    beside ``scaled_dot_product_attention``; the dedup's
    k-means++ seeding gives the plain version's centroids and picks, and
    ``kmeans_assign_f32`` its assignments and distances bit for bit;
@@ -131,9 +132,12 @@ nothing of JAX or of the reference package ``repro``. Phases:
    top-k expert sets agree in every layer; (c) its MoE layer 0 on 256
    tokens, card against CPU: kept copies equal, outputs and aux within
    stated limits; (d) deepseek-v2-lite-16b at full width as (a), its
-   prefill on the CUDA-core ``flash_attention_bf16`` (q/k heads of 192),
-   the last decode step run again naive (the expanded cache) against
-   the absorbed one, whole and for layer 0's attention alone; (e) both
+   prefill on the tensor-core entry too (q/k heads of 192), the dense
+   layer 0's prefill attention on the model's own q, k and zero-padded
+   v held against the plain version on float32 upcast inputs (rtol
+   2^-7, atol 1e-5; the padded columns exactly 0), the last decode step
+   run again naive (the expanded cache) against the absorbed one, whole
+   and for layer 0's attention alone; (e) both
    reduced in float32, card against CPU as phase 7 (deepseek absorbed
    and naive).
 
@@ -515,21 +519,25 @@ def kernel_cases(dev):
             bytes=bs * (n + m) * 16 + bs * n * m * 4, flops=12 * bs * n * m))
 
     # the LM prefill's shape first (qwen3-8b, B 2, S 4096: the tensor-core
-    # route), the same on the CUDA-core route (forced, to time the two in
-    # one run), bf16 shapes of the tensor-core route (ragged, D 64, Hq =
-    # Hkv, Sq < Skv), then the f32 shapes of tests/test_kernels.py and
-    # ragged ones, and bf16 with D 96 (the CUDA-core route)
+    # route), deepseek-v2-lite's prefill shape on the tensor cores, both on
+    # the CUDA-core route (forced, to time the designs in one run), bf16
+    # shapes of the tensor-core route (ragged, D 64 and 192, Hq = Hkv, Sq <
+    # Skv), then the f32 shapes of tests/test_kernels.py and ragged ones,
+    # and bf16 with D 96 (the CUDA-core route)
     tc, cc = flash_attention.TENSOR_CORE, flash_attention.CUDA_CORE
     bf16, f32 = torch.bfloat16, torch.float32
     main = (2, 4096, 4096, 32, 8, 128)
-    # deepseek-v2-lite's prefill (phase 12d): q/k heads of 128 + 64, v
-    # zero-padded to 192, Hq = Hkv = 16, on the CUDA cores
+    # deepseek-v2-lite's prefill (phase 12d): q/k heads of 128 + 64 (v
+    # zero-padded to 192 there, random here), Hq = Hkv = 16
     mla = (2, 4096, 4096, 16, 16, 192)
-    attn = [(main, bf16, True, tc), (mla, bf16, True, cc), (main, bf16, True, cc),
+    attn = [(main, bf16, True, tc), (mla, bf16, True, tc), (mla, bf16, True, cc),
+            (main, bf16, True, cc),
             ((1, 200, 200, 4, 2, 128), bf16, True, tc),
             ((2, 256, 256, 4, 2, 64), bf16, False, tc),
             ((1, 384, 384, 8, 8, 128), bf16, True, tc),
-            ((1, 128, 384, 4, 2, 128), bf16, False, tc)]
+            ((1, 128, 384, 4, 2, 128), bf16, False, tc),
+            ((1, 200, 200, 4, 2, 192), bf16, True, tc),
+            ((1, 128, 384, 4, 4, 192), bf16, False, tc)]
     attn += [((b, s, s, hq, hkv, d), f32, causal, cc)
              for b, s, hq, hkv, d in [(1, 128, 1, 1, 128), (2, 256, 4, 2, 128), (1, 384, 8, 8, 128),
                                       (2, 128, 6, 2, 256)] for causal in (False, True)]
@@ -553,7 +561,7 @@ def kernel_cases(dev):
             plain=lambda q=q, k=k, v=v, c=causal: ref.attention(q, k, v, causal=c),
             library=lambda q=q, k=k, v=v, c=causal: F.scaled_dot_product_attention(
                 q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), is_causal=c,
-                enable_gqa=True), time_library=(b, sq, skv, hq, hkv, d) == mla,
+                enable_gqa=True), time_library=dt == bf16,
             upcast=None if dt == f32 else (
                 lambda q=q, k=k, v=v, c=causal: ref.attention(q.float(), k.float(), v.float(),
                                                               causal=c)),
@@ -607,8 +615,11 @@ INT8_TC_ENTRY = "int8_tc_kernel"  # the tensor-core int8_matmul kernel
 def ptxas_report(logs: dict):
     """Registers, spills and shared memory of every kernel entry, from
     ptxas's report in this run's build. Fails if a tensor-core entry of
-    ``flash_attention`` or ``int8_matmul`` spills, or if ptxas serializes
-    a ``wgmma``."""
+    ``flash_attention`` or ``int8_matmul`` spills, if ptxas serializes a
+    ``wgmma`` or ignores a ``setmaxnreg``, or if an instantiation of
+    ``flash_tc_kernel`` (one a head dim of ``TENSOR_CORE_D``) is missing
+    from the report."""
+    from repro_torch.kernels.flash_attention import TENSOR_CORE_D
     if "flash_attention" not in logs:
         print("ptxas: flash_attention was built by an earlier run, no report to check", flush=True)
     for name, log in logs.items():
@@ -626,10 +637,16 @@ def ptxas_report(logs: dict):
                           f"ptxas: {entry} spills ({spill})")
             if "wgmma" in line and "serializ" in line:
                 fail(f"ptxas serializes wgmma: {line}")
+            if "setmaxnreg" in line and "ignored" in line:
+                fail(f"ptxas ignores setmaxnreg: {line}")
             if "warning" in line.lower():
                 print(f"ptxas {name} {entry}: {line}", flush=True)
     if "flash_attention" in logs:
-        check(TC_ENTRY in logs["flash_attention"], "ptxas reported no tensor-core entry")
+        entries = [line.split("'")[1] for line in logs["flash_attention"].splitlines()
+                   if "Compiling entry function" in line and TC_ENTRY in line]
+        for d in TENSOR_CORE_D:   # the mangled template arguments <D, 64>
+            check(any(f"ILi{d}ELi64E" in e for e in entries),
+                  f"ptxas reported no {TC_ENTRY}<{d}, 64> (entries {entries})")
     if "int8_matmul" in logs:
         check(INT8_TC_ENTRY in logs["int8_matmul"], "ptxas reported no int8 tensor-core entry")
 
@@ -1931,6 +1948,60 @@ def moe_layer_card_vs_cpu(dev, params, cfg, prompt):
     check(abs(gpu["aux"] - cpu["aux"]) <= MOE_AUX_ATOL, "12c: aux differs")
 
 
+def mla_prefill_attention(dev, flash, params, cfg, prompt):
+    """12d: the dense layer 0's prefill attention at full width on the
+    model's own inputs: ``lm._mla_attend`` over the prompt's ``ln1``
+    embeddings, its call of ``ops.attention`` recorded (q/k heads of
+    nope + rope, v zero-padded to that width). Checks: one launch, on
+    the tensor-core entry; the output against ``ref.attention`` on the
+    inputs upcast to float32 within FLASH_BF16_RTOL / FLASH_BF16_ATOL;
+    the padded columns exactly 0. No routing lies between the two, as it
+    does in the whole-model gates."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import layers as L
+    from repro_torch.models import lm
+
+    m = cfg.mla
+    layer = lm._map(lambda a: a[0], params["blocks_dense"])
+    h = L.rmsnorm(params["embed"][prompt], layer["ln1"], cfg.norm_eps)
+    positions = torch.arange(prompt.shape[1], dtype=torch.int32, device=dev)[None, :]
+    calls, attention = [], ops.attention
+
+    def recorded(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        calls.append((q, k, v, kw, out))
+        return out
+
+    flash.reset()
+    ops.attention = recorded
+    try:
+        lm._mla_attend(layer["attn"], cfg, h, positions, "train")
+    finally:
+        ops.attention = attention
+    torch.cuda.synchronize()
+    took = {k: n for k, n in flash.symbol_launches.items() if n}
+    check(len(calls) == 1 and took == {TC_SYMBOL: 1},
+          f"12d layer 0: {len(calls)} ops.attention calls, flash launches {took}")
+    q, k, v, kw, got = calls[0]
+    vd = m.v_head_dim
+    check(tuple(q.shape[-1:]) == (m.qk_nope_head_dim + m.qk_rope_head_dim,)
+          and bool((v[..., vd:] == 0).all()), "12d layer 0: not MLA's padded attention")
+    want = ref.attention(q.float(), k.float(), v.float(), **kw)
+    diff = (got.float() - want).abs()
+    pad_zero = bool((got[..., vd:] == 0).all()) and bool((want[..., vd:] == 0).all())
+    print(f"{cfg.name} 12d layer 0 prefill attention q{tuple(q.shape)} v{tuple(v.shape)}: "
+          f"against float32 upcast inputs max_abs_err {diff.max().item():.3e}, relative norm "
+          f"{(diff.norm() / want.norm()).item():.3e} (rtol {FLASH_BF16_RTOL:.3e}, atol "
+          f"{FLASH_BF16_ATOL:.0e}); columns {vd}-{q.shape[-1] - 1} exactly 0: {pad_zero}; "
+          f"launches {took}", flush=True)
+    check(torch.allclose(got.float(), want, atol=FLASH_BF16_ATOL, rtol=FLASH_BF16_RTOL),
+          f"12d layer 0: prefill attention off the float32 version by {diff.max().item()}")
+    check(pad_zero, "12d layer 0: the padded columns of the attention are not 0")
+    del calls, q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+
+
 def phase_moe_serving(dev, flash):
     """Phase 12: qwen2-moe (12a-12c) and deepseek-v2-lite (12d) at full
     width, then the reduced configs card vs CPU (12e) -> flash launches
@@ -1952,9 +2023,10 @@ def phase_moe_serving(dev, flash):
 
     t0 = time.perf_counter()
     params, cfg, prompt, routes, (tok, cache, pos, absorbed) = serve_full_width(
-        dev, flash, "deepseek-v2-lite-16b", "flash_attention_bf16")
+        dev, flash, "deepseek-v2-lite-16b", TC_SYMBOL)
     for sym, n in routes.items():
         entries[sym] = entries.get(sym, 0) + n
+    mla_prefill_attention(dev, flash, params, cfg, prompt)
     from repro_torch.models import layers as L
     from repro_torch.models import lm
     naive, _ = lm.decode_step(params, cfg, tok, cache, pos, absorb=False)

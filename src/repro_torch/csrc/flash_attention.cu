@@ -1,7 +1,7 @@
 // Flash attention (online softmax, GQA, optional causal mask) for Hopper
 // (sm_90a): float32, and bf16 of other head dims, on the CUDA cores
-// (flash_attention_f32, flash_attention_bf16); bf16 with D 64 or 128 on
-// the tensor cores (flash_attention_bf16_sm90, below).
+// (flash_attention_f32, flash_attention_bf16); bf16 with D 64, 128 or 192
+// on the tensor cores (flash_attention_bf16_sm90, below).
 //
 // Replaces the Pallas kernel repro/kernels/flash_attention.py
 // (flash_attention, _flash_kernel): for q (B, Sq, Hq, D) and k, v
@@ -33,7 +33,7 @@
 // math); float32 stays off the tensor cores: TF32 would break its 2e-5
 // contract.
 //
-// bf16 with D 64 or 128 on the tensor cores: flash_attention_bf16_sm90
+// bf16 with D 64, 128 or 192 on the tensor cores: flash_attention_bf16_sm90
 // (the rule is kernels/flash_attention.py:choose_route) replaces the same
 // Pallas kernel and computes the same function, except that s = q . k is
 // taken exactly from the bf16 inputs and scaled after the product (one
@@ -41,33 +41,50 @@
 // so the exponentials are exp2f (no fast math).
 // Bound: operations, 4*B*Hq*Sq*Skv*D/2 at 989 TFLOP/s of bf16 wgmma.
 // Design: a block owns 128 query rows of one (batch, head): two consumer
-// warpgroups of 64 rows and one producer warp. The producer's lane 0
-// issues TMA loads (4-D maps (D, H, S, B) encoded per call, boxes of 64 x
-// rows under the 128-byte swizzle; a 128-wide head is two boxes) of Q
-// once and of K and V tiles into a two-stage ring, with full and empty
-// mbarriers. Each consumer computes s = Q K^T with wgmma m64nBKk16 (both
-// operands from shared memory, K-major), the online softmax in registers
-// (row max and sum over the four lanes of an accumulator row, shuffles),
-// then acc += P V with wgmma m64nDk16, P from registers and V from shared
-// memory, N-major (the transpose bit). P is split into two bf16 halves,
-// hi = bf16(p) and lo = bf16(p - hi), and multiplied by the same V tile
+// warpgroups of 64 rows and a producer. The producer's lane 0 issues TMA
+// loads (4-D maps (D, H, S, B) encoded per call, boxes of 64 x rows under
+// the 128-byte swizzle; a head of D is D/64 boxes) of Q once and of K and
+// V tiles into a two-stage ring, with full and empty mbarriers. Each
+// consumer computes s = Q K^T with wgmma m64nBKk16 (both operands from
+// shared memory, K-major), the online softmax in registers (row max and
+// sum over the four lanes of an accumulator row, shuffles), then acc +=
+// P V with wgmma m64nDk16, P from registers and V from shared memory,
+// N-major (the transpose bit). P is split into two bf16 halves, hi =
+// bf16(p) and lo = bf16(p - hi), and multiplied by the same V tile
 // twice: chip_smoke.py holds every bf16 output against the plain version
 // on float32 inputs at rtol 2^-7, atol 1e-5, and one bf16 p (what SDPA
 // and FA3 feed the second product) misses that for outputs near zero,
-// where hi + lo keeps ~16 bits. It costs 1.5x the tensor-core work.
-// Keys past Skv (zeros from TMA) get s = -1e30; with a causal mask only
-// tiles that reach past a warpgroup's first row are masked and tiles past
-// its last row are skipped; rows past Sq are not stored; query tiles go
-// longest first (the grid's slowest axis).
-// Tile: BK = 64 keys (FLASH_TC_BK). scripts/flash_tile_sweep.py builds 64
-// and 128: at the prefill's shape 128 is about 3% faster, but a block of
-// nine warps puts three on one of the SM's four register files, which
-// caps a thread at 168 registers, and at 128 keys ptxas spills there;
-// 64 keys take 159 registers at D 128 (128 at D 64), no spills. A whole
-// producer warpgroup with setmaxnreg (24 registers there, 240 in the
-// consumers) would lift the cap.
-// Later work: ping-pong between the two consumer warpgroups, setmaxnreg,
-// a persistent grid, and the GQA heads of one kv head packed in a block.
+// where hi + lo keeps ~16 bits. It costs 1.5x the second product's
+// tensor-core work. Keys past Skv (zeros from TMA) get s = -1e30; with a
+// causal mask only tiles that reach past a warpgroup's first row are
+// masked and tiles past its last row are skipped; rows past Sq are not
+// stored; query tiles go longest first (the grid's slowest axis).
+// Layout (TcLayout): at D 64 and 128 the producer is one warp, 288
+// threads, so a block of nine warps puts three on one of the SM's four
+// register files, which caps a thread at 168 registers; 64-key tiles take
+// 159 at D 128 (128 at D 64), no spills. At D 192 (deepseek-v2-lite's MLA
+// prefill: q/k heads of 128 + 64, v zero-padded to 192) the output
+// accumulator alone is 96 floats a thread, beside s[32], p_hi[16] and
+// p_lo[16]: some 190 registers by the D 128 count, past the cap. So there
+// the producer is a whole warpgroup (384 threads; warps 8-11, warp 8's
+// lane 0 loads) that lowers its registers to 24 with setmaxnreg.dec while
+// the consumers raise theirs to 240 with setmaxnreg.inc, the two roles
+// one branch's two arms: 128 * 24 + 256 * 240 = 64512 of the SM's
+// 65536 registers, one producer and two consumer warps (504 registers a
+// lane) on each register file. Shared memory at D 192: Q 128 x 192 x 2 B
+// = 48 KB and two stages of K + V, 2 x 64 x 192 x 2 B = 48 KB each, 145
+// KB in all (one block an SM; 128-key tiles would need 240 KB). Its bound
+// at deepseek's prefill (2, 4096, 16, 192) causal is 0.2085 ms: s = q k
+// is 2 * 192 flops a (row, key) and p_hi v + p_lo v 2 * 2 * 192, counted
+// as the function's 4 * 192 (the split's extra third is the design's).
+// Tile: BK = 64 keys (FLASH_TC_BK); FLASH_TC_STAGES and FLASH_TC_WG_FROM_D
+// (the least D with a producer warpgroup) are build switches for
+// scripts/flash_tile_sweep.py, which builds and times the variants (PERF.md
+// §6): D 128 on the producer-warpgroup layout is 13% slower with 64-key
+// tiles and no faster with 128 (where it still spills), and a third stage
+// gains about 1% at D 192, so the defaults stay.
+// Later work: ping-pong between the two consumer warpgroups, a persistent
+// grid, and the GQA heads of one kv head packed in a block.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -302,13 +319,38 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b, int sq
 // ---------------------------------------------------------------------------
 
 constexpr int kTcBQ = 128;             // query rows a block: two consumer warpgroups of 64
-constexpr int kTcThreads = 288;        // warps 0-7 consume (wgmma), warp 8 loads (TMA)
-constexpr int kTcStages = 2;           // ring of K and V tiles
+#ifndef FLASH_TC_STAGES
+#define FLASH_TC_STAGES 2
+#endif
+constexpr int kTcStages = FLASH_TC_STAGES;  // ring of K and V tiles
 #ifndef FLASH_TC_BK
 #define FLASH_TC_BK 64
 #endif
 constexpr int kTcBK = FLASH_TC_BK;     // keys a tile (see the note at the top)
+#ifndef FLASH_TC_WG_FROM_D
+#define FLASH_TC_WG_FROM_D 192
+#endif
 constexpr float kLog2e = 1.4426950408889634f;
+
+// The block's layout by head dim (the note at the top): warps 0-7 consume
+// (wgmma), warp 8 loads (TMA), alone below FLASH_TC_WG_FROM_D; from it
+// warps 8-11 are a producer warpgroup and setmaxnreg moves registers
+// from the producer to the consumers
+template <int D>
+struct TcLayout {
+  static constexpr bool kWarpgroupProducer = D >= FLASH_TC_WG_FROM_D;
+  static constexpr int kThreads = kWarpgroupProducer ? 384 : 288;
+};
+constexpr int kTcProducerRegs = 24, kTcConsumerRegs = 240;
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -401,6 +443,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
       "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
 #define WG_ACC32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
 #define WG_ACC64 WG_ACC32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
+#define WG_ACC96 WG_ACC64, WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88)
 
 // wgmma m64nNk16, bf16 in, float32 accumulate, scale-d = 1:
 // ss: d (64 x N) += a (64 x 16) . b (16 x N), both from shared memory,
@@ -463,6 +506,26 @@ struct Wgmma<128> {
   }
 };
 
+// N = 192 is only the second product's width (D 192); s = q . k stays N = BK
+template <>
+struct Wgmma<192> {
+  static __device__ __forceinline__ void rs(float (&d)[96], uint32_t a0, uint32_t a1,
+                                            uint32_t a2, uint32_t a3, uint64_t b) {
+    asm volatile(
+        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
+        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
+        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
+        : WG_ACC96
+        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
+  }
+};
+
 __device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
   return *reinterpret_cast<uint32_t*>(&x);
 }
@@ -485,10 +548,11 @@ constexpr int tc_smem_bytes() {
 }
 
 template <int D, int BK>
-__global__ void __launch_bounds__(kTcThreads, 1)
+__global__ void __launch_bounds__(TcLayout<D>::kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                 const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int sq,
                 int skv, int hq, int hkv, int causal, float scale_log2) {
+  using L = TcLayout<D>;
   constexpr int DB = D / 64;                      // 64-wide boxes of the head dim
   constexpr uint32_t kQBox = kTcBQ * 128;         // bytes of one Q box
   constexpr uint32_t kKVBox = BK * 128;           // bytes of one K or V box
@@ -517,8 +581,11 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
   }
   __syncthreads();
 
-  if (warp == 8) {  // producer: one lane issues every load
-    if (lane == 0) {
+  // the two roles are the two arms of one branch that never meet again, so
+  // ptxas knows each arm's register count after its setmaxnreg
+  if (warp >= 8) {  // producer: one lane issues every load
+    if constexpr (L::kWarpgroupProducer) setmaxnreg_dec<kTcProducerRegs>();
+    if (warp == 8 && lane == 0) {
       mbar_expect_tx(bar_q, kQBytes);
       for (int db = 0; db < DB; ++db) tma_load(s_q + db * kQBox, &tm_q, bar_q, db * 64, h, q0, b);
       for (int t = 0; t < n_tiles; ++t) {
@@ -532,134 +599,134 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         }
       }
     }
-    return;
-  }
+  } else {
+    if constexpr (L::kWarpgroupProducer) setmaxnreg_inc<kTcConsumerRegs>();
+    // consumer warpgroup wg owns query rows q0 + 64 wg .. + 63; this thread
+    // holds rows row0 and row0 + 8 of every accumulator
+    const int wg = warp / 4;
+    const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
+    const int col = 2 * (lane % 4);  // first of this thread's two columns in each 8
+    const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
 
-  // consumer warpgroup wg owns query rows q0 + 64 wg .. + 63; this thread
-  // holds rows row0 and row0 + 8 of every accumulator
-  const int wg = warp / 4;
-  const int row0 = q0 + 64 * wg + 16 * (warp % 4) + lane / 4;
-  const int col = 2 * (lane % 4);  // first of this thread's two columns in each 8
-  const int wg_first = q0 + 64 * wg, wg_last = wg_first + 63;
+    float acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // m in log2 units
 
-  float acc[D / 2];
-#pragma unroll
-  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
-  float m0 = kNegInf, m1 = kNegInf, l0 = 0.f, l1 = 0.f;  // m in log2 units
+    mbar_wait(bar_q, 0);
+    for (int t = 0; t < n_tiles; ++t) {
+      const int st = t % kTcStages, k0 = t * BK;
+      const uint32_t s_k = s_kv + st * 2 * kKVBytes, s_v = s_k + kKVBytes;
+      mbar_wait(bar_full + 8 * st, (t / kTcStages) & 1);
+      if (causal && k0 > wg_last) {  // every key of the tile is masked for these rows
+        mbar_arrive(bar_empty + 8 * st);
+        continue;
+      }
 
-  mbar_wait(bar_q, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kTcStages, k0 = t * BK;
-    const uint32_t s_k = s_kv + st * 2 * kKVBytes, s_v = s_k + kKVBytes;
-    mbar_wait(bar_full + 8 * st, (t / kTcStages) & 1);
-    if (causal && k0 > wg_last) {  // every key of the tile is masked for these rows
-      mbar_arrive(bar_empty + 8 * st);
-      continue;
-    }
+      // s = q . k^T: D/16 steps of 16 along the head dim
+      float s[BK / 2];
+#pragma unroll
+      for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
+      fence_regs(s);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // 16 bf16 along the 128-byte row
+        Wgmma<BK>::ss(s, sw128_desc(s_q + (kk / 4) * kQBox + wg * 64 * 128 + off, 16, 1024),
+                      sw128_desc(s_k + (kk / 4) * kKVBox + off, 16, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(s);
 
-    // s = q . k^T: D/16 steps of 16 along the head dim
-    float s[BK / 2];
+      // scale (log2 units), mask, online softmax. s[4i + e] is (row0, key
+      // k0 + 8i + col + e), s[4i + 2 + e] is (row0 + 8, same key)
+      const bool mask = k0 + BK > skv || (causal && k0 + BK - 1 > wg_first);
+      float mx0 = m0, mx1 = m1;
 #pragma unroll
-    for (int i = 0; i < BK / 2; ++i) s[i] = 0.f;
-    fence_regs(s);
-    wgmma_fence();
+      for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      const uint32_t off = (kk % 4) * 32;  // 16 bf16 along the 128-byte row
-      Wgmma<BK>::ss(s, sw128_desc(s_q + (kk / 4) * kQBox + wg * 64 * 128 + off, 16, 1024),
-               sw128_desc(s_k + (kk / 4) * kKVBox + off, 16, 1024));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-
-    // scale (log2 units), mask, online softmax. s[4i + e] is (row0, key
-    // k0 + 8i + col + e), s[4i + 2 + e] is (row0 + 8, same key)
-    const bool mask = k0 + BK > skv || (causal && k0 + BK - 1 > wg_first);
-    float mx0 = m0, mx1 = m1;
-#pragma unroll
-    for (int i = 0; i < BK / 8; ++i)
-#pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        float x0 = s[4 * i + e] * scale_log2, x1 = s[4 * i + 2 + e] * scale_log2;
-        if (mask) {
-          const int key = k0 + 8 * i + col + e;
-          if (key >= skv || (causal && key > row0)) x0 = kNegInf;
-          if (key >= skv || (causal && key > row0 + 8)) x1 = kNegInf;
+        for (int e = 0; e < 2; ++e) {
+          float x0 = s[4 * i + e] * scale_log2, x1 = s[4 * i + 2 + e] * scale_log2;
+          if (mask) {
+            const int key = k0 + 8 * i + col + e;
+            if (key >= skv || (causal && key > row0)) x0 = kNegInf;
+            if (key >= skv || (causal && key > row0 + 8)) x1 = kNegInf;
+          }
+          s[4 * i + e] = x0;
+          s[4 * i + 2 + e] = x1;
+          mx0 = fmaxf(mx0, x0);
+          mx1 = fmaxf(mx1, x1);
         }
-        s[4 * i + e] = x0;
-        s[4 * i + 2 + e] = x1;
-        mx0 = fmaxf(mx0, x0);
-        mx1 = fmaxf(mx1, x1);
-      }
-    mx0 = quad_max(mx0);
-    mx1 = quad_max(mx1);
-    const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
-    float rs0 = 0.f, rs1 = 0.f;
+      mx0 = quad_max(mx0);
+      mx1 = quad_max(mx1);
+      const float alpha0 = exp2f(m0 - mx0), alpha1 = exp2f(m1 - mx1);
+      float rs0 = 0.f, rs1 = 0.f;
 #pragma unroll
-    for (int i = 0; i < BK / 8; ++i)
+      for (int i = 0; i < BK / 8; ++i)
 #pragma unroll
-      for (int e = 0; e < 2; ++e) {
-        s[4 * i + e] = exp2f(s[4 * i + e] - mx0);
-        s[4 * i + 2 + e] = exp2f(s[4 * i + 2 + e] - mx1);
-        rs0 += s[4 * i + e];
-        rs1 += s[4 * i + 2 + e];
+        for (int e = 0; e < 2; ++e) {
+          s[4 * i + e] = exp2f(s[4 * i + e] - mx0);
+          s[4 * i + 2 + e] = exp2f(s[4 * i + 2 + e] - mx1);
+          rs0 += s[4 * i + e];
+          rs1 += s[4 * i + 2 + e];
+        }
+      l0 = l0 * alpha0 + quad_sum(rs0);
+      l1 = l1 * alpha1 + quad_sum(rs1);
+      m0 = mx0;
+      m1 = mx1;
+#pragma unroll
+      for (int i = 0; i < D / 8; ++i) {
+        acc[4 * i + 0] *= alpha0;
+        acc[4 * i + 1] *= alpha0;
+        acc[4 * i + 2] *= alpha1;
+        acc[4 * i + 3] *= alpha1;
       }
-    l0 = l0 * alpha0 + quad_sum(rs0);
-    l1 = l1 * alpha1 + quad_sum(rs1);
-    m0 = mx0;
-    m1 = mx1;
+
+      // p as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi), in the
+      // A-operand layout: for keys 16j..16j+15, registers 4j..4j+3 hold
+      // (row0, 2 keys), (row0 + 8, 2 keys), then the same 8 keys on
+      uint32_t p_hi[BK / 4], p_lo[BK / 4];
+#pragma unroll
+      for (int i = 0; i < BK / 4; ++i) {
+        const float a = s[2 * i], c = s[2 * i + 1];
+        const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
+        const float2 hf = __bfloat1622float2(hi);
+        p_hi[i] = bf16x2_bits(hi);
+        p_lo[i] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, c - hf.y));
+      }
+
+      // acc += p_hi . v + p_lo . v: BK/16 steps of 16 keys; V is (keys x D),
+      // D contiguous, so N-major (transposed), its D boxes BK * 128 bytes apart
+      fence_regs(p_hi);
+      fence_regs(p_lo);
+      fence_regs(acc);
+      wgmma_fence();
+#pragma unroll
+      for (int j = 0; j < BK / 16; ++j) {
+        const uint64_t dv = sw128_desc(s_v + j * 16 * 128, kKVBox, 1024);
+        Wgmma<D>::rs(acc, p_hi[4 * j], p_hi[4 * j + 1], p_hi[4 * j + 2], p_hi[4 * j + 3], dv);
+        Wgmma<D>::rs(acc, p_lo[4 * j], p_lo[4 * j + 1], p_lo[4 * j + 2], p_lo[4 * j + 3], dv);
+      }
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(acc);
+      mbar_arrive(bar_empty + 8 * st);
+    }
+
+    // acc[4i + e] is (row0, column 8i + col + e), acc[4i + 2 + e] row0 + 8
+    const long long row_stride = (long long)hq * D;
+    __nv_bfloat16* ob = o + (long long)b * sq * row_stride + (long long)h * D;
+    const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
 #pragma unroll
     for (int i = 0; i < D / 8; ++i) {
-      acc[4 * i + 0] *= alpha0;
-      acc[4 * i + 1] *= alpha0;
-      acc[4 * i + 2] *= alpha1;
-      acc[4 * i + 3] *= alpha1;
+      if (row0 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + row0 * row_stride + 8 * i + col) =
+            __floats2bfloat162_rn(acc[4 * i] / den0, acc[4 * i + 1] / den0);
+      if (row0 + 8 < sq)
+        *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * row_stride + 8 * i + col) =
+            __floats2bfloat162_rn(acc[4 * i + 2] / den1, acc[4 * i + 3] / den1);
     }
-
-    // p as two bf16 halves, hi = bf16(p) and lo = bf16(p - hi), in the
-    // A-operand layout: for keys 16j..16j+15, registers 4j..4j+3 hold
-    // (row0, 2 keys), (row0 + 8, 2 keys), then the same 8 keys on
-    uint32_t p_hi[BK / 4], p_lo[BK / 4];
-#pragma unroll
-    for (int i = 0; i < BK / 4; ++i) {
-      const float a = s[2 * i], c = s[2 * i + 1];
-      const __nv_bfloat162 hi = __floats2bfloat162_rn(a, c);
-      const float2 hf = __bfloat1622float2(hi);
-      p_hi[i] = bf16x2_bits(hi);
-      p_lo[i] = bf16x2_bits(__floats2bfloat162_rn(a - hf.x, c - hf.y));
-    }
-
-    // acc += p_hi . v + p_lo . v: BK/16 steps of 16 keys; V is (keys x D),
-    // D contiguous, so N-major (transposed), its D boxes BK * 128 bytes apart
-    fence_regs(p_hi);
-    fence_regs(p_lo);
-    fence_regs(acc);
-    wgmma_fence();
-#pragma unroll
-    for (int j = 0; j < BK / 16; ++j) {
-      const uint64_t dv = sw128_desc(s_v + j * 16 * 128, kKVBox, 1024);
-      Wgmma<D>::rs(acc, p_hi[4 * j], p_hi[4 * j + 1], p_hi[4 * j + 2], p_hi[4 * j + 3], dv);
-      Wgmma<D>::rs(acc, p_lo[4 * j], p_lo[4 * j + 1], p_lo[4 * j + 2], p_lo[4 * j + 3], dv);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(acc);
-    mbar_arrive(bar_empty + 8 * st);
-  }
-
-  // acc[4i + e] is (row0, column 8i + col + e), acc[4i + 2 + e] row0 + 8
-  const long long row_stride = (long long)hq * D;
-  __nv_bfloat16* ob = o + (long long)b * sq * row_stride + (long long)h * D;
-  const float den0 = fmaxf(l0, 1e-30f), den1 = fmaxf(l1, 1e-30f);
-#pragma unroll
-  for (int i = 0; i < D / 8; ++i) {
-    if (row0 < sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + row0 * row_stride + 8 * i + col) =
-          __floats2bfloat162_rn(acc[4 * i] / den0, acc[4 * i + 1] / den0);
-    if (row0 + 8 < sq)
-      *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * row_stride + 8 * i + col) =
-          __floats2bfloat162_rn(acc[4 * i + 2] / den1, acc[4 * i + 3] / den1);
   }
 }
 
@@ -716,8 +783,8 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int s
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(hq, b, (sq + kTcBQ - 1) / kTcBQ);
-  kernel<<<grid, kTcThreads, bytes, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, sq, skv, hq, hkv,
-                                              causal, sm_scale * kLog2e);
+  kernel<<<grid, TcLayout<D>::kThreads, bytes, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, sq, skv,
+                                                         hq, hkv, causal, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -740,18 +807,19 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 }
 
 // The tensor-core route: q: (b, sq, hq, d), k and v: (b, skv, hkv, d), o:
-// (b, sq, hq, d), contiguous bf16 with 16-byte aligned data, d 64 or 128,
-// hq % hkv == 0, skv >= 1. Returns cudaGetLastError() (or
+// (b, sq, hq, d), contiguous bf16 with 16-byte aligned data, d 64, 128 or
+// 192, hq % hkv == 0, skv >= 1. Returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments it refuses or a tensor map that
 // cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attention_bf16_sm90(const void* q, const void* k, const void* v, void* o,
                                          int b, int sq, int skv, int hq, int hkv, int d,
                                          int causal, float sm_scale, void* stream) {
   if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
-  if (skv <= 0 || (d != 64 && d != 128) || hkv <= 0 || hq % hkv != 0 || b > 65535 ||
+  if (skv <= 0 || (d != 64 && d != 128 && d != 192) || hkv <= 0 || hq % hkv != 0 || b > 65535 ||
       (sq + kTcBQ - 1) / kTcBQ > 65535)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
   if (d == 64) return launch_tc<64>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
-  return launch_tc<128>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
+  if (d == 128) return launch_tc<128>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
+  return launch_tc<192>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
 }

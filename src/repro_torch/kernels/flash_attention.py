@@ -7,13 +7,18 @@ absolute position, output in q's dtype. Operations-bound at the LM's
 prefill shapes. One source, ``csrc/flash_attention.cu``, holds two
 routes, and :func:`choose_route` is the rule between them:
 
-- ``"tensor_core"`` (``flash_attention_bf16_sm90``): bf16 with D 64 or
-  128. 128 query rows a block, TMA loads of K and V tiles, both products
-  on wgmma with float32 accumulation, p fed to the second product as two
-  bf16 halves (hi + lo), so the result is the float32 algorithm's.
+- ``"tensor_core"`` (``flash_attention_bf16_sm90``): bf16 with D 64,
+  128 or 192. 128 query rows a block, TMA loads of K and V tiles, both
+  products on wgmma with float32 accumulation, p fed to the second
+  product as two bf16 halves (hi + lo), so the result is the float32
+  algorithm's. D 192 is deepseek-v2-lite's MLA prefill (q/k heads of
+  128 + 64, v zero-padded to 192); its block has a whole producer
+  warpgroup that hands its registers to the consumers (``setmaxnreg``),
+  since the 96-float accumulator does not fit the D 128 layout.
 - ``"cuda_core"`` (``flash_attention_f32``, ``flash_attention_bf16``):
-  float32, and bf16 of any other head dim. 64 query rows a block,
-  float32 FMAs on the CUDA cores (TF32 would break float32's contract).
+  float32, and bf16 of any other head dim (96, 256, ...). 64 query rows
+  a block, float32 FMAs on the CUDA cores (TF32 would break float32's
+  contract).
 
 Both skip key tiles past a causal block's diagonal, take any Sq, Skv
 (the ragged tail is masked), and read the kv head in place. The CUDA-core
@@ -38,7 +43,7 @@ import torch
 from repro_torch.kernels._build import I, P, CudaKernel
 
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
-TENSOR_CORE_D = (64, 128)
+TENSOR_CORE_D = (64, 128, 192)
 SYMBOLS = {(TENSOR_CORE, torch.bfloat16): "flash_attention_bf16_sm90",
            (CUDA_CORE, torch.float32): "flash_attention_f32",
            (CUDA_CORE, torch.bfloat16): "flash_attention_bf16"}
@@ -49,8 +54,8 @@ MAX_GRID_YZ = 65535
 
 
 def choose_route(dtype: torch.dtype, head_dim: int) -> str:
-    """The route of a CUDA call: ``"tensor_core"`` for bf16 with D 64 or
-    128, ``"cuda_core"`` for everything else."""
+    """The route of a CUDA call: ``"tensor_core"`` for bf16 with D 64,
+    128 or 192, ``"cuda_core"`` for everything else."""
     if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_D:
         return TENSOR_CORE
     return CUDA_CORE

@@ -2,7 +2,7 @@
 
 A CUDA tensor goes to the hand-written kernel, which launches or raises;
 a CPU tensor goes to the plain PyTorch version in :mod:`ref`. There is
-no switch and no fallback: the device of the data decides. Three kernels
+no switch and no fallback: the device of the data decides. Four kernels
 have more than one entry in their one source:
 
 - ``kmeans_assign`` (``csrc/kmeans_assign.cu``): ``kmeans_assign`` runs
@@ -19,6 +19,11 @@ have more than one entry in their one source:
   NMS of a counting batch in one launch (``nms_keep_f32``), the matrix
   kept in shared memory as a bitmask. It takes k <= 1024 candidates an
   image; the detector's is 128.
+- ``flash_attention`` (``csrc/flash_attention.cu``): bf16 with D 64, 128
+  or 192 on the tensor cores (``flash_attention_bf16_sm90``; D 192 is
+  deepseek-v2-lite's MLA prefill), float32 and bf16 of other head dims
+  on the CUDA cores (the rule is
+  :func:`repro_torch.kernels.flash_attention.choose_route`).
 - ``int8_matmul`` (``csrc/int8_matmul.cu``): the s8 tensor cores where
   K and N are multiples of 16, dp4a on the CUDA cores otherwise (the
   rule is :func:`repro_torch.kernels.int8_matmul.choose_route`).

@@ -15,7 +15,9 @@ weights (d_in, d_out) used as ``x @ w``; ``first_dense_layers`` layers
 cache is ``{"k", "v"}: (L, B, S, Hkv, D)``, or for MLA
 ``{"c_kv": (L, B, S, rank), "k_rope": (L, B, S, rope_dim)}``. The layers
 run in a Python loop. Prefill attention goes through ``ops.attention``
-(the ``flash_attention`` kernel on CUDA), decode attention through
+(on CUDA the ``flash_attention`` kernel's tensor-core entry in bf16:
+head dim 128 for GQA, 192 for MLA's q/k heads of 128 + 64 with v
+zero-padded to 192), decode attention through
 ``ops.decode_attention`` or, for absorbed MLA, plain products (both
 plain tensor ops, as in the reference).
 

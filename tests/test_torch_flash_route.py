@@ -8,9 +8,12 @@ kernel's arithmetic (exact bf16 products, the scale applied after the
 product, online softmax over key tiles, p fed to the second product as
 two bf16 halves) held against the reference's Pallas kernel (interpret
 mode) and its oracle on float32-upcast inputs, within the tolerance
-``chip_smoke.py`` applies on the card (rtol 2^-7, atol 1e-5). The same
-emulation with one bf16 p misses that tolerance: the reason for the
-split. Inputs are made from a seed with numpy.
+``chip_smoke.py`` applies on the card (rtol 2^-7, atol 1e-5), at D 64,
+128 and 192, and on an MLA-shaped input (deepseek-v2-lite's prefill:
+q/k heads of 128 + 64, v zero-padded to 192, whose padded columns come
+out exactly 0). The same emulation with one bf16 p misses that
+tolerance: the reason for the split. Inputs are made from a seed with
+numpy.
 """
 import math
 from types import SimpleNamespace
@@ -37,6 +40,7 @@ LOG2E = 1.4426950408889634
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
+    (torch.bfloat16, 192, "tensor_core"),
     (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 96, "cuda_core"),
     (torch.bfloat16, 100, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
     (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
@@ -123,10 +127,12 @@ def _qkv(seed, b, sq, skv, hq, hkv, d):
 
 
 # (b, sq, skv, hq, hkv, d, causal): the prefill's GQA and head dim,
-# ragged lengths, D 64, Hq = Hkv, Sq < Skv
+# ragged lengths, D 64, Hq = Hkv, Sq < Skv; then D 192 (MLA's q/k heads)
 SHAPES = [(1, 256, 256, 4, 2, 128, True), (1, 200, 200, 4, 2, 128, True),
           (2, 256, 256, 4, 2, 64, False), (1, 256, 256, 4, 4, 128, True),
-          (1, 128, 384, 4, 2, 128, False)]
+          (1, 128, 384, 4, 2, 128, False),
+          (1, 256, 256, 4, 4, 192, True), (1, 200, 200, 4, 2, 192, True),
+          (1, 128, 384, 4, 2, 192, False)]
 
 
 def _upcast(t):
@@ -164,3 +170,28 @@ def test_one_bf16_p_misses_the_tolerance(shape):
     assert outside.mean() > 0.05, outside.mean()
     two = emulate(q, k, v, causal=causal).float().numpy()
     assert not (np.abs(two - want) > ATOL + RTOL * np.abs(want)).any()
+
+
+def test_emulated_kernel_on_mla_prefill_keeps_padded_columns_zero():
+    """MLA's prefill attention as ``lm._mla_attend`` calls it, at the
+    full model's head widths and the reduced deepseek's batch and heads
+    (2 rows, Hq = Hkv = 4): q/k heads of nope 128 + rope 64 (the rope
+    part of k one head, broadcast), v of 128 zero-padded to 192, 200
+    positions (a ragged last tile). The padded columns come out exactly
+    0 in the emulation and the reference; the first 128 are within the
+    stated tolerance of the reference on float32-upcast inputs."""
+    b, s, h, nope, rope, vd = 2, 200, 4, 128, 64, 128
+    rng = np.random.default_rng(192)
+    q = rng.standard_normal((b, s, h, nope + rope), dtype=np.float32)
+    k_rope = np.broadcast_to(rng.standard_normal((b, s, 1, rope), dtype=np.float32),
+                             (b, s, h, rope))
+    k = np.concatenate([rng.standard_normal((b, s, h, nope), dtype=np.float32), k_rope], -1)
+    v = np.pad(rng.standard_normal((b, s, h, vd), dtype=np.float32),
+               [(0, 0)] * 3 + [(0, nope + rope - vd)])
+    q, k, v = (torch.from_numpy(np.ascontiguousarray(a)).bfloat16() for a in (q, k, v))
+    assert flash.choose_route(q.dtype, q.shape[-1]) == "tensor_core"
+    got = emulate(q, k, v, causal=True).float().numpy()
+    want = np.asarray(jref.attention(*[_upcast(t) for t in (q, k, v)], causal=True))
+    assert got.shape == want.shape == (b, s, h, nope + rope)
+    assert (got[..., vd:] == 0).all() and (want[..., vd:] == 0).all()
+    np.testing.assert_allclose(got[..., :vd], want[..., :vd], rtol=RTOL, atol=ATOL)
