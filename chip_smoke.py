@@ -19,7 +19,9 @@ nothing of JAX or of the reference package ``repro``. Phases:
    entry of its library it launched; the prefill's attention of
    qwen3-8b (D 128) and of deepseek-v2-lite (D 192) and a qwen3-8b
    projection's int8 product run on both routes, deepseek's shape timed
-   beside ``scaled_dot_product_attention``; the dedup's
+   beside ``scaled_dot_product_attention``; ViT-L/16's (197 tokens, D
+   64) and ViT-H/14's (257 tokens, D 80, zero-padded to 128) attention at
+   batch 128, the latter on both routes; the dedup's
    k-means++ seeding gives the plain version's centroids and picks, and
    ``kmeans_assign_f32`` its assignments and distances bit for bit;
    ``tile_moments`` runs at C 1, 3, 5 and 64, ragged and misaligned
@@ -140,14 +142,28 @@ nothing of JAX or of the reference package ``repro``. Phases:
    and for layer 0's attention alone; (e) both
    reduced in float32, card against CPU as phase 7 (deepseek absorbed
    and naive).
+13. vision serving: ViT-L/16, ViT-H/14, ConvNeXt-B and ResNet-152 at
+   full width (seeded random bf16 weights drawn on the card) on
+   ``serve_b128`` (128 images of 224 px): images/s, ms a batch, the share
+   of the bf16 FLOP bound, peak memory and ``flash_attention`` launches
+   by entry (one a layer on the tensor-core entry for the ViTs, none for
+   the convnets; checked); a second forward bit-equal and ``LaunchGuard``
+   over a steady forward (0 builds, 0 new segments; checked);
+   torch.profiler's attention share of ViT-H/14's forward; ViT-L/16 at
+   ``cls_384``'s resolution (577 tokens, position embeddings resized),
+   batch 64; layer 0's attention of each ViT on its own q, k and v
+   against the plain version on float32 upcasts (rtol 2^-7, atol 1e-5);
+   each model at full width in float32 on 2 images, card against CPU
+   (ResNet also ``train=True`` with its updated running statistics),
+   within VISION_F32_RTOL.
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
 first phase 2 case and its launches on the main paths: the Mission's
 runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
 phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
-monolith runs, the LM prefills of phases 5, 12a and 12d and
-``int8_matmul``'s one path),
+monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
+forwards of phase 13 and ``int8_matmul``'s one path),
 then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
@@ -212,6 +228,23 @@ MOE_LAYER_RTOL, MOE_AUX_ATOL = 2e-3, 1e-6
 # attention alone (no routing between the paths): measured 4.8e-3
 MLA_ABSORB_RTOL = 0.2
 MLA_LAYER_RTOL = 1e-2
+# phase 13: the vision models at VISION_SHAPES' serve_b128 (batch 128, 224
+# px), bf16; ViT-L/16 also at cls_384's resolution, batch 64
+VISION_ARCHS = ("vit-l16", "vit-h14", "convnext-b", "resnet-152")
+VISION_REPS = 5
+# phase 13: full width in float32 on 2 images, card against CPU: the
+# logits' relative norm. Float32 sums in another order through up to 152
+# layers (TF32 off), a few ulps a layer: 1e-4 (measured 1.1e-6 to 1.5e-6
+# on the H100)
+VISION_F32_RTOL = 1e-4
+# phase 13: ResNet's train=True forward normalizes each channel by its
+# batch statistics, over 98 values in the last stage at 2 images, and so
+# amplifies float32 noise: on the CPU a one-ulp change of the input moves
+# its logits by 3.5e-4 and its running statistics by 2.2e-4 (card vs CPU
+# measured 2.9e-4 and 1.7e-4 on the H100). The gate: card vs CPU within
+# this factor of the CPU's own change under such a perturbation, made in
+# the same run
+VISION_TRAIN_SENS = 4.0
 
 
 # phase 2's tile_moments cases, (shape, data); the first is the main
@@ -530,8 +563,13 @@ def kernel_cases(dev):
     # deepseek-v2-lite's prefill (phase 12d): q/k heads of 128 + 64 (v
     # zero-padded to 192 there, random here), Hq = Hkv = 16
     mla = (2, 4096, 4096, 16, 16, 192)
+    # ViT-L/16's and ViT-H/14's attention at serve_b128 (phase 13): 197
+    # tokens, heads of 64; 257 tokens, heads of 80 (zero-padded to 128 by
+    # the wrapper on the tensor-core route)
+    vit_l, vit_h = (128, 197, 197, 16, 16, 64), (128, 257, 257, 16, 16, 80)
     attn = [(main, bf16, True, tc), (mla, bf16, True, tc), (mla, bf16, True, cc),
-            (main, bf16, True, cc),
+            (main, bf16, True, cc), (vit_l, bf16, False, tc), (vit_h, bf16, False, tc),
+            (vit_h, bf16, False, cc),
             ((1, 200, 200, 4, 2, 128), bf16, True, tc),
             ((2, 256, 256, 4, 2, 64), bf16, False, tc),
             ((1, 384, 384, 8, 8, 128), bf16, True, tc),
@@ -1622,6 +1660,7 @@ def profile_step(name, step):
           f"kernel launches", flush=True)
     for e in sorted(kernels, key=lambda e: -e.self_device_time_total)[:8]:
         print(f"  {e.self_device_time_total / 1e3:.4f} ms x{e.count} {e.key[:90]}", flush=True)
+    return kernels
 
 
 def _leaves(tree):
@@ -2060,6 +2099,252 @@ def phase_moe_serving(dev, flash):
                          ("deepseek-v2-lite-16b", False)):
         phase_lm_cuda_vs_cpu(dev, flash, arch, absorb)
     print(f"phase 12e: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 13: vision serving
+# ---------------------------------------------------------------------------
+
+def vision_gflop(cfg, img_res: int) -> float:
+    """Matmul and conv GFLOP of one image's forward, the reference's
+    formulas (repro/launch/steps.py ``_vit_fwd_flops``,
+    ``_convnext_fwd_flops``, ``_resnet_fwd_flops``)."""
+    if cfg.kind == "vit":
+        t = (img_res // cfg.patch) ** 2 + 1
+        d, f = cfg.d_model, cfg.d_ff
+        patch = 2.0 * (img_res // cfg.patch) ** 2 * cfg.patch ** 2 * 3 * d
+        blk = 2.0 * t * (4 * d * d + 2 * d * f) + 4.0 * t * t * d
+        return (patch + cfg.n_layers * blk + 2.0 * d * cfg.n_classes) / 1e9
+    if cfg.kind == "convnext":
+        r = img_res // 4
+        total = 2.0 * r * r * 4 * 4 * 3 * cfg.dims[0]
+        for i, (dep, dim) in enumerate(zip(cfg.depths, cfg.dims)):
+            total += dep * 2.0 * r * r * (49 * dim + 8 * dim * dim)
+            if i + 1 < len(cfg.dims):
+                total += 2.0 * (r // 2) ** 2 * 4 * dim * cfg.dims[i + 1]
+                r //= 2
+        return (total + 2.0 * cfg.dims[-1] * cfg.n_classes) / 1e9
+    w, r = cfg.width, img_res // 2
+    total = 2.0 * r * r * 49 * 3 * w
+    r //= 2  # maxpool
+    c_in = w
+    for i, dep in enumerate(cfg.depths):
+        mid = w * (2 ** i)
+        out = mid * 4
+        if i > 0:
+            r //= 2
+        for b in range(dep):
+            total += 2.0 * r * r * (c_in * mid + 9 * mid * mid + mid * out)
+            if b == 0:
+                total += 2.0 * r * r * c_in * out  # projection
+            c_in = out
+    return (total + 2.0 * c_in * cfg.n_classes) / 1e9
+
+
+def vision_model(cfg):
+    from repro_torch.models import convnext, resnet, vit
+    return {"vit": vit, "convnext": convnext, "resnet": resnet}[cfg.kind]
+
+
+def vision_forward(mod, cfg, params, images, train=False):
+    """Logits (and for ResNet the new running statistics, else None)."""
+    if cfg.kind == "resnet":
+        return mod.forward(*params, cfg, images, train=train)
+    return mod.forward(params, cfg, images), None
+
+
+def vit_layer0_attention(dev, flash, params, cfg, images):
+    """Layer 0's attention on the model's own q, k and v (``vit.embed``,
+    ``vit.attention_inputs``) through ``ops.attention``: one launch, on
+    the tensor-core entry; the output against ``ref.attention`` on the
+    inputs upcast to float32 within FLASH_BF16_RTOL / FLASH_BF16_ATOL."""
+    import torch
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import vit
+    layer = {k: a[0] for k, a in params["blocks"].items()}
+    q, k, v = vit.attention_inputs(layer, cfg, vit.embed(params, cfg, images))
+    flash.reset()
+    got = ops.attention(q, k, v, causal=False)
+    torch.cuda.synchronize()
+    took = {s: n for s, n in flash.symbol_launches.items() if n}
+    want = ref.attention(q.float(), k.float(), v.float(), causal=False)
+    diff = (got.float() - want).abs()
+    print(f"{cfg.name} layer 0 attention q{tuple(q.shape)}: against float32 upcast inputs "
+          f"max_abs_err {diff.max().item():.3e}, relative norm "
+          f"{(diff.norm() / want.norm()).item():.3e} (rtol {FLASH_BF16_RTOL:.3e}, atol "
+          f"{FLASH_BF16_ATOL:.0e}); launches {took}", flush=True)
+    check(took == {TC_SYMBOL: 1}, f"{cfg.name} layer 0: flash launches {took}")
+    check(got.shape == q.shape and torch.allclose(got.float(), want, atol=FLASH_BF16_ATOL,
+                                                  rtol=FLASH_BF16_RTOL),
+          f"{cfg.name} layer 0: attention off the float32 version by {diff.max().item()}")
+    del q, k, v, got, want, diff
+    torch.cuda.empty_cache()
+
+
+def vision_serve(dev, flash, arch):
+    """One model at full width on serve_b128 (bf16, seeded weights drawn
+    on the card): a warm-up forward, the counted forward (flash launches
+    by entry: one a layer on the tensor-core entry for a ViT, none for a
+    convnet; checked), VISION_REPS timed forwards (CUDA events), a second
+    forward bit-equal, ``LaunchGuard`` over a steady forward after an
+    emptied allocator cache and 2 warm-ups (checked) -> (flash launches
+    by entry in the counted forward, params, images)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.analysis import LaunchGuard
+    from repro_torch.configs import get_config, get_shape
+
+    cfg = get_config(arch)
+    shape = get_shape(arch, "serve_b128")
+    b, res = shape.global_batch, shape.img_res
+    mod = vision_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    params, init_s = synced(lambda: mod.init(g, cfg, device=dev))
+    weight_gb = sum(t.numel() * t.element_size() for t in tree.leaves(params)) / 1e9
+    images = torch.randn((b, res, res, 3), generator=g, device=dev)
+    vision_forward(mod, cfg, params, images)   # warm-up: cuBLAS, cuDNN, kernel load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset()
+    (logits, _), first_s = synced(lambda: vision_forward(mod, cfg, params, images))
+    routes = {k: n for k, n in flash.symbol_launches.items() if n}
+    want = {TC_SYMBOL: cfg.n_layers} if cfg.kind == "vit" else {}
+    check(routes == want, f"{arch}: flash_attention launches by entry {routes}, not {want}")
+    check(logits.shape == (b, cfg.n_classes) and logits.dtype == torch.float32
+          and bool(torch.isfinite(logits).all()), f"{arch}: bad logits")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(VISION_REPS + 1)]
+    events[0].record()
+    for e in events[1:]:
+        vision_forward(mod, cfg, params, images)
+        e.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    mean_ms = sum(ms) / len(ms)
+    gflop = vision_gflop(cfg, res) * b
+    bound = 1e3 * gflop * 1e9 / BF16_FLOPS
+    again, _ = vision_forward(mod, cfg, params, images)
+    same = bit_equal(again, logits)
+    del again
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for _ in range(GUARD_WARMUP):
+        vision_forward(mod, cfg, params, images)
+    torch.cuda.synchronize()
+    with LaunchGuard(f"{arch} serve_b128 forward") as guard:
+        vision_forward(mod, cfg, params, images)
+    torch.cuda.synchronize()
+    print(f"{arch}: {cfg.n_params / 1e6:.1f} M params, {weight_gb:.3f} GB of bf16 weights drawn "
+          f"in {init_s:.2f} s; serve_b128 (B {b}, {res} px): {mean_ms:.4f} ms a batch (runs "
+          f"{', '.join(f'{t:.4f}' for t in ms)}; first {1e3 * first_s:.4f} ms host-timed), "
+          f"{1e3 * b / mean_ms:.1f} images/s; {gflop / 1e3:.4f} TFLOP a batch, bf16 bound "
+          f"{bound:.4f} ms, share {bound / mean_ms:.3f}; peak memory {peak_gb:.2f} GB; "
+          f"flash_attention launches by entry {routes}; second forward bit-equal {same}",
+          flush=True)
+    print(f"guard {guard.label}: builds {guard.builds} new segments {guard.new_segments} syncs "
+          f"{guard.syncs}; launches by entry {json.dumps(guard.launches)}", flush=True)
+    check(same, f"{arch}: a second forward's logits differ")
+    guard.assert_steady_state()
+    return routes, params, images
+
+
+def vision_cuda_vs_cpu(dev, arch):
+    """Full width in float32 on 2 images: the same seeded weights (drawn
+    on the card, copied to the CPU) and images on the card and on the
+    CPU; the logits' relative norm within VISION_F32_RTOL; ResNet also
+    ``train=True``: logits and every running-statistic leaf within
+    VISION_TRAIN_SENS times the CPU's own change when every input pixel
+    moves by one float32 ulp."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32")
+    mod = vision_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(SEED + 1)
+    p_gpu = mod.init(g, cfg, device=dev)
+    images = torch.randn((2, cfg.img_res, cfg.img_res, 3), generator=g, device=dev)
+    p_cpu, img_cpu = tree.from_numpy(p_gpu, "cpu"), images.cpu()
+
+    def rel(a, b):
+        return ((a.cpu().double() - b.double()).norm() / b.double().norm()).item()
+    modes = (False, True) if cfg.kind == "resnet" else (False,)
+    for train in modes:
+        (got, s_gpu), (want, s_cpu) = (vision_forward(mod, cfg, p, x, train)
+                                       for p, x in ((p_gpu, images), (p_cpu, img_cpu)))
+        errs = [rel(got, want)]
+        limit, why = VISION_F32_RTOL, ""
+        if train:
+            errs += [rel(a, b) for a, b in zip(tree.leaves(s_gpu), tree.leaves(s_cpu))]
+            ulp = torch.where(torch.rand(img_cpu.shape, generator=torch.Generator().manual_seed(
+                SEED)) < 0.5, -(2.0 ** -23), 2.0 ** -23)
+            moved, s_moved = vision_forward(mod, cfg, p_cpu, img_cpu * (1 + ulp), True)
+            sens = max([rel(moved, want)] + [rel(a, b) for a, b in zip(tree.leaves(s_moved),
+                                                                       tree.leaves(s_cpu))])
+            limit = VISION_TRAIN_SENS * sens
+            why = (f" = {VISION_TRAIN_SENS:g} x the CPU's own change under a one-ulp input "
+                   f"perturbation, {sens:.3e}")
+        print(f"{arch} float32 card vs CPU (2 images{', train=True' if train else ''}): "
+              f"logits relative norm {errs[0]:.3e}"
+              + (f", {len(errs) - 1} running-statistic leaves max {max(errs[1:]):.3e}"
+                 if train else "") + f" (limit {limit:.3e}{why})", flush=True)
+        check(max(errs) <= limit, f"{arch}{' train=True' if train else ''}: card and CPU "
+                                  f"differ by {max(errs):.3e}")
+    del p_gpu, images
+    torch.cuda.empty_cache()
+
+
+def phase_vision_serving(dev, flash):
+    """Phase 13 -> flash launches by entry in the four serve_b128
+    forwards (the main path's)."""
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    entries = {}
+    for arch in VISION_ARCHS:
+        t0 = time.perf_counter()
+        routes, params, images = vision_serve(dev, flash, arch)
+        for sym, n in routes.items():
+            entries[sym] = entries.get(sym, 0) + n
+        cfg = get_config(arch)
+        if cfg.kind == "vit":
+            vit_layer0_attention(dev, flash, params, cfg, images)
+        if arch == "vit-h14":
+            mod = vision_model(cfg)
+            kernels = profile_step(f"{arch} serve_b128 forward",
+                                   lambda: mod.forward(params, cfg, images))
+            busy = sum(e.self_device_time_total for e in kernels)
+            attn = sum(e.self_device_time_total for e in kernels if "flash" in e.key)
+            print(f"{arch} serve_b128: flash_attention {attn / 1e3:.4f} ms of {busy / 1e3:.4f} "
+                  f"ms of device time ("
+                  + (f"{attn / busy:.3f})" if busy else "not measured: the profiler saw no "
+                     "device time)"), flush=True)
+        if arch == "vit-l16":
+            shape = get_shape(arch, "cls_384")
+            mod = vision_model(cfg)
+            x = torch.randn((shape.global_batch, shape.img_res, shape.img_res, 3),
+                            generator=torch.Generator(device=dev).manual_seed(SEED), device=dev)
+            mod.forward(params, cfg, x)
+            flash.reset()
+            out, took_s = synced(lambda: mod.forward(params, cfg, x))
+            took = {k: n for k, n in flash.symbol_launches.items() if n}
+            tokens = (shape.img_res // cfg.patch) ** 2 + 1
+            print(f"{arch} at cls_384's resolution ({shape.img_res} px, {tokens} tokens), B "
+                  f"{shape.global_batch}: {1e3 * took_s:.4f} ms, "
+                  f"{shape.global_batch / took_s:.1f} images/s; flash launches {took}",
+                  flush=True)
+            check(took == {TC_SYMBOL: cfg.n_layers} and out.shape == (shape.global_batch,
+                                                                      cfg.n_classes)
+                  and bool(torch.isfinite(out).all()), f"{arch} cls_384: launches {took}")
+            del x, out
+        del params, images
+        torch.cuda.empty_cache()
+        print(f"phase 13 {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for arch in VISION_ARCHS:
+        vision_cuda_vs_cpu(dev, arch)
+    print(f"phase 13 card vs CPU: {time.perf_counter() - t0:.1f} s", flush=True)
     return entries
 
 
@@ -2921,6 +3206,12 @@ def main():
     for sym, n in moe_entries.items():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase moe and mla serving: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    vision_entries = phase_vision_serving(dev, kernel["flash_attention"])
+    launches["flash_attention"] += sum(vision_entries.values())
+    for sym, n in vision_entries.items():
+        entry_launches[sym] = entry_launches.get(sym, 0) + n
+    print(f"phase vision serving: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

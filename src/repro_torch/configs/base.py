@@ -1,10 +1,12 @@
 """Configs of the port: its own copy of the entries of
-``repro.configs.base`` that the port runs (``DetectorConfig`` for the two
+``repro.configs.base`` that the port runs (``DetectorConfig`` for the
 counters, ``LMConfig`` with its ``MoESpec`` and ``MLASpec`` for the four
-LMs, the LM shape set, the registry and ``reduced``), so the port never
+LMs, ``VisionConfig`` for ViT, ConvNeXt and ResNet, the LM, vision and
+detector shape sets, the registry and ``reduced``), so the port never
 imports the reference package."""
 from __future__ import annotations
 
+import dataclasses
 import importlib
 from dataclasses import dataclass, replace
 from typing import Optional, Tuple
@@ -23,6 +25,15 @@ class DetectorConfig:
     n_anchors: int = 3
     param_dtype: str = "float32"
     remat: str = "none"
+
+    @property
+    def n_params(self) -> int:
+        total = 3 * 3 * 3 * self.widths[0]
+        prev = self.widths[0]
+        for w in self.widths[1:]:
+            total += (3 * 3 * prev * w) * self.n_blocks_per_stage
+            prev = w
+        return total + prev * self.n_anchors * (5 + self.n_classes)
 
 
 @dataclass(frozen=True)
@@ -112,11 +123,69 @@ class LMConfig:
 
 
 @dataclass(frozen=True)
+class VisionConfig:
+    """An image classifier: ``kind`` "vit" (patch, n_layers, d_model,
+    n_heads, d_ff), "convnext" (depths, dims) or "resnet" (bottleneck
+    depths, width). The reference's training-only fields (``remat``,
+    ``scan_layers``) are left out: the port runs the layers in a loop and
+    has no backward for these models."""
+
+    name: str
+    family: str = "vision"
+    kind: str = "vit"  # 'vit' | 'convnext' | 'resnet'
+    img_res: int = 224
+    n_classes: int = 1000
+    # vit
+    patch: int = 16
+    n_layers: int = 12
+    d_model: int = 768
+    n_heads: int = 12
+    d_ff: int = 3072
+    # convnext / resnet
+    depths: Tuple[int, ...] = ()
+    dims: Tuple[int, ...] = ()
+    width: int = 64
+    param_dtype: str = "bfloat16"
+
+    @property
+    def n_params(self) -> int:
+        """The reference's count: weights of the convolutions and dense
+        layers (ViT: with the cls token, without position embeddings,
+        norms and biases)."""
+        if self.kind == "vit":
+            d = self.d_model
+            emb = 3 * self.patch * self.patch * d + d  # patch embed (+cls)
+            blk = 4 * d * d + 2 * d * self.d_ff
+            return emb + self.n_layers * blk + d * self.n_classes
+        if self.kind == "convnext":
+            total = 3 * 4 * 4 * self.dims[0]
+            for i, (dep, dim) in enumerate(zip(self.depths, self.dims)):
+                total += dep * (7 * 7 * dim + dim * 4 * dim * 2)  # dwconv + 2 pw
+                if i + 1 < len(self.dims):
+                    total += dim * self.dims[i + 1] * 2 * 2  # downsample conv
+            return total + self.dims[-1] * self.n_classes
+        w = self.width
+        total = 3 * 7 * 7 * w
+        in_ch = w
+        for i, dep in enumerate(self.depths):
+            mid = w * (2**i)
+            out = mid * 4
+            for b in range(dep):
+                total += in_ch * mid + 3 * 3 * mid * mid + mid * out
+                if b == 0 and in_ch != out:
+                    total += in_ch * out
+                in_ch = out
+        return total + in_ch * self.n_classes
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # 'train' | 'prefill' | 'decode'
+    kind: str  # 'train' | 'prefill' | 'decode' | 'cls' | 'serve'
     seq_len: int = 0
     global_batch: int = 0
+    img_res: int = 0
+    steps: int = 0
 
 
 LM_SHAPES = (
@@ -126,13 +195,36 @@ LM_SHAPES = (
     ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
 )
 
+VISION_SHAPES = (
+    ShapeSpec("cls_224", "cls", img_res=224, global_batch=256),
+    ShapeSpec("cls_384", "cls", img_res=384, global_batch=64),
+    ShapeSpec("serve_b1", "serve", img_res=224, global_batch=1),
+    ShapeSpec("serve_b128", "serve", img_res=224, global_batch=128),
+)
+
+DETECTOR_SHAPES = (
+    ShapeSpec("tiles_416_b256", "serve", img_res=416, global_batch=256),
+    ShapeSpec("train_416_b64", "train", img_res=416, global_batch=64),
+)
+
+FAMILY_SHAPES = {
+    "lm": LM_SHAPES,
+    "vision": VISION_SHAPES,
+    "detector": DETECTOR_SHAPES,
+}
+
 _ARCH_MODULES = {
     "phi4-mini-3.8b": "repro_torch.configs.phi4_mini_3p8b",
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "convnext-b": "repro_torch.configs.convnext_b",
+    "vit-l16": "repro_torch.configs.vit_l16",
+    "vit-h14": "repro_torch.configs.vit_h14",
+    "resnet-152": "repro_torch.configs.resnet_152",
     "targetfuse-space": "repro_torch.configs.targetfuse_space",
     "targetfuse-ground": "repro_torch.configs.targetfuse_ground",
+    "ssd-mobilenetv2": "repro_torch.configs.ssd_mobilenetv2",
 }
 
 
@@ -142,15 +234,33 @@ def get_config(arch: str):
     return importlib.import_module(_ARCH_MODULES[arch]).CONFIG
 
 
+def get_shapes(arch: str) -> Tuple[ShapeSpec, ...]:
+    return FAMILY_SHAPES[get_config(arch).family]
+
+
+def get_shape(arch: str, shape_name: str) -> ShapeSpec:
+    for s in get_shapes(arch):
+        if s.name == shape_name:
+            return s
+    raise KeyError(f"{arch}: unknown shape {shape_name!r}")
+
+
+def to_dict(cfg) -> dict:
+    return dataclasses.asdict(cfg)
+
+
 def reduced(cfg):
     """Shrink a config to something a CPU test can run. An LM: 2 layers,
     d_model 64, 4 heads (at most 2 kv heads) of 16, d_ff 128, vocab 256,
     float32; an MoE at most 8 routed experts (2 shared, top-2) of 64,
     unpadded, with ``capacity_factor = 8.0`` (``n_routed``: provably
     drop-free, so prefill and decode match the full forward); MLA at
-    rank 32 with heads of 16 + 8 (value 16). A counter: the first three
-    stages at half width (floor 8), 64-px input; the ground tier stays
-    wider than the space tier."""
+    rank 32 with heads of 16 + 8 (value 16). A vision model: 32-px input,
+    10 classes, float32; ViT 2 layers of d_model 32 (2 heads, d_ff 64) on
+    8-px patches, ConvNeXt one block a stage at dims 8-16-24-32, ResNet
+    one bottleneck a stage at width 8. A counter: the first three stages
+    at half width (floor 8), 64-px input; the ground tier stays wider
+    than the space tier."""
     if isinstance(cfg, LMConfig):
         moe, mla = cfg.moe, cfg.mla
         if moe is not None:
@@ -164,6 +274,13 @@ def reduced(cfg):
             cfg, name=cfg.name + "-smoke", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16,
             d_ff=128, vocab_size=256, moe=moe, mla=mla, param_dtype="float32")
+    if isinstance(cfg, VisionConfig):
+        small = dict(name=cfg.name + "-smoke", img_res=32, n_classes=10, param_dtype="float32")
+        if cfg.kind == "vit":
+            return replace(cfg, patch=8, n_layers=2, d_model=32, n_heads=2, d_ff=64, **small)
+        if cfg.kind == "convnext":
+            return replace(cfg, depths=(1, 1, 1, 1), dims=(8, 16, 24, 32), **small)
+        return replace(cfg, depths=(1, 1, 1, 1), width=8, **small)
     if not isinstance(cfg, DetectorConfig):
         raise TypeError(type(cfg))
     w = tuple(max(8, x // 2) for x in cfg.widths[:3])

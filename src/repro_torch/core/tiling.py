@@ -56,16 +56,17 @@ def _weight_mat(in_size: int, out_size: int, device: str) -> torch.Tensor:
     return torch.where(inside[None, :], w, 0).to(device)
 
 
-def resize_tiles(tiles: torch.Tensor, out_size: int) -> torch.Tensor:
-    """(N, H, W, C) -> (N, out_size, out_size, C) float32, bilinear with
-    antialiasing, contiguous."""
+def resize_tiles(tiles: torch.Tensor, out_size) -> torch.Tensor:
+    """(N, H, W, C) -> (N, out_h, out_w, C) float32, bilinear with
+    antialiasing, contiguous; ``out_size`` is out_h = out_w or a pair."""
     _, h, w, _ = tiles.shape
+    out_h, out_w = (out_size, out_size) if isinstance(out_size, int) else out_size
     x = tiles.to(torch.float32)
     dev = str(x.device)
-    if h != out_size:
-        x = torch.einsum("nhwc,hp->npwc", x, _weight_mat(h, out_size, dev))
-    if w != out_size:
-        x = torch.einsum("npwc,wq->npqc", x, _weight_mat(w, out_size, dev))
+    if h != out_h:
+        x = torch.einsum("nhwc,hp->npwc", x, _weight_mat(h, out_h, dev))
+    if w != out_w:
+        x = torch.einsum("npwc,wq->npqc", x, _weight_mat(w, out_w, dev))
     return x.contiguous()
 
 

@@ -8,7 +8,13 @@ prefill shapes. One source, ``csrc/flash_attention.cu``, holds two
 routes, and :func:`choose_route` is the rule between them:
 
 - ``"tensor_core"`` (``flash_attention_bf16_sm90``): bf16 with D 64,
-  128 or 192. 128 query rows a block, TMA loads of K and V tiles, both
+  128 or 192, the kernel's native head dims (``TENSOR_CORE_D``), and
+  with a head dim of ``PADDED_D`` (D 80, ViT-H/14's heads): the wrapper
+  zero-pads q, k and v to the next native width (128), passes the true
+  D's ``sm_scale = 1/sqrt(80)``, and returns the first 80 columns (a
+  view). Zero columns add nothing to q . k, and v's zero columns give
+  zero outputs, so the result is the D 80 attention. 128 query rows a
+  block, TMA loads of K and V tiles, both
   products on wgmma with float32 accumulation, p fed to the second
   product as two bf16 halves (hi + lo), so the result is the float32
   algorithm's. D 192 is deepseek-v2-lite's MLA prefill (q/k heads of
@@ -16,9 +22,9 @@ routes, and :func:`choose_route` is the rule between them:
   warpgroup that hands its registers to the consumers (``setmaxnreg``),
   since the 96-float accumulator does not fit the D 128 layout.
 - ``"cuda_core"`` (``flash_attention_f32``, ``flash_attention_bf16``):
-  float32, and bf16 of any other head dim (96, 256, ...). 64 query rows
-  a block, float32 FMAs on the CUDA cores (TF32 would break float32's
-  contract).
+  float32, and bf16 of any other head dim (96, 100, 256, ...). 64
+  query rows a block, float32 FMAs on the CUDA cores (TF32 would break
+  float32's contract).
 
 Both skip key tiles past a causal block's diagonal, take any Sq, Skv
 (the ragged tail is masked), and read the kv head in place. The CUDA-core
@@ -44,6 +50,8 @@ from repro_torch.kernels._build import I, P, CudaKernel
 
 TENSOR_CORE, CUDA_CORE = "tensor_core", "cuda_core"
 TENSOR_CORE_D = (64, 128, 192)
+# head dims the tensor-core route takes zero-padded to a native one
+PADDED_D = {80: 128}
 SYMBOLS = {(TENSOR_CORE, torch.bfloat16): "flash_attention_bf16_sm90",
            (CUDA_CORE, torch.float32): "flash_attention_f32",
            (CUDA_CORE, torch.bfloat16): "flash_attention_bf16"}
@@ -55,8 +63,9 @@ MAX_GRID_YZ = 65535
 
 def choose_route(dtype: torch.dtype, head_dim: int) -> str:
     """The route of a CUDA call: ``"tensor_core"`` for bf16 with D 64,
-    128 or 192, ``"cuda_core"`` for everything else."""
-    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_D:
+    128 or 192, or D 80 (padded to 128), ``"cuda_core"`` for everything
+    else."""
+    if dtype == torch.bfloat16 and (head_dim in TENSOR_CORE_D or head_dim in PADDED_D):
         return TENSOR_CORE
     return CUDA_CORE
 
@@ -85,8 +94,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         raise ValueError("flash_attention takes contiguous tensors")
     route = choose_route(q.dtype, d) if route is None else route
     symbol = SYMBOLS.get((route, q.dtype))
-    if symbol is None or (route == TENSOR_CORE and d not in TENSOR_CORE_D):
+    if symbol is None or (route == TENSOR_CORE and d not in TENSOR_CORE_D
+                          and d not in PADDED_D):
         raise ValueError(f"flash_attention: no {route!r} kernel for {q.dtype} with D {d}")
+    dk = PADDED_D.get(d, d) if route == TENSOR_CORE else d
+    if dk != d:   # new contiguous, aligned tensors, zero past column d
+        q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
     if route == TENSOR_CORE and any(t.data_ptr() % 16 for t in (q, k, v)):
         raise ValueError("flash_attention's tensor-core route reads 16-byte aligned data "
                          "(its TMA maps)")
@@ -94,6 +107,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if out.numel():
         stream = torch.cuda.current_stream(q.device).cuda_stream
         KERNEL.launch(symbol, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, sq, skv, hq, hkv, d, int(causal),
+                      out.data_ptr(), b, sq, skv, hq, hkv, dk, int(causal),
                       1.0 / math.sqrt(d), stream)
-    return out
+    return out[..., :d] if dk != d else out

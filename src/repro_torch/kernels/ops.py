@@ -21,7 +21,8 @@ have more than one entry in their one source:
   image; the detector's is 128.
 - ``flash_attention`` (``csrc/flash_attention.cu``): bf16 with D 64, 128
   or 192 on the tensor cores (``flash_attention_bf16_sm90``; D 192 is
-  deepseek-v2-lite's MLA prefill), float32 and bf16 of other head dims
+  deepseek-v2-lite's MLA prefill), and D 80 (ViT-H/14) zero-padded to
+  128 there; float32 and bf16 of other head dims
   on the CUDA cores (the rule is
   :func:`repro_torch.kernels.flash_attention.choose_route`).
 - ``int8_matmul`` (``csrc/int8_matmul.cu``): the s8 tensor cores where

@@ -1,12 +1,14 @@
 """Neural-net primitives of the port: initializers, convolution (NHWC/
-HWIO at the boundary), RMSNorm, RoPE and SwiGLU.
+HWIO at the boundary), RMSNorm, LayerNorm, GroupNorm, BatchNorm, RoPE,
+SwiGLU, the GELU MLP and the sinusoidal embedding.
 
 Counterpart of ``repro/models/layers.py``. Tensors keep JAX's layout at
 the public functions: activations NHWC and weights HWIO for the
 convolutions, dense weights (d_in, d_out) used as ``x @ w``. Inside, a
 contiguous NHWC tensor permuted to NCHW is a channels-last view, which
-cuDNN takes without a copy. Norm and RoPE compute in float32 and cast
-back to the input's dtype, as the reference.
+cuDNN takes without a copy. The norms and RoPE compute in float32 and
+cast back to the input's dtype, as the reference; the activations round
+op by op in the input's dtype, as XLA expands them.
 """
 from __future__ import annotations
 
@@ -35,9 +37,10 @@ def dense_init(gen: torch.Generator, d_in: int, d_out: int, dtype=torch.float32,
 
 
 def conv_init(gen: torch.Generator, kh: int, kw: int, c_in: int, c_out: int,
-              dtype=torch.float32) -> torch.Tensor:
-    """HWIO conv weights with fan-in scaling, as the reference's."""
-    return truncated_normal(gen, (kh, kw, c_in, c_out),
+              dtype=torch.float32, lead=()) -> torch.Tensor:
+    """(*lead, kh, kw, c_in, c_out) HWIO conv weights with fan-in scaling,
+    as the reference's; ``lead`` stacks layers on a leading axis."""
+    return truncated_normal(gen, (*lead, kh, kw, c_in, c_out),
                             1.0 / math.sqrt(kh * kw * c_in), dtype)
 
 
@@ -48,31 +51,96 @@ def _same_pads(size: int, k: int, stride: int):
     return total // 2, total - total // 2
 
 
-def conv2d_nchw(x: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1):
-    """SAME convolution of an NCHW tensor with OIHW weights, no bias."""
+def conv2d_nchw(x: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1,
+                padding: str = "SAME", groups: int = 1):
+    """Convolution of an NCHW tensor with OIHW weights, no bias, with
+    XLA's ``padding`` ("SAME" or "VALID") and ``feature_group_count``
+    (``groups``: w is (C_out, C_in / groups, kh, kw))."""
+    if padding == "VALID":
+        return F.conv2d(x, w_oihw, stride=stride, groups=groups)
+    if padding != "SAME":
+        raise ValueError(f"padding {padding!r}: SAME or VALID")
     kh, kw = w_oihw.shape[2], w_oihw.shape[3]
     ph = _same_pads(x.shape[2], kh, stride)
     pw = _same_pads(x.shape[3], kw, stride)
     if ph[0] == ph[1] and pw[0] == pw[1]:
-        return F.conv2d(x, w_oihw, stride=stride, padding=(ph[0], pw[0]))
+        return F.conv2d(x, w_oihw, stride=stride, padding=(ph[0], pw[0]), groups=groups)
     return F.conv2d(F.pad(x, (pw[0], pw[1], ph[0], ph[1])), w_oihw,
-                    stride=stride)
+                    stride=stride, groups=groups)
 
 
 def hwio_to_oihw(w: torch.Tensor) -> torch.Tensor:
     return w.permute(3, 2, 0, 1).contiguous()
 
 
-def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1) -> torch.Tensor:
-    """NHWC input, HWIO weights, ``padding="SAME"`` -> NHWC output."""
-    y = conv2d_nchw(x.permute(0, 3, 1, 2), hwio_to_oihw(w), stride)
+def conv2d(x: torch.Tensor, w: torch.Tensor, stride: int = 1, padding: str = "SAME",
+           groups: int = 1) -> torch.Tensor:
+    """NHWC input, HWIO weights -> NHWC output: the reference's
+    ``conv2d(x, w, stride, padding, groups)``. A depthwise conv's
+    (kh, kw, 1, C) weights with ``groups=C`` become (C, 1, kh, kw)."""
+    y = conv2d_nchw(x.permute(0, 3, 1, 2), hwio_to_oihw(w), stride, padding, groups)
     return y.permute(0, 2, 3, 1)
+
+
+def max_pool_same(x: torch.Tensor, k: int, stride: int) -> torch.Tensor:
+    """NHWC max over k x k windows, XLA's ``reduce_window(-inf, max, ...,
+    "SAME")``: the odd padded pixel at the end, padded with -inf (a
+    symmetric ``F.max_pool2d`` padding differs where the pads differ)."""
+    ph = _same_pads(x.shape[1], k, stride)
+    pw = _same_pads(x.shape[2], k, stride)
+    xn = F.pad(x.permute(0, 3, 1, 2), (pw[0], pw[1], ph[0], ph[1]), value=float("-inf"))
+    return F.max_pool2d(xn, k, stride).permute(0, 2, 3, 1)
 
 
 def rmsnorm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     xf = x.float()
     xf = xf * torch.rsqrt(torch.mean(xf * xf, dim=-1, keepdim=True) + eps)
     return (xf * scale.float()).to(x.dtype)
+
+
+def layernorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (population variance),
+    cast back to x's dtype."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(torch.square(xf - mu), dim=-1, keepdim=True)
+    y = (xf - mu) * torch.rsqrt(var + eps)
+    return (y * scale.float() + bias.float()).to(x.dtype)
+
+
+def groupnorm(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor, groups: int = 32,
+              eps: float = 1e-5) -> torch.Tensor:
+    """GroupNorm over the channel (last) axis of an NHWC tensor; the group
+    count shrinks from ``min(groups, C)`` until it divides C."""
+    b, h, w, c = x.shape
+    g = min(groups, c)
+    while c % g:
+        g -= 1
+    xf = x.float().reshape(b, h, w, g, c // g)
+    mu = torch.mean(xf, dim=(1, 2, 4), keepdim=True)
+    var = torch.var(xf, dim=(1, 2, 4), keepdim=True, correction=0)
+    xf = ((xf - mu) * torch.rsqrt(var + eps)).reshape(b, h, w, c)
+    return (xf * scale.float() + bias.float()).to(x.dtype)
+
+
+def batchnorm_train(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                    eps: float = 1e-5):
+    """BatchNorm of an NHWC tensor on its batch statistics -> (y, batch
+    mean, batch population variance), the statistics float32; the caller
+    keeps the running ones."""
+    xf = x.float()
+    mu = torch.mean(xf, dim=(0, 1, 2))
+    var = torch.var(xf, dim=(0, 1, 2), correction=0)
+    y = (xf - mu) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return y.to(x.dtype), mu, var
+
+
+def batchnorm_eval(x: torch.Tensor, scale: torch.Tensor, bias: torch.Tensor,
+                   mean: torch.Tensor, var: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
+    """BatchNorm of an NHWC tensor on running statistics."""
+    y = (x.float() - mean) * torch.rsqrt(var + eps) * scale.float() + bias.float()
+    return y.to(x.dtype)
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -108,3 +176,29 @@ def silu(x: torch.Tensor) -> torch.Tensor:
     bf16 this rounds four times where ``F.silu`` rounds once, and the two
     differ in the last bit of about 40% of values."""
     return x * torch.reciprocal(1.0 + torch.exp(-x))
+
+
+def gelu(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.gelu``'s default, the tanh form: x * 0.5 * (1 + tanh(
+    sqrt(2 / pi) * (x + 0.044715 * x**3))), the constants rounded to x's
+    dtype and every op rounding to it, as XLA expands it (``F.gelu`` takes
+    the erf form)."""
+    c = torch.tensor(math.sqrt(2 / math.pi), dtype=x.dtype).item()
+    a = torch.tensor(0.044715, dtype=x.dtype).item()
+    return x * (0.5 * (1.0 + torch.tanh(c * (x + a * (x * x * x)))))
+
+
+def gelu_mlp(x: torch.Tensor, w_in: torch.Tensor, b_in: torch.Tensor, w_out: torch.Tensor,
+             b_out: torch.Tensor) -> torch.Tensor:
+    """gelu(x @ w_in + b_in) @ w_out + b_out."""
+    return gelu(x @ w_in + b_in) @ w_out + b_out
+
+
+def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """t (B,) -> (B, dim) float32 [cos, sin] of t times the frequencies
+    exp(-log(max_period) * i / (dim // 2))."""
+    half = dim // 2
+    i = torch.arange(half, dtype=torch.float32, device=t.device)
+    freqs = torch.exp(torch.tensor(-math.log(max_period), dtype=torch.float32) * i / half)
+    args = t.float()[:, None] * freqs[None]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)

@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import math
 
-import numpy as np
 import torch
 
 from repro_torch.configs.base import LMConfig
@@ -37,6 +36,7 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.tree import from_numpy  # noqa: F401  (the weight bridge)
 
 
 def _dt(cfg: LMConfig) -> torch.dtype:
@@ -113,26 +113,6 @@ def init(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
     if not cfg.tie_embeddings:
         params["lm_head"] = L.dense_init(gen, d, cfg.vocab_size, dt, 0.02)
     return params
-
-
-def _leaf(a, device) -> torch.Tensor:
-    if isinstance(a, torch.Tensor):
-        return a.to(device)
-    a = np.asarray(a)
-    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through float32
-        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
-    return torch.from_numpy(np.array(a)).to(device)
-
-
-def from_numpy(tree, device="cuda") -> dict:
-    """The reference's ``lm.init`` pytree (nested dicts of arrays, layer
-    axis kept), or the port's own parameters, -> the port's parameters on
-    ``device``, each leaf in its own dtype: the float32 router of a bf16
-    MoE stays float32. bf16 arrays come out of JAX as
-    ``ml_dtypes.bfloat16``, which ``torch.from_numpy`` refuses: they go
-    through float32, which holds every bf16 value exactly."""
-    device = resolve_device(device)
-    return _map(lambda a: _leaf(a, device), tree)
 
 
 def _cache_shapes(cfg: LMConfig, n: int, batch: int, max_len: int) -> dict:

@@ -6,8 +6,15 @@ named tuple's fields in order. A leaf's path joins the keys, the item
 indices and the fields (as ``.name``) with ``/``. The port's optimizer
 sums leaves in that order and its checkpoints name them by those paths,
 so a checkpoint written by either package reads in the other.
+:func:`from_numpy` is the models' weight bridge: the reference's
+parameter trees become the port's.
 """
 from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.device import resolve_device
 
 
 def _children(tree):
@@ -62,3 +69,25 @@ def unflatten(template, values):
 def map_leaves(fn, tree):
     """``jax.tree_util.tree_map`` of one tree: ``fn`` of each leaf."""
     return unflatten(tree, [fn(x) for x in leaves(tree)])
+
+
+def _tensor(a, device) -> torch.Tensor:
+    if isinstance(a, torch.Tensor):
+        return a.to(device)
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":  # ml_dtypes' bfloat16: exact through float32
+        return torch.from_numpy(a.astype(np.float32)).to(device, torch.bfloat16)
+    return torch.from_numpy(np.array(a)).to(device)
+
+
+def from_numpy(tree, device="cuda"):
+    """A reference model's ``init`` tree (nested dicts, lists and tuples
+    of arrays, layer axes kept), or the port's own parameters, -> the
+    same tree of tensors on ``device`` ("cuda", the default, raises
+    without a card), each leaf in its own dtype: a bf16 model's float32
+    leaves (an MoE router, BatchNorm statistics) stay float32. bf16
+    arrays come out of JAX as ``ml_dtypes.bfloat16``, which
+    ``torch.from_numpy`` refuses: they go through float32, which holds
+    every bf16 value exactly."""
+    device = resolve_device(device)
+    return map_leaves(lambda a: _tensor(a, device), tree)

@@ -9,7 +9,10 @@ product, online softmax over key tiles, p fed to the second product as
 two bf16 halves) held against the reference's Pallas kernel (interpret
 mode) and its oracle on float32-upcast inputs, within the tolerance
 ``chip_smoke.py`` applies on the card (rtol 2^-7, atol 1e-5), at D 64,
-128 and 192, and on an MLA-shaped input (deepseek-v2-lite's prefill:
+128 and 192, at D 80 as the wrapper sends it (ViT-H/14's heads: q, k, v
+zero-padded to 128, ``sm_scale = 1/sqrt(80)``, the padded output
+columns exactly 0 and cut), at ViT's ragged non-causal lengths (197 and
+257 tokens), and on an MLA-shaped input (deepseek-v2-lite's prefill:
 q/k heads of 128 + 64, v zero-padded to 192, whose padded columns come
 out exactly 0). The same emulation with one bf16 p misses that
 tolerance: the reason for the split. Inputs are made from a seed with
@@ -21,6 +24,7 @@ from types import SimpleNamespace
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from repro.kernels import ref as jref
 from repro.kernels.flash_attention import flash_attention as pallas_flash
@@ -40,7 +44,7 @@ LOG2E = 1.4426950408889634
 
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 128, "tensor_core"),
-    (torch.bfloat16, 192, "tensor_core"),
+    (torch.bfloat16, 192, "tensor_core"), (torch.bfloat16, 80, "tensor_core"),
     (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 96, "cuda_core"),
     (torch.bfloat16, 100, "cuda_core"), (torch.bfloat16, 256, "cuda_core"),
     (torch.float32, 64, "cuda_core"), (torch.float32, 128, "cuda_core"),
@@ -49,6 +53,14 @@ LOG2E = 1.4426950408889634
 def test_choose_route(dtype, d, route):
     assert flash.choose_route(dtype, d) == route
     assert flash.SYMBOLS[route, dtype] in flash.KERNEL.symbols
+
+
+def test_d80_is_padded_to_a_native_head_dim():
+    """The kernel has instantiations at ``TENSOR_CORE_D`` only (phase 1
+    of chip_smoke.py checks each); D 80 reaches it zero-padded to 128."""
+    assert flash.TENSOR_CORE_D == (64, 128, 192)
+    assert flash.PADDED_D == {80: 128}
+    assert all(dp in flash.TENSOR_CORE_D and dp > d for d, dp in flash.PADDED_D.items())
 
 
 def test_every_route_has_one_entry_in_one_library():
@@ -81,10 +93,11 @@ def test_launches_are_counted_per_entry():
 # the tensor-core kernel's arithmetic, emulated
 # ---------------------------------------------------------------------------
 
-def emulate(q, k, v, *, causal, split=True, bk=64):
+def emulate(q, k, v, *, causal, split=True, bk=64, sm_scale=None):
     """The tensor-core kernel's arithmetic on bf16 q (B, Sq, Hq, D) and
     k, v (B, Skv, Hkv, D) -> bf16 (B, Sq, Hq, D): s = q . k in float32
-    (products of bf16 are exact), times sm_scale * log2(e) after the
+    (products of bf16 are exact), times sm_scale (1/sqrt(D) unless
+    given) * log2(e) after the
     product; masked s = -1e30; over key tiles of ``bk``, the running max
     m and sum l with alpha = exp2(m_prev - m_new); p as bf16(p) plus
     bf16(p - bf16(p)) (or one bf16 p without ``split``); acc / max(l,
@@ -95,7 +108,8 @@ def emulate(q, k, v, *, causal, split=True, bk=64):
     qf = q.float().transpose(1, 2)
     kf = k.float().transpose(1, 2).repeat_interleave(rep, dim=1)
     vf = v.float().transpose(1, 2).repeat_interleave(rep, dim=1)
-    c = torch.tensor(1 / math.sqrt(d), dtype=torch.float32) * torch.tensor(LOG2E)
+    sm_scale = 1 / math.sqrt(d) if sm_scale is None else sm_scale
+    c = torch.tensor(sm_scale, dtype=torch.float32) * torch.tensor(LOG2E)
     m = torch.full((b, hq, sq), -1e30)
     l = torch.zeros((b, hq, sq))
     acc = torch.zeros((b, hq, sq, d))
@@ -118,6 +132,20 @@ def emulate(q, k, v, *, causal, split=True, bk=64):
     return (acc / l.clamp(min=1e-30)[..., None]).bfloat16().transpose(1, 2)
 
 
+def emulate_route(q, k, v, *, causal, split=True, bk=64, scale_d=None):
+    """The wrapper and the kernel on the tensor-core route: a head dim of
+    ``PADDED_D`` zero-padded to its native width, ``sm_scale`` of the
+    true D (of ``scale_d`` if given), the padded output columns (exactly
+    0, checked) cut."""
+    d = q.shape[-1]
+    dk = flash.PADDED_D.get(d, d)
+    padded = [F.pad(t, (0, dk - d)) for t in (q, k, v)]
+    out = emulate(*padded, causal=causal, split=split, bk=bk,
+                  sm_scale=1 / math.sqrt(scale_d or d))
+    assert out.shape[-1] == dk and bool((out[..., d:] == 0).all())
+    return out[..., :d]
+
+
 def _qkv(seed, b, sq, skv, hq, hkv, d):
     rng = np.random.default_rng(seed)
     q = rng.standard_normal((b, sq, hq, d), dtype=np.float32)
@@ -127,12 +155,17 @@ def _qkv(seed, b, sq, skv, hq, hkv, d):
 
 
 # (b, sq, skv, hq, hkv, d, causal): the prefill's GQA and head dim,
-# ragged lengths, D 64, Hq = Hkv, Sq < Skv; then D 192 (MLA's q/k heads)
+# ragged lengths, D 64, Hq = Hkv, Sq < Skv; then D 192 (MLA's q/k heads);
+# then ViT's non-causal attention, ViT-L/16's 197 tokens at D 64 and
+# ViT-H/14's 257 at D 80 (zero-padded to 128), and D 80 at lengths the
+# Pallas kernel takes
 SHAPES = [(1, 256, 256, 4, 2, 128, True), (1, 200, 200, 4, 2, 128, True),
           (2, 256, 256, 4, 2, 64, False), (1, 256, 256, 4, 4, 128, True),
           (1, 128, 384, 4, 2, 128, False),
           (1, 256, 256, 4, 4, 192, True), (1, 200, 200, 4, 2, 192, True),
-          (1, 128, 384, 4, 2, 192, False)]
+          (1, 128, 384, 4, 2, 192, False),
+          (1, 197, 197, 4, 4, 64, False), (2, 257, 257, 4, 4, 80, False),
+          (1, 256, 256, 4, 4, 80, False), (1, 128, 384, 4, 2, 80, True)]
 
 
 def _upcast(t):
@@ -147,7 +180,7 @@ def test_emulated_kernel_matches_reference_on_upcast_inputs(shape, bk):
     mode where the lengths are multiples of its 128-row blocks."""
     *dims, causal = shape
     q, k, v = _qkv(sum(dims), *dims)
-    got = emulate(q, k, v, causal=causal, bk=bk).float().numpy()
+    got = emulate_route(q, k, v, causal=causal, bk=bk).float().numpy()
     up = [_upcast(t) for t in (q, k, v)]
     np.testing.assert_allclose(got, np.asarray(jref.attention(*up, causal=causal)),
                                rtol=RTOL, atol=ATOL)
@@ -165,10 +198,10 @@ def test_one_bf16_p_misses_the_tolerance(shape):
     *dims, causal = shape
     q, k, v = _qkv(sum(dims), *dims)
     want = np.asarray(jref.attention(*[_upcast(t) for t in (q, k, v)], causal=causal))
-    one = emulate(q, k, v, causal=causal, split=False).float().numpy()
+    one = emulate_route(q, k, v, causal=causal, split=False).float().numpy()
     outside = np.abs(one - want) > ATOL + RTOL * np.abs(want)
     assert outside.mean() > 0.05, outside.mean()
-    two = emulate(q, k, v, causal=causal).float().numpy()
+    two = emulate_route(q, k, v, causal=causal).float().numpy()
     assert not (np.abs(two - want) > ATOL + RTOL * np.abs(want)).any()
 
 
@@ -195,3 +228,17 @@ def test_emulated_kernel_on_mla_prefill_keeps_padded_columns_zero():
     assert got.shape == want.shape == (b, s, h, nope + rope)
     assert (got[..., vd:] == 0).all() and (want[..., vd:] == 0).all()
     np.testing.assert_allclose(got[..., :vd], want[..., :vd], rtol=RTOL, atol=ATOL)
+
+
+def test_padded_d80_needs_the_true_head_dims_scale():
+    """ViT-H/14's attention (257 tokens, heads of 80, non-causal) padded
+    to 128: with ``sm_scale = 1/sqrt(80)`` within the tolerance of the
+    reference on float32-upcast inputs; with the padded width's
+    1/sqrt(128) (what the kernel would take from the tensor it is given)
+    far outside it."""
+    q, k, v = _qkv(80, 1, 257, 257, 4, 4, 80)
+    want = np.asarray(jref.attention(*[_upcast(t) for t in (q, k, v)]))
+    np.testing.assert_allclose(emulate_route(q, k, v, causal=False).float().numpy(), want,
+                               rtol=RTOL, atol=ATOL)
+    wrong = emulate_route(q, k, v, causal=False, scale_d=128).float().numpy()
+    assert (np.abs(wrong - want) > ATOL + RTOL * np.abs(want)).mean() > 0.5

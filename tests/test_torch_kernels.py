@@ -333,7 +333,9 @@ for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
           "repro_torch.core._legacy", "repro_torch.analysis.engine",
           "repro_torch.analysis.rules_sync", "repro_torch.analysis.rules_threads",
           "repro_torch.analysis.rules_determinism", "repro_torch.analysis.launchguard",
-          "repro_torch.analysis.__main__"):
+          "repro_torch.analysis.__main__", "repro_torch.models.vit",
+          "repro_torch.models.convnext", "repro_torch.models.resnet",
+          "repro_torch.configs.vit_h14", "repro_torch.configs.ssd_mobilenetv2"):
     assert m in mods, m
 import torch
 assert not torch.cuda.is_available()
@@ -345,11 +347,12 @@ from repro_torch.core.metrics import ap50
 from repro_torch.core.mission import Mission
 from repro_torch.core.pipeline import PipelineConfig, run_pipeline
 from repro_torch.data.scenarios import FleetScenarioSpec, generate_scenario
-from repro_torch.models import detector, lm
+from repro_torch.models import convnext, detector, lm, resnet, vit
 from repro_torch.orbits import default_sites, propagate, sun_direction, walker_delta
 from repro_torch.data.scenarios import GroundStation
 cfg = reduced(get_config("targetfuse-space"))
 lm_cfg = reduced(get_config("qwen3-8b"))
+vit_cfg = reduced(get_config("vit-h14"))
 p = detector.init(torch.Generator().manual_seed(0), cfg, device="cpu")
 sc = generate_scenario(FleetScenarioSpec(n_sats=2, n_rounds=1, frames_per_pass=1))
 for call in (lambda: Mission((p, cfg), (p, cfg)),
@@ -363,6 +366,12 @@ for call in (lambda: Mission((p, cfg), (p, cfg)),
              lambda: detector.init(torch.Generator().manual_seed(0), cfg),
              lambda: lm.init(torch.Generator().manual_seed(0), lm_cfg),
              lambda: lm.init_cache(lm_cfg, 1, 8),
+             lambda: vit.init(torch.Generator().manual_seed(0), vit_cfg),
+             lambda: vit.from_numpy({"w": [torch.zeros(2)]}),
+             lambda: convnext.init(torch.Generator().manual_seed(0),
+                                   reduced(get_config("convnext-b"))),
+             lambda: resnet.init(torch.Generator().manual_seed(0),
+                                 reduced(get_config("resnet-152"))),
              lambda: propagate(walker_delta(4, 2, 53.0, 550.0), [0.0, 60.0]),
              lambda: sun_direction([0.0]),
              lambda: generate_scenario(FleetScenarioSpec(
