@@ -21,7 +21,10 @@ nothing of JAX or of the reference package ``repro``. Phases:
    projection's int8 product run on both routes, deepseek's shape timed
    beside ``scaled_dot_product_attention``; ViT-L/16's (197 tokens, D
    64) and ViT-H/14's (257 tokens, D 80, zero-padded to 128) attention at
-   batch 128, the latter on both routes; the dedup's
+   batch 128, the latter on both routes; the diffusion models' D 64
+   attention (the UNet's cross-attention of 4096 queries to 77 keys and
+   its self-attention at 4096 tokens, the mid block's 64 tokens, DiT-S/2
+   at 4096 tokens, a ragged 200 x 77 case); the dedup's
    k-means++ seeding gives the plain version's centroids and picks, and
    ``kmeans_assign_f32`` its assignments and distances bit for bit;
    ``tile_moments`` runs at C 1, 3, 5 and 64, ragged and misaligned
@@ -156,6 +159,23 @@ nothing of JAX or of the reference package ``repro``. Phases:
    each model at full width in float32 on 2 images, card against CPU
    (ResNet also ``train=True`` with its updated running statistics),
    within VISION_F32_RTOL.
+14. diffusion serving: DiT-S/2 and the SD-1.5 UNet at full width
+   (seeded random bf16 weights drawn on the card, DiT's adaLN-Zero leaves
+   drawn nonzero) (a) on ``gen_fast`` uncut (16 latents of 512 px, 4 DDIM
+   steps; class ids, or a seeded (16, 77, 768) text context): ms a step
+   (CUDA events), ms a sample and images/s, the share of the bf16 FLOP
+   bound (``diffusion_gflop``), peak memory, ``flash_attention`` launches
+   by entry (12 a DiT forward, 32 a UNet forward: 16 self, 16 cross; all
+   on the tensor-core entry; checked), a second sample from the same
+   noise bit-equal and ``LaunchGuard`` over a steady step (0 builds, 0
+   new segments; checked), torch.profiler's view of one UNet step; (b)
+   ``gen_1024``: DiT-S/2's 50 steps, the UNet's first GEN1024_UNET_STEPS
+   of its 50-step table (16384 tokens at level 0); (c) DiT's layer 0
+   self-attention and the UNet's first self- and cross-attention (4096
+   queries against 77 keys) on the model's own q, k and v against the
+   plain version on float32 upcasts (rtol 2^-7, atol 1e-5); (d) each
+   model in float32 on 2 latents of 256 px, one DDIM step, card against
+   CPU within DIFFUSION_F32_RTOL.
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
@@ -163,7 +183,8 @@ first phase 2 case and its launches on the main paths: the Mission's
 runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
 phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
 monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
-forwards of phase 13 and ``int8_matmul``'s one path),
+forwards of phase 13, the diffusion samples of phase 14a-b and
+``int8_matmul``'s one path),
 then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
@@ -245,6 +266,18 @@ VISION_F32_RTOL = 1e-4
 # this factor of the CPU's own change under such a perturbation, made in
 # the same run
 VISION_TRAIN_SENS = 4.0
+# phase 14: DiT-S/2 and the SD-1.5 UNet at DIFFUSION_SHAPES' gen_fast (16
+# latents of 512 px, 4 DDIM steps) and gen_1024 (4 of 1024 px, 50 steps;
+# the UNet runs the 50-step table's first GEN1024_UNET_STEPS: a whole
+# sample is 50 of its ~127 ms steps on the H100)
+DIFFUSION_ARCHS = ("dit-s2", "unet-sd15")
+GEN1024_UNET_STEPS = 4
+# phase 14d: full width in float32 on 2 latents of 256 px, one DDIM step,
+# card against CPU: the relative norm of eps and of the step's output.
+# Float32 sums in another order through 12 layers or 25 res and 16
+# transformer blocks (TF32 off), as phase 13's 1e-4 (measured 1.2e-6 and
+# 5.1e-6 on the H100)
+DIFFUSION_F32_RTOL = 1e-4
 
 
 # phase 2's tile_moments cases, (shape, data); the first is the main
@@ -567,9 +600,15 @@ def kernel_cases(dev):
     # tokens, heads of 64; 257 tokens, heads of 80 (zero-padded to 128 by
     # the wrapper on the tensor-core route)
     vit_l, vit_h = (128, 197, 197, 16, 16, 64), (128, 257, 257, 16, 16, 80)
+    # the diffusion models' attention (phase 14), all D 64 non-causal: the
+    # UNet's gen_fast cross-attention (4096 queries, 77 keys: a partial
+    # last key tile) and level 0 self-attention, its mid block (64 tokens,
+    # half a query tile), DiT-S/2 at gen_1024, and a ragged cross case
+    diffusion = [(16, 4096, 77, 5, 5, 64), (16, 4096, 4096, 5, 5, 64),
+                 (16, 64, 64, 20, 20, 64), (4, 4096, 4096, 6, 6, 64), (2, 200, 77, 4, 4, 64)]
     attn = [(main, bf16, True, tc), (mla, bf16, True, tc), (mla, bf16, True, cc),
             (main, bf16, True, cc), (vit_l, bf16, False, tc), (vit_h, bf16, False, tc),
-            (vit_h, bf16, False, cc),
+            (vit_h, bf16, False, cc)] + [(shape, bf16, False, tc) for shape in diffusion] + [
             ((1, 200, 200, 4, 2, 128), bf16, True, tc),
             ((2, 256, 256, 4, 2, 64), bf16, False, tc),
             ((1, 384, 384, 8, 8, 128), bf16, True, tc),
@@ -2154,32 +2193,39 @@ def vision_forward(mod, cfg, params, images, train=False):
     return mod.forward(params, cfg, images), None
 
 
-def vit_layer0_attention(dev, flash, params, cfg, images):
-    """Layer 0's attention on the model's own q, k and v (``vit.embed``,
-    ``vit.attention_inputs``) through ``ops.attention``: one launch, on
-    the tensor-core entry; the output against ``ref.attention`` on the
-    inputs upcast to float32 within FLASH_BF16_RTOL / FLASH_BF16_ATOL."""
+def attention_vs_upcast(label, flash, q, k, v):
+    """One non-causal ``ops.attention`` call on the model's own bf16 q, k
+    and v: one launch, on the tensor-core entry; the output against
+    ``ref.attention`` on the inputs upcast to float32 within
+    FLASH_BF16_RTOL / FLASH_BF16_ATOL (checked) -> the output."""
     import torch
     from repro_torch.kernels import ops, ref
-    from repro_torch.models import vit
-    layer = {k: a[0] for k, a in params["blocks"].items()}
-    q, k, v = vit.attention_inputs(layer, cfg, vit.embed(params, cfg, images))
     flash.reset()
     got = ops.attention(q, k, v, causal=False)
     torch.cuda.synchronize()
     took = {s: n for s, n in flash.symbol_launches.items() if n}
     want = ref.attention(q.float(), k.float(), v.float(), causal=False)
     diff = (got.float() - want).abs()
-    print(f"{cfg.name} layer 0 attention q{tuple(q.shape)}: against float32 upcast inputs "
+    print(f"{label} q{tuple(q.shape)} kv{tuple(k.shape)}: against float32 upcast inputs "
           f"max_abs_err {diff.max().item():.3e}, relative norm "
           f"{(diff.norm() / want.norm()).item():.3e} (rtol {FLASH_BF16_RTOL:.3e}, atol "
           f"{FLASH_BF16_ATOL:.0e}); launches {took}", flush=True)
-    check(took == {TC_SYMBOL: 1}, f"{cfg.name} layer 0: flash launches {took}")
+    check(took == {TC_SYMBOL: 1}, f"{label}: flash launches {took}")
     check(got.shape == q.shape and torch.allclose(got.float(), want, atol=FLASH_BF16_ATOL,
                                                   rtol=FLASH_BF16_RTOL),
-          f"{cfg.name} layer 0: attention off the float32 version by {diff.max().item()}")
-    del q, k, v, got, want, diff
+          f"{label}: attention off the float32 version by {diff.max().item()}")
+    del want, diff
     torch.cuda.empty_cache()
+    return got
+
+
+def vit_layer0_attention(dev, flash, params, cfg, images):
+    """Layer 0's attention on the model's own q, k and v (``vit.embed``,
+    ``vit.attention_inputs``) against the float32 version."""
+    from repro_torch.models import vit
+    layer = {k: a[0] for k, a in params["blocks"].items()}
+    q, k, v = vit.attention_inputs(layer, cfg, vit.embed(params, cfg, images))
+    attention_vs_upcast(f"{cfg.name} layer 0 attention", flash, q, k, v)
 
 
 def vision_serve(dev, flash, arch):
@@ -2345,6 +2391,333 @@ def phase_vision_serving(dev, flash):
     for arch in VISION_ARCHS:
         vision_cuda_vs_cpu(dev, arch)
     print(f"phase 13 card vs CPU: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 14: diffusion serving
+# ---------------------------------------------------------------------------
+
+def diffusion_gflop(cfg, img_res: int) -> float:
+    """Matmul, conv and attention GFLOP of one latent's forward, the
+    reference's formulas (repro/launch/steps.py ``_dit_fwd_flops``,
+    ``_unet_fwd_flops``). The UNet's is the reference's own
+    approximation: it prices the transformer blocks' projections as 8
+    c x c products a token, counts the cross-attention's k and v
+    products a block, and leaves out norms and elementwise work."""
+    lr = img_res // cfg.latent_factor
+    if cfg.kind == "dit":
+        t = (lr // cfg.patch) ** 2
+        d = cfg.d_model
+        # adaLN conditioning is per image (B, 6d), not per token
+        blk = 2.0 * t * (4 * d * d + 8 * d * d) + 4.0 * t * t * d + 2.0 * 6 * d * d
+        io = 2.0 * t * (cfg.patch ** 2 * cfg.latent_ch * d * 3)
+        return (cfg.n_layers * blk + io) / 1e9
+    ch = cfg.ch
+    chans = [ch * m for m in cfg.ch_mult]
+
+    def res_block(hw, cin, cout):
+        f = 2.0 * hw * 9 * (cin * cout + cout * cout) + 2.0 * hw * 4 * ch * cout
+        return f + (2.0 * hw * cin * cout if cin != cout else 0.0)
+
+    def attn_block(hw, c):
+        proj = 2.0 * hw * c * c * (3 + 1 + 1 + 1 + 2)
+        sa = 4.0 * hw * hw * c
+        ca = 4.0 * hw * cfg.ctx_len * c + 2.0 * cfg.ctx_len * cfg.ctx_dim * c * 2
+        return proj + sa + ca + 2.0 * hw * (8 * c * c + 4 * c * c)
+
+    total = 2.0 * lr * lr * 9 * cfg.latent_ch * ch
+    r, prev = lr, ch
+    for lvl, c in enumerate(chans):
+        for _ in range(cfg.n_res_blocks):
+            total += res_block(r * r, prev, c)
+            if lvl in cfg.attn_levels:
+                total += attn_block(r * r, c)
+            prev = c
+        if lvl + 1 < len(chans):
+            r //= 2
+            total += 2.0 * r * r * 9 * c * c
+    total += 2 * res_block(r * r, chans[-1], chans[-1]) + attn_block(r * r, chans[-1])
+    for lvl in reversed(range(len(chans))):
+        c = chans[lvl]
+        for _ in range(cfg.n_res_blocks + 1):
+            total += res_block(r * r, c + prev, c)
+            if lvl in cfg.attn_levels:
+                total += attn_block(r * r, c)
+            prev = c
+        if lvl > 0:
+            r *= 2
+            total += 2.0 * r * r * 9 * c * c
+    return (total + 2.0 * lr * lr * 9 * ch * cfg.latent_ch) / 1e9
+
+
+def diffusion_model(cfg):
+    from repro_torch.models import dit, unet
+    return dit if cfg.kind == "dit" else unet
+
+
+def diffusion_flash_per_forward(cfg) -> int:
+    """flash_attention launches a forward: one a DiT layer; a self- and a
+    cross-attention a UNet transformer block (n_res_blocks a level on the
+    way down, n_res_blocks + 1 on the way up, one in the mid block)."""
+    if cfg.kind == "dit":
+        return cfg.n_layers
+    return 2 * (len(cfg.attn_levels) * (2 * cfg.n_res_blocks + 1) + 1)
+
+
+def attention_shapes(fn) -> list:
+    """(Sq, Skv) of each ``ops.attention`` call in ``fn()``, through a
+    wrapper put in its place for the call (kept out of the timed runs)."""
+    from repro_torch.kernels import ops
+    seen, attention = [], ops.attention
+
+    def probe(q, k, v, causal=False):
+        seen.append((q.shape[1], k.shape[1]))
+        return attention(q, k, v, causal=causal)
+    ops.attention = probe
+    try:
+        fn()
+    finally:
+        ops.attention = attention
+    return seen
+
+
+def diffusion_eps(cfg, params, cond):
+    """The sampler's eps_fn(x, t) of a model and its conditioning (class
+    ids or a text context): DiT's eps without its sigma."""
+    mod = diffusion_model(cfg)
+    if cfg.kind == "dit":
+        return lambda x, t: mod.forward(params, cfg, x, t, cond)[0]
+    return lambda x, t: mod.forward(params, cfg, x, t, cond)
+
+
+def diffusion_setup(dev, cfg, b, res, seed):
+    """Seeded weights drawn on ``dev`` (DiT's adaLN-Zero leaves, which
+    ``init`` zeroes, drawn as the rest, truncated normals of 0.02: with
+    them at 0 the model's output is exactly 0 and no check would see its
+    blocks), starting noise (B, res / 8, res / 8, 4) float32 and the
+    conditioning (class ids, or a (B, 77, 768) text context) -> (params,
+    noise, conditioning)."""
+    import torch
+    from repro_torch.models import dit
+    from repro_torch.models import layers as L
+    mod = diffusion_model(cfg)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = mod.init(g, cfg, device=dev)
+    if cfg.kind == "dit":
+        block_leaves, top_leaves = dit.ADALN_ZERO
+        for tree_, keys in ((params["blocks"], block_leaves), (params, top_leaves)):
+            for k in keys:
+                tree_[k] = L.truncated_normal(g, tuple(tree_[k].shape), 0.02, tree_[k].dtype)
+    lr = res // cfg.latent_factor
+    noise = torch.randn((b, lr, lr, cfg.latent_ch), generator=g, device=dev)
+    if cfg.kind == "dit":
+        return params, noise, torch.randint(0, cfg.n_classes, (b,), generator=g, device=dev)
+    return params, noise, torch.randn((b, cfg.ctx_len, cfg.ctx_dim), generator=g, device=dev)
+
+
+def diffusion_gen(dev, flash, arch, shape_name, n_steps=None):
+    """One model at full width on a DIFFUSION_SHAPES gen cell (bf16,
+    seeded weights drawn on the card): a warm-up step, then the counted
+    sample (``n_steps`` of the cell's table, all by default; flash
+    launches by entry checked: ``diffusion_flash_per_forward`` a step,
+    all on the tensor-core entry), each step timed by CUDA events, the
+    samples finite and moved off the noise -> (launches by entry, ms of
+    each step, peak GB, params, noise, eps_fn)."""
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.models import diffusion
+    cfg = get_config(arch)
+    shape = get_shape(arch, shape_name)
+    b, res = shape.global_batch, shape.img_res
+    n = n_steps or shape.steps
+    ts = diffusion.timesteps(shape.steps)
+    params, noise, cond = diffusion_setup(dev, cfg, b, res, SEED)
+    eps_fn = diffusion_eps(cfg, params, cond)
+    diffusion.ddim_step(eps_fn, noise, ts[0], ts[1])   # warm-up: cuBLAS, cuDNN, kernel load
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n + 1)]
+    events[0].record()
+    x = noise
+    for i in range(n):
+        x = diffusion.ddim_step(eps_fn, x, ts[i], ts[i + 1])
+        events[i + 1].record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    routes = {k: v for k, v in flash.symbol_launches.items() if v}
+    want = {TC_SYMBOL: diffusion_flash_per_forward(cfg) * n}
+    check(routes == want, f"{arch} {shape_name}: flash launches by entry {routes}, not {want}")
+    check(x.shape == noise.shape and x.dtype == torch.float32 and bool(torch.isfinite(x).all())
+          and (x - noise).abs().max().item() > 0.1, f"{arch} {shape_name}: bad sample")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    mean_ms = sum(ms) / len(ms)
+    gflop = diffusion_gflop(cfg, res) * b
+    bound = 1e3 * gflop * 1e9 / BF16_FLOPS
+    cut = "" if n == shape.steps else f" (the first {n} of its {shape.steps} steps)"
+    print(f"{arch} {shape_name} (B {b}, {res} px, {(res // cfg.latent_factor) ** 2} latent "
+          f"pixels, {shape.steps} steps){cut}: {mean_ms:.4f} ms a step (steps "
+          f"{', '.join(f'{t:.4f}' for t in ms)}), {sum(ms):.4f} ms for {n} steps"
+          + (f", {1e3 * b / sum(ms):.2f} images/s" if n == shape.steps else "")
+          + f"; {gflop / 1e3:.4f} TFLOP a step, bf16 bound {bound:.4f} ms, share "
+          f"{bound / mean_ms:.3f}; peak memory {peak_gb:.2f} GB; flash_attention launches by "
+          f"entry {routes}", flush=True)
+    return routes, ms, params, noise, eps_fn
+
+
+def diffusion_serve(dev, flash, arch):
+    """Phase 14a: gen_fast uncut (16 latents of 512 px, 4 DDIM steps):
+    ``diffusion_gen``, a second sample from the same noise bit-equal,
+    ``LaunchGuard`` over a steady step after an emptied allocator cache
+    and 2 warm-up steps (checked), and for the UNet one step under
+    torch.profiler -> (flash launches by entry, params, noise, eps_fn)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.analysis import LaunchGuard
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.models import diffusion
+    cfg = get_config(arch)
+    n = get_shape(arch, "gen_fast").steps
+    routes, ms, params, noise, eps_fn = diffusion_gen(dev, flash, arch, "gen_fast")
+    weight_gb = sum(t.numel() * t.element_size() for t in tree.leaves(params)) / 1e9
+    first = diffusion.sample(eps_fn, noise, n)
+    again = diffusion.sample(eps_fn, noise, n)
+    same = bit_equal(again, first)
+    del first, again
+    ts = diffusion.timesteps(n)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for _ in range(GUARD_WARMUP):
+        diffusion.ddim_step(eps_fn, noise, ts[0], ts[1])
+    torch.cuda.synchronize()
+    with LaunchGuard(f"{arch} gen_fast DDIM step") as guard:
+        diffusion.ddim_step(eps_fn, noise, ts[0], ts[1])
+    torch.cuda.synchronize()
+    n_tree = sum(t.numel() for t in tree.leaves(params))
+    print(f"{arch}: {n_tree / 1e6:.1f} M params ({cfg.n_params / 1e6:.1f} M by the "
+          f"reference's count), {weight_gb:.3f} GB of bf16 weights; gen_fast: {sum(ms):.4f} ms a sample of {noise.shape[0]}; "
+          f"second sample bit-equal {same}", flush=True)
+    print(f"guard {guard.label}: builds {guard.builds} new segments {guard.new_segments} syncs "
+          f"{guard.syncs}; launches by entry {json.dumps(guard.launches)}", flush=True)
+    check(same, f"{arch}: a second sample from the same noise differs")
+    guard.assert_steady_state()
+    t = torch.full((noise.shape[0],), ts[0], dtype=torch.int32, device=dev)
+    calls = attention_shapes(lambda: eps_fn(noise, t))
+    n_self = sum(sq == skv for sq, skv in calls)
+    n_cross = sum(skv == cfg.ctx_len for _, skv in calls) if cfg.kind == "unet" else 0
+    print(f"{arch} forward: {len(calls)} attention calls, {n_self} self-attention (Sq = Skv), "
+          f"{n_cross} cross-attention (Skv {cfg.ctx_len})", flush=True)
+    n = diffusion_flash_per_forward(cfg)
+    want = (n, 0) if cfg.kind == "dit" else (n // 2, n // 2)
+    check(len(calls) == sum(want) and (n_self, n_cross) == want,
+          f"{arch}: attention calls {calls}, not {want[0]} self and {want[1]} cross")
+    if cfg.kind == "unet":
+        kernels = profile_step(f"{arch} gen_fast DDIM step",
+                               lambda: diffusion.ddim_step(eps_fn, noise, ts[0], ts[1]))
+        busy = sum(e.self_device_time_total for e in kernels)
+        attn = sum(e.self_device_time_total for e in kernels if "flash" in e.key)
+        print(f"{arch} gen_fast step: flash_attention {attn / 1e3:.4f} ms of {busy / 1e3:.4f} "
+              f"ms of device time ("
+              + (f"{attn / busy:.3f})" if busy else "not measured: the profiler saw no "
+                 "device time)"), flush=True)
+    return routes, params, noise, eps_fn
+
+
+def diffusion_layer0_attention(dev, flash, params, cfg, noise):
+    """Phase 14c: the first attention of each kind on the model's own q,
+    k and v against the float32 version (``attention_vs_upcast``): DiT's
+    layer 0 self-attention; the UNet's first transformer block (level 0,
+    4096 tokens, 5 heads), its self-attention and its cross-attention to
+    the 77 context keys (Sq 4096 >> Skv 77, a partial last key tile)."""
+    import torch
+    from repro_torch.models import dit, unet
+    from repro_torch.models import layers as L
+    b = noise.shape[0]
+    g = torch.Generator(device=dev).manual_seed(SEED + 2)
+    t = torch.full((b,), 999, dtype=torch.int32, device=dev)
+    if cfg.kind == "dit":
+        y = torch.randint(0, cfg.n_classes, (b,), generator=g, device=dev)
+        x, cond = dit.embed(params, cfg, noise, t, y)
+        p = {k: a[0] for k, a in params["blocks"].items()}
+        ada = L.silu(cond) @ p["ada_w"] + p["ada_b"]
+        sh1, sc1 = torch.chunk(ada, 6, dim=-1)[:2]
+        q, k, v = dit.attention_inputs(dit._modulate(dit._ln(x), sh1, sc1), p["wqkv"],
+                                       cfg.n_heads)
+        attention_vs_upcast(f"{cfg.name} layer 0 self-attention", flash, q, k, v)
+        return
+    ctx = torch.randn((b, cfg.ctx_len, cfg.ctx_dim), generator=g, device=dev)
+    blk = params["down"][0]["blocks"][0]
+    h = L.conv2d(noise.to(params["conv_in"].dtype), params["conv_in"])
+    h = unet._res(blk["res"], h, unet.time_embedding(params, cfg, t))
+    p = blk["attn"]
+    tokens = unet.xformer_tokens(p, h)
+    a = attention_vs_upcast(f"{cfg.name} block 0 self-attention", flash,
+                            *unet.self_attention_inputs(p, tokens))
+    tokens = tokens + a.reshape(tokens.shape) @ p["sa_o"]
+    attention_vs_upcast(f"{cfg.name} block 0 cross-attention", flash,
+                        *unet.cross_attention_inputs(p, tokens, ctx))
+
+
+def diffusion_cuda_vs_cpu(dev, arch):
+    """Phase 14d: full width in float32 on 2 latents of 256 px, one DDIM
+    step (999 -> 749 of a 4-step table): the same seeded weights (drawn
+    on the card, copied to the CPU), noise and conditioning on the card
+    and on the CPU; the eps and the step's output within
+    DIFFUSION_F32_RTOL (relative norm)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config
+    from repro_torch.models import diffusion
+    cfg = dataclasses.replace(get_config(arch), param_dtype="float32")
+    p_gpu, noise, cond = diffusion_setup(dev, cfg, 2, 256, SEED + 1)
+    ts = diffusion.timesteps(4)
+
+    def run(p, x, c):
+        eps_fn = diffusion_eps(cfg, p, c)
+        t = torch.full((2,), ts[0], dtype=torch.int32, device=x.device)
+        return eps_fn(x, t), diffusion.ddim_step(eps_fn, x, ts[0], ts[1])
+
+    got = run(p_gpu, noise, cond)
+    want = run(tree.from_numpy(p_gpu, "cpu"), noise.cpu(), cond.cpu())
+    errs = [((a.cpu().double() - w.double()).norm() / w.double().norm()).item()
+            for a, w in zip(got, want)]
+    print(f"{arch} float32 card vs CPU (2 latents of 256 px, one DDIM step {ts[0]} -> "
+          f"{ts[1]}): eps relative norm {errs[0]:.3e}, step output {errs[1]:.3e} (limit "
+          f"{DIFFUSION_F32_RTOL:.0e})", flush=True)
+    check(max(errs) <= DIFFUSION_F32_RTOL, f"{arch}: card and CPU differ by {max(errs):.3e}")
+    del p_gpu, noise, cond, got
+    torch.cuda.empty_cache()
+
+
+def phase_diffusion_serving(dev, flash):
+    """Phase 14 -> flash launches by entry in the gen_fast and gen_1024
+    samples (the main path's)."""
+    import torch
+    from repro_torch.configs import get_config
+    entries = {}
+
+    def count(routes):
+        for sym, n in routes.items():
+            entries[sym] = entries.get(sym, 0) + n
+    for arch in DIFFUSION_ARCHS:
+        t0 = time.perf_counter()
+        routes, params, noise, _ = diffusion_serve(dev, flash, arch)
+        count(routes)
+        diffusion_layer0_attention(dev, flash, params, get_config(arch), noise)
+        del params, noise
+        torch.cuda.empty_cache()
+        print(f"phase 14a/c {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+        t0 = time.perf_counter()
+        steps = None if arch == "dit-s2" else GEN1024_UNET_STEPS
+        count(diffusion_gen(dev, flash, arch, "gen_1024", steps)[0])
+        torch.cuda.empty_cache()
+        print(f"phase 14b {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for arch in DIFFUSION_ARCHS:
+        diffusion_cuda_vs_cpu(dev, arch)
+    print(f"phase 14d card vs CPU: {time.perf_counter() - t0:.1f} s", flush=True)
     return entries
 
 
@@ -3212,6 +3585,12 @@ def main():
     for sym, n in vision_entries.items():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase vision serving: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    diffusion_entries = phase_diffusion_serving(dev, kernel["flash_attention"])
+    launches["flash_attention"] += sum(diffusion_entries.values())
+    for sym, n in diffusion_entries.items():
+        entry_launches[sym] = entry_launches.get(sym, 0) + n
+    print(f"phase diffusion serving: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

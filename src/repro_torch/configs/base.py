@@ -1,9 +1,10 @@
-"""Configs of the port: its own copy of the entries of
-``repro.configs.base`` that the port runs (``DetectorConfig`` for the
-counters, ``LMConfig`` with its ``MoESpec`` and ``MLASpec`` for the four
-LMs, ``VisionConfig`` for ViT, ConvNeXt and ResNet, the LM, vision and
-detector shape sets, the registry and ``reduced``), so the port never
-imports the reference package."""
+"""Configs of the port: its own copy of ``repro.configs.base``
+(``DetectorConfig`` for the counters, ``LMConfig`` with its ``MoESpec``
+and ``MLASpec`` for the four LMs, ``VisionConfig`` for ViT, ConvNeXt and
+ResNet, ``DiffusionConfig`` for DiT and the UNet, every family's shape
+set, the registry with ``ASSIGNED_ARCHS``, ``list_archs`` and
+``all_cells``, and ``reduced``), so the port never imports the
+reference package."""
 from __future__ import annotations
 
 import dataclasses
@@ -179,9 +180,67 @@ class VisionConfig:
 
 
 @dataclass(frozen=True)
+class DiffusionConfig:
+    """A latent diffusion model on 8x-downsampled, 4-channel VAE latents:
+    ``kind`` "dit" (patch, n_layers, d_model, n_heads, n_classes) or
+    "unet" (ch, ch_mult, n_res_blocks, attn_levels, and the text
+    context's ctx_dim and ctx_len). The reference's training-only fields
+    (``remat``, ``scan_layers``) are left out: the port runs the layers
+    in a loop and has no backward for these models."""
+
+    name: str
+    family: str = "diffusion"
+    kind: str = "dit"  # 'dit' | 'unet'
+    img_res: int = 256
+    latent_factor: int = 8  # VAE downsample; latent_res = img_res // 8
+    latent_ch: int = 4
+    # dit
+    patch: int = 2
+    n_layers: int = 12
+    d_model: int = 384
+    n_heads: int = 6
+    n_classes: int = 1000
+    # unet
+    ch: int = 320
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    n_res_blocks: int = 2
+    attn_levels: Tuple[int, ...] = (0, 1, 2)  # levels (by downsample) with attention
+    ctx_dim: int = 768
+    ctx_len: int = 77
+    param_dtype: str = "bfloat16"
+
+    @property
+    def n_params(self) -> int:
+        """The reference's count: DiT's dense weights and embeddings;
+        for the UNet its own estimate from the channel schedule (457.6 M
+        at full width, where the parameter tree holds 859.3 M)."""
+        if self.kind == "dit":
+            d = self.d_model
+            emb = self.latent_ch * self.patch * self.patch * d
+            blk = 4 * d * d + 2 * d * 4 * d + 6 * d * d  # attn + mlp + adaLN
+            out = d * self.patch * self.patch * self.latent_ch * 2
+            return emb + self.n_layers * blk + out + 256 * d + self.n_classes * d
+        total = 0
+        ch = self.ch
+        chans = [ch * m for m in self.ch_mult]
+        prev = ch
+        for lvl, c in enumerate(chans):
+            for _ in range(self.n_res_blocks):
+                total += 3 * 3 * prev * c + 3 * 3 * c * c + 4 * ch * c
+                if lvl in self.attn_levels:
+                    total += 4 * c * c + 2 * c * self.ctx_dim + 8 * c * c
+                prev = c
+            if lvl + 1 < len(chans):
+                total += 3 * 3 * c * c
+        total *= 2  # down + up paths (approx.)
+        total += 2 * (3 * 3 * chans[-1] * chans[-1])  # mid block
+        return total + 3 * 3 * self.latent_ch * ch * 2
+
+
+@dataclass(frozen=True)
 class ShapeSpec:
     name: str
-    kind: str  # 'train' | 'prefill' | 'decode' | 'cls' | 'serve'
+    kind: str  # 'train' | 'prefill' | 'decode' | 'gen' | 'cls' | 'serve'
     seq_len: int = 0
     global_batch: int = 0
     img_res: int = 0
@@ -193,6 +252,13 @@ LM_SHAPES = (
     ShapeSpec("prefill_32k", "prefill", seq_len=32768, global_batch=32),
     ShapeSpec("decode_32k", "decode", seq_len=32768, global_batch=128),
     ShapeSpec("long_500k", "decode", seq_len=524288, global_batch=1),
+)
+
+DIFFUSION_SHAPES = (
+    ShapeSpec("train_256", "train", img_res=256, global_batch=256, steps=1000),
+    ShapeSpec("gen_1024", "gen", img_res=1024, global_batch=4, steps=50),
+    ShapeSpec("gen_fast", "gen", img_res=512, global_batch=16, steps=4),
+    ShapeSpec("train_1024", "train", img_res=1024, global_batch=32, steps=1000),
 )
 
 VISION_SHAPES = (
@@ -209,6 +275,7 @@ DETECTOR_SHAPES = (
 
 FAMILY_SHAPES = {
     "lm": LM_SHAPES,
+    "diffusion": DIFFUSION_SHAPES,
     "vision": VISION_SHAPES,
     "detector": DETECTOR_SHAPES,
 }
@@ -218,6 +285,8 @@ _ARCH_MODULES = {
     "qwen3-8b": "repro_torch.configs.qwen3_8b",
     "qwen2-moe-a2.7b": "repro_torch.configs.qwen2_moe_a2p7b",
     "deepseek-v2-lite-16b": "repro_torch.configs.deepseek_v2_lite_16b",
+    "dit-s2": "repro_torch.configs.dit_s2",
+    "unet-sd15": "repro_torch.configs.unet_sd15",
     "convnext-b": "repro_torch.configs.convnext_b",
     "vit-l16": "repro_torch.configs.vit_l16",
     "vit-h14": "repro_torch.configs.vit_h14",
@@ -226,6 +295,13 @@ _ARCH_MODULES = {
     "targetfuse-ground": "repro_torch.configs.targetfuse_ground",
     "ssd-mobilenetv2": "repro_torch.configs.ssd_mobilenetv2",
 }
+
+# the model zoo's archs; the paper's own counters are not assigned
+ASSIGNED_ARCHS = tuple(k for k in _ARCH_MODULES if not k.startswith(("targetfuse", "ssd")))
+
+
+def list_archs():
+    return tuple(_ARCH_MODULES)
 
 
 def get_config(arch: str):
@@ -245,6 +321,11 @@ def get_shape(arch: str, shape_name: str) -> ShapeSpec:
     raise KeyError(f"{arch}: unknown shape {shape_name!r}")
 
 
+def all_cells():
+    """Every assigned (arch, shape) cell: the 40-cell matrix."""
+    return [(arch, s.name) for arch in ASSIGNED_ARCHS for s in get_shapes(arch)]
+
+
 def to_dict(cfg) -> dict:
     return dataclasses.asdict(cfg)
 
@@ -258,7 +339,10 @@ def reduced(cfg):
     rank 32 with heads of 16 + 8 (value 16). A vision model: 32-px input,
     10 classes, float32; ViT 2 layers of d_model 32 (2 heads, d_ff 64) on
     8-px patches, ConvNeXt one block a stage at dims 8-16-24-32, ResNet
-    one bottleneck a stage at width 8. A counter: the first three stages
+    one bottleneck a stage at width 8. A diffusion model, float32: DiT 2
+    layers of d_model 32 (2 heads) at 32 px, 10 classes; the UNet at 64
+    px, ch 16, two levels (1, 2) of one res block, attention at level 1
+    only, a context of 8 x 32. A counter: the first three stages
     at half width (floor 8), 64-px input; the ground tier stays wider
     than the space tier."""
     if isinstance(cfg, LMConfig):
@@ -281,6 +365,13 @@ def reduced(cfg):
         if cfg.kind == "convnext":
             return replace(cfg, depths=(1, 1, 1, 1), dims=(8, 16, 24, 32), **small)
         return replace(cfg, depths=(1, 1, 1, 1), width=8, **small)
+    if isinstance(cfg, DiffusionConfig):
+        if cfg.kind == "dit":
+            return replace(cfg, name=cfg.name + "-smoke", img_res=32, n_layers=2, d_model=32,
+                           n_heads=2, n_classes=10, param_dtype="float32")
+        return replace(cfg, name=cfg.name + "-smoke", img_res=64, ch=16, ch_mult=(1, 2),
+                       n_res_blocks=1, attn_levels=(1,), ctx_dim=32, ctx_len=8,
+                       param_dtype="float32")
     if not isinstance(cfg, DetectorConfig):
         raise TypeError(type(cfg))
     w = tuple(max(8, x // 2) for x in cfg.widths[:3])

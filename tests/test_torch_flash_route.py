@@ -242,3 +242,69 @@ def test_padded_d80_needs_the_true_head_dims_scale():
                                rtol=RTOL, atol=ATOL)
     wrong = emulate_route(q, k, v, causal=False, scale_d=128).float().numpy()
     assert (np.abs(wrong - want) > ATOL + RTOL * np.abs(want)).mean() > 0.5
+
+
+# ---------------------------------------------------------------------------
+# the diffusion models' attention: DiT-S/2's and the UNet's heads are 64
+# wide, so every call takes the kernel's native D 64 instantiation, at
+# shapes no other path gives it: the UNet's cross-attention (77 keys, a
+# partial last key tile, Sq >> Skv), the mid block's 64 tokens (less than
+# one 128-row query tile), and ragged lengths
+# ---------------------------------------------------------------------------
+
+# (b, sq, skv, hq, hkv, d): full-width shapes of chip_smoke.py phase 14
+# (B, Sq, Skv, H, H, 64)
+DIFFUSION_FULL = [(16, 4096, 77, 5, 5, 64), (16, 4096, 4096, 5, 5, 64),
+                  (16, 64, 64, 20, 20, 64), (4, 4096, 4096, 6, 6, 64),
+                  (16, 1024, 1024, 6, 6, 64), (4, 16384, 77, 5, 5, 64)]
+# emulated here: the ragged cross case, the mid block, a cross case with
+# a whole query tile, 77 keys against 128-key tiles, Sq 1
+DIFFUSION_SMALL = [(2, 200, 77, 4, 4, 64), (1, 64, 64, 4, 4, 64), (1, 256, 77, 5, 5, 64),
+                   (1, 130, 77, 2, 2, 64), (2, 1, 77, 2, 2, 64)]
+
+
+@pytest.mark.parametrize("shape", DIFFUSION_FULL, ids=lambda s: "x".join(map(str, s)))
+def test_diffusion_shapes_take_the_native_tensor_core_entry(shape):
+    """bf16 at D 64: the tensor-core route, unpadded (64 is a native
+    width, not a ``PADDED_D``), and the launch grid within the kernel's
+    limits (query tiles of 128 on grid z, up to 128 tiles at 16384)."""
+    b, sq, skv, hq, hkv, d = shape
+    assert flash.choose_route(torch.bfloat16, d) == "tensor_core"
+    assert d in flash.TENSOR_CORE_D and d not in flash.PADDED_D
+    assert -(-sq // 128) <= flash.MAX_GRID_YZ and max(b, hq) <= flash.MAX_GRID_YZ
+
+
+@pytest.mark.parametrize("bk", [64, 128])
+@pytest.mark.parametrize("shape", DIFFUSION_SMALL, ids=lambda s: "x".join(map(str, s)))
+def test_emulated_kernel_at_diffusion_shapes(shape, bk):
+    """The kernel's arithmetic at the diffusion shapes, non-causal,
+    within one bf16 rounding of the reference's oracle on float32-upcast
+    inputs (rtol 2^-7, atol 1e-5): the last key tile holds 13 (or 77 of
+    128) valid keys, the rest of it is never read."""
+    q, k, v = _qkv(sum(shape), *shape)
+    got = emulate_route(q, k, v, causal=False, bk=bk).float().numpy()
+    want = np.asarray(jref.attention(*[_upcast(t) for t in (q, k, v)], causal=False))
+    assert got.shape == want.shape == (shape[0], shape[1], shape[3], shape[5])
+    np.testing.assert_allclose(got, want, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("shape", DIFFUSION_SMALL, ids=lambda s: "x".join(map(str, s)))
+def test_plain_version_matches_reference_at_diffusion_shapes(shape):
+    """The port's plain version (what a CPU tensor takes) against the
+    reference's ``ref.attention`` on the same bf16 inputs, non-causal:
+    the same mixed precision, so 99% bit-equal; the float32 sums' order
+    may round a softmax weight to bf16 the other way, which moves an
+    output by 2^-8 of that weight times a value of v (measured at most
+    2.4e-4, in 5 of 16640 values): atol 2e-3."""
+    from repro_torch.kernels import ref as tref
+    q, k, v = _qkv(sum(shape) + 1, *shape)
+    got = tref.attention(q, k, v, causal=False).float().numpy()
+    want = np.asarray(jref.attention(*(jnp_bf16(t) for t in (q, k, v)), causal=False),
+                      np.float32)
+    assert np.mean(got == want) >= 0.99
+    np.testing.assert_allclose(got, want, rtol=2.0 ** -7, atol=2e-3)
+
+
+def jnp_bf16(t):
+    import jax.numpy as jnp
+    return jnp.asarray(t.float().numpy(), jnp.bfloat16)

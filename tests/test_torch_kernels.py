@@ -335,7 +335,9 @@ for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
           "repro_torch.analysis.rules_determinism", "repro_torch.analysis.launchguard",
           "repro_torch.analysis.__main__", "repro_torch.models.vit",
           "repro_torch.models.convnext", "repro_torch.models.resnet",
-          "repro_torch.configs.vit_h14", "repro_torch.configs.ssd_mobilenetv2"):
+          "repro_torch.configs.vit_h14", "repro_torch.configs.ssd_mobilenetv2",
+          "repro_torch.models.dit", "repro_torch.models.unet", "repro_torch.models.diffusion",
+          "repro_torch.configs.dit_s2", "repro_torch.configs.unet_sd15"):
     assert m in mods, m
 import torch
 assert not torch.cuda.is_available()
