@@ -10,8 +10,9 @@ nothing of JAX or of the reference package ``repro``. Phases:
    the build of every hand-written kernel from ``src/repro_torch/csrc``
    (one ``nvcc`` per source, in parallel), with ptxas's registers and
    spills of each kernel entry (a spill, a serialized ``wgmma`` or an
-   ignored ``setmaxnreg`` in the tensor-core ``flash_attention``, or a
-   missing instantiation of it at D 64, 128 or 192, fails the run);
+   ignored ``setmaxnreg`` in the tensor-core ``flash_attention``, a
+   missing instantiation of it at D 64, 128 or 192, or a spill or a
+   missing one of the 12 entries of its backward, fails the run);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at ragged ones (a bf16
    ``flash_attention`` also against the plain version on its inputs
@@ -40,8 +41,16 @@ nothing of JAX or of the reference package ``repro``. Phases:
    timed with CUDA events beside the plain version, the least time the
    card could take (``bound_ms``) and, where one PyTorch call computes
    the same function, that call (``library_ms``, a yardstick the port
-   never calls); and ``int8_matmul``'s one path, ``ops.int8_matmul`` at
-   the kernel bench's shape, on the tensor-core entry;
+   never calls); ``flash_attention``'s backward (the ``prep``, ``dkdv``
+   and ``dq`` entries of ``csrc/flash_attention_bwd.cu``, one launch each
+   a call, checked) against ``ref.attention_bwd`` at every attention
+   shape of phase 15's steps (ViT-L/16's 197 tokens, ViT-H/14's 257 at D
+   80, DiT-S/2's 256, the UNet's level 0 self-attention, its
+   cross-attention to 77 keys, 64 and 16 queries; bf16) and ragged
+   float32 and bf16 ones, two calls bit-equal, each entry also timed
+   alone, beside the backward of ``scaled_dot_product_attention``; and
+   ``int8_matmul``'s one path, ``ops.int8_matmul`` at the kernel bench's
+   shape, on the tensor-core entry;
 3. the Mission at full width: the ``targetfuse-space`` and
    ``targetfuse-ground`` counters (seeded random weights) on xview-like
    traffic, every selection policy, with every kernel's launch count by
@@ -176,6 +185,20 @@ nothing of JAX or of the reference package ``repro``. Phases:
    plain version on float32 upcasts (rtol 2^-7, atol 1e-5); (d) each
    model in float32 on 2 latents of 256 px, one DDIM step, card against
    CPU within DIFFUSION_F32_RTOL.
+15. vision and diffusion training (``launch/steps.py``): ViT-L/16,
+   ViT-H/14, ConvNeXt-B and ResNet-152 on ``cls_224`` (224 px) and
+   DiT-S/2 and the SD-1.5 UNet on ``train_256`` (32 x 32 latents, fixed
+   timesteps and noise), at full width (seeded bf16 weights drawn on the
+   card, ``remat`` as the configs give it) at batch ZOO_BATCH (256, uncut):
+   ZOO_STEPS AdamW steps on one batch, the loss falling
+   (checked); ms a step (CUDA events), images/s, the share of the bf16
+   bound (3x the forward's FLOPs), peak memory; ``flash_attention``
+   launches by entry in a step (each attention's forward twice, once in
+   the remat recompute, on the tensor-core entry, and each backward entry
+   once; checked); warm-up steps until the allocator settles (checked),
+   then ``LaunchGuard`` over a steady step (0 builds, 0 new segments;
+   checked); each reduced config in float32, one step's loss
+   and gradients card against CPU (checked).
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
@@ -183,8 +206,10 @@ first phase 2 case and its launches on the main paths: the Mission's
 runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
 phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
 monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
-forwards of phase 13, the diffusion samples of phase 14a-b and
-``int8_matmul``'s one path),
+forwards of phase 13, the diffusion samples of phase 14a-b, the first
+training step of each model in phase 15 and ``int8_matmul``'s one path;
+``flash_attention``'s entries include its backward's six, from
+``csrc/flash_attention_bwd.cu``),
 then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
@@ -278,6 +303,71 @@ GEN1024_UNET_STEPS = 4
 # transformer blocks (TF32 off), as phase 13's 1e-4 (measured 1.2e-6 and
 # 5.1e-6 on the H100)
 DIFFUSION_F32_RTOL = 1e-4
+# phase 15: the six models' training steps at full width (bf16, seeded
+# weights drawn on the card, remat as the configs give it): the vision
+# models at VISION_SHAPES' cls_224 (224 px, batch 256), DiT-S/2 and the
+# UNet at DIFFUSION_SHAPES' train_256 (256 px: 32 x 32 latents, batch
+# 256). Each fits the card's 80 GB at 256 (ViT-H/14 peaks highest), so
+# no batch is cut
+ZOO_ARCHS = VISION_ARCHS + DIFFUSION_ARCHS
+ZOO_SHAPE = {"vision": "cls_224", "diffusion": "train_256"}
+ZOO_BATCH = 256
+# phase 15: ZOO_STEPS steps on one fixed batch (fixed t and noise): step 1
+# counts the flash launches by entry, then the allocator cache is emptied
+# and warm-up steps refill it until ZOO_SETTLED steps in a row allocate no
+# new segment (at least GUARD_WARMUP steps, at most ZOO_WARMUP_MAX; the
+# counts are printed). The steps donate their state, as the reference's
+# cells do: the new parameters and moments are written into the old
+# tensors, so a step that allocates nothing leaves the cache as it found
+# it and the next repeats it. One step then runs under LaunchGuard and
+# the rest are timed by CUDA events; the loss must fall from step 1 to
+# the last
+ZOO_STEPS = 10
+ZOO_SETTLED, ZOO_WARMUP_MAX = 2, 6
+# phase 15: the reduced configs in float32, one step card vs CPU (ViT-H/14
+# with heads of 80, its own head dim, at d_model 160, so that the float32
+# kernels run D 80; the reduced ViT-L/16 has heads of 16): the loss
+# relative, and every gradient leaf within its family's tolerance of its
+# largest magnitude. Only the leaves zoo_zero_grad names, whose gradient
+# is 0 in exact arithmetic, are held to ZOO_ZERO_GRAD of the tree's
+# largest gradient instead: in the reduced UNet (16 and 32 channels,
+# GroupNorm groups of one channel) the time embedding reaches each res
+# block as a per-channel constant that the next GroupNorm removes, so
+# t_w1, t_b1, t_w2, t_b2 and every temb_w, temb_b hold float32 noise on
+# both sides (under 1e-6 of the tree's largest gradient; checked).
+# Transformers: float32 products in another order
+# (TF32 off), measured 1.1e-6 (ViT-L), 1.2e-6 (ViT-H at D 80) and 4.4e-5
+# (DiT, t_w1) on the H100; the
+# convnets and the UNet: cuDNN's float32 backward, which phase 9 holds at
+# 2e-2 at the counters' full width, measured 1.0e-6 to 5.2e-6 here
+ZOO_F32_LOSS_RTOL = 1e-5
+ZOO_F32_GRAD_TOL = {"vit": 1e-4, "dit": 1e-4, "convnext": 1e-3, "resnet": 1e-3, "unet": 1e-3}
+ZOO_ZERO_GRAD = 1e-2
+ZOO_ZERO_NOISE = 1e-6
+
+
+def zoo_zero_grad(cfg, path: str) -> bool:
+    """Whether a gradient leaf of a reduced config is 0 in exact
+    arithmetic: the reduced UNet's time-embedding leaves (see above)."""
+    leaf = path.rsplit("/", 1)[-1]
+    return cfg.kind == "unet" and (leaf.startswith("temb_") or leaf in ("t_w1", "t_b1", "t_w2",
+                                                                         "t_b2"))
+# phase 2: flash_attention's backward (csrc/flash_attention_bwd.cu) against
+# ref.attention_bwd. float32: atol and rtol FLASH_BWD_F32_TOL, the
+# forward's contract. bf16: each of dq, dk, dv within relative norm
+# FLASH_BWD_BF16_RNORM of the plain version in bf16 (it rounds the scaled
+# q, the weights and their gradient to bf16 where the kernel keeps
+# float32), and within FLASH_BWD_UPCAST_RNORM of the plain gradient of the
+# inputs upcast to float32: the kernel rounds its outputs once, and reads
+# the forward's bf16 output for Delta = rowsum(dO * O), which moves dq and
+# dk near 0 by more than an elementwise rtol of 2^-7 allows (measured on
+# the CPU emulation: relative norm 1.7e-3, dv elementwise within 3.9e-3 of
+# each value; on the H100 1.658e-3 to 1.846e-3, the largest at the
+# 16-query mid block, every dv elementwise within 3.88e-3): the gate is
+# twice the largest
+FLASH_BWD_F32_TOL = 2e-5
+FLASH_BWD_BF16_RNORM = 3e-2
+FLASH_BWD_UPCAST_RNORM = 3.7e-3
 
 
 # phase 2's tile_moments cases, (shape, data); the first is the main
@@ -709,7 +799,7 @@ def ptxas_report(logs: dict):
                 spill = line
             elif line.startswith("ptxas info") and ": Used " in line:
                 print(f"ptxas {name} {entry}: {line.split(': ', 1)[1]}; {spill}", flush=True)
-                if TC_ENTRY in entry or INT8_TC_ENTRY in entry:
+                if TC_ENTRY in entry or INT8_TC_ENTRY in entry or name == "flash_attention_bwd":
                     check("0 bytes spill stores, 0 bytes spill loads" in spill,
                           f"ptxas: {entry} spills ({spill})")
             if "wgmma" in line and "serializ" in line:
@@ -726,6 +816,11 @@ def ptxas_report(logs: dict):
                   f"ptxas reported no {TC_ENTRY}<{d}, 64> (entries {entries})")
     if "int8_matmul" in logs:
         check(INT8_TC_ENTRY in logs["int8_matmul"], "ptxas reported no int8 tensor-core entry")
+    if "flash_attention_bwd" in logs:   # 3 kernels x (float32, bf16) x (DP 64, 128)
+        entries = [line.split("'")[1] for line in logs["flash_attention_bwd"].splitlines()
+                   if "Compiling entry function" in line]
+        check(len(entries) == 12 and all("bwd_" in e for e in entries),
+              f"ptxas reported {len(entries)} backward entries, not 12: {entries}")
 
 
 def int8_args(g, dev, m, k, n):
@@ -824,6 +919,160 @@ def phase_kernels(dev):
     for name, why in LIBRARY_NOTE.items():
         print(f"kernel {name}: library_ms {why}")
     return rows
+
+
+def flash_bwd_cases():
+    """Phase 2's cases of flash_attention's backward, (label, (B, Sq, Skv,
+    H, D), dtype): each attention of phase 15's steps at its batch (bf16,
+    non-causal, Hq == Hkv), then ragged float32 and bf16 cases."""
+    import torch
+    bf16, f32 = torch.bfloat16, torch.float32
+    bl = bh = bd = bu = ZOO_BATCH
+    return [("vit-l16 cls_224", (bl, 197, 197, 16, 64), bf16),
+            ("vit-h14 cls_224 (D 80)", (bh, 257, 257, 16, 80), bf16),
+            ("dit-s2 train_256", (bd, 256, 256, 6, 64), bf16),
+            ("unet-sd15 train_256 level 0 self", (bu, 1024, 1024, 5, 64), bf16),
+            ("unet-sd15 train_256 level 0 cross (77 keys)", (bu, 1024, 77, 5, 64), bf16),
+            ("unet-sd15 train_256 level 2 (64 queries)", (bu, 64, 64, 20, 64), bf16),
+            ("unet-sd15 train_256 mid block (16 queries)", (bu, 16, 16, 20, 64), bf16),
+            ("ragged", (2, 200, 200, 4, 64), f32), ("ragged D 80", (2, 197, 77, 3, 80), f32),
+            ("one query", (1, 1, 100, 2, 16), f32), ("ragged D 128", (2, 130, 65, 4, 128), f32),
+            ("ragged D 128", (2, 100, 300, 4, 128), bf16)]
+
+
+def bwd_entry_ms(q, k, v, o, do, reps: int) -> dict:
+    """Each backward entry's device ms in ``flash_attention_bwd``, by a
+    CUDA event recorded after each of its launches, over ``reps`` calls
+    queued behind ``torch.cuda._sleep``."""
+    import torch
+    from repro_torch.kernels import flash_attention as fa
+    lib = fa.BWD_KERNEL
+    marks, launch = [], lib.launch
+
+    def marked(symbol, *args):
+        launch(symbol, *args)
+        marks.append((symbol, torch.cuda.Event(enable_timing=True)))
+        marks[-1][1].record()
+    fa.flash_attention_bwd(q, k, v, o, do)   # warm-up
+    start = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(50_000_000)
+    start.record()
+    lib.launch = marked   # on the instance, for these calls only
+    try:
+        for _ in range(reps):
+            fa.flash_attention_bwd(q, k, v, o, do)
+    finally:
+        del lib.launch
+    torch.cuda.synchronize()
+    ms = dict.fromkeys(fa.BWD_ENTRIES, 0.0)
+    prev = start
+    for symbol, event in marks:
+        ms[next(e for e in fa.BWD_ENTRIES if f"_{e}_" in symbol)] += prev.elapsed_time(event) / reps
+        prev = event
+    return ms
+
+
+def rnorm(got, want) -> float:
+    return ((got.double() - want.double()).norm() / want.double().norm()).item()
+
+
+def phase_flash_bwd(dev, rows):
+    """Phase 2, flash_attention's backward: each case against
+    ``ref.attention_bwd`` (one launch of each of its three entries,
+    checked; two calls bit-equal, checked; the tolerances above), timed
+    with CUDA events beside its bound, the plain version and the backward
+    of ``scaled_dot_product_attention`` on the same inputs (autograd
+    through it, the forward outside the timing), each entry also alone.
+    The bound counts the five products the gradient needs (s, dP, dV, dK,
+    dQ: 10 B H Sq Skv D operations, at the inputs' type's peak) and each
+    input and output once; an entry's, the products it runs (prep 1, dkdv
+    4, dq 3). Adds the six entries to ``rows["flash_attention"]``."""
+    import torch
+    import torch.nn.functional as F
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ref
+    g = torch.Generator(device=dev).manual_seed(SEED + 3)
+    lib = fa.BWD_KERNEL
+    entry_rows = {}
+    for label, (b, sq, skv, h, d), dt in flash_bwd_cases():
+        q, do = (torch.randn((b, sq, h, d), generator=g, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).to(dt) for _ in range(2))
+        with torch.no_grad():   # the forward's output as the Function saves it
+            o = fa.flash_attention(q, k, v).contiguous()
+        shape = f"{label}: q{(b, sq, h, d)} kv{(b, skv, h, d)} {str(dt)[6:]}"
+        want_syms = {fa.BWD_SYMBOLS[e, dt]: 1 for e in fa.BWD_ENTRIES}
+        before = dict(lib.symbol_launches)
+        got = fa.flash_attention_bwd(q, k, v, o, do)
+        again = fa.flash_attention_bwd(q, k, v, o, do)
+        torch.cuda.synchronize()
+        took = {s_: n - before[s_] for s_, n in lib.symbol_launches.items() if n != before[s_]}
+        check(took == {s_: 2 for s_ in want_syms}, f"flash bwd {shape}: launched {took}")
+        same = all(bit_equal(a, b_) for a, b_ in zip(got, again))
+        del again
+        t_plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        t_plain[0].record()
+        want = ref.attention_bwd(q, k, v, o, do)
+        t_plain[1].record()
+        torch.cuda.synchronize()
+        errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+        if dt == torch.float32:
+            ok = all(torch.allclose(a, w, atol=FLASH_BWD_F32_TOL, rtol=FLASH_BWD_F32_TOL)
+                     for a, w in zip(got, want))
+            detail = f"max_abs_err dq/dk/dv {', '.join(f'{e:.3e}' for e in errs)} (atol, rtol " \
+                     f"{FLASH_BWD_F32_TOL:.0e})"
+        else:
+            rn = [rnorm(a, w) for a, w in zip(got, want)]
+            del want
+            exact = ref.attention_bwd(*(t.float() for t in (q, k, v, o)), do.float())
+            up = [rnorm(a, w) for a, w in zip(got, exact)]
+            rel = [((a.float() - w).abs() / (w.abs() + 1e-3 * w.abs().max())).max().item()
+                   for a, w in zip(got, exact)]
+            del exact
+            ok = max(rn) <= FLASH_BWD_BF16_RNORM and max(up) <= FLASH_BWD_UPCAST_RNORM
+            detail = (f"max_abs_err dq/dk/dv {', '.join(f'{e:.3e}' for e in errs)}; relative "
+                      f"norm against the plain version {', '.join(f'{x:.3e}' for x in rn)} "
+                      f"(limit {FLASH_BWD_BF16_RNORM:.0e}), against float32 upcast inputs "
+                      f"{', '.join(f'{x:.3e}' for x in up)} (limit {FLASH_BWD_UPCAST_RNORM:.0e}); "
+                      f"elementwise relative (atol 1e-3 of the max) {', '.join(f'{x:.3e}' for x in rel)}")
+        got = want = None
+        torch.cuda.empty_cache()
+        big = b * h * sq * skv * d > 2e10
+        ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do), reps=3 if big else 10,
+                     warmup=1)
+        entry_ms = bwd_entry_ms(q, k, v, o, do, reps=3 if big else 10)
+        plain_ms = (t_plain[0].elapsed_time(t_plain[1]) if big
+                    else cuda_ms(lambda: ref.attention_bwd(q, k, v, o, do), reps=3, warmup=1))
+        qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
+        out = F.scaled_dot_product_attention(qt, kt, vt)
+        dot = do.transpose(1, 2)
+        lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
+                                                     retain_graph=True), reps=5, warmup=1)
+        del qt, kt, vt, out
+        es = q.element_size()
+        unit = 2.0 * b * h * sq * skv * d
+        rate = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
+        io = 4 * (b * sq * h * d + b * skv * h * d) * es   # q, o, do, dq; k, v, dk, dv
+        b_ms, b_by = bound_ms(io, 5 * unit, rate)
+        print(f"kernel flash_attention_bwd {shape}: {detail}; two calls bit-equal {same}; ms "
+              f"{ms:.4f} (prep {entry_ms['prep']:.4f}, dkdv {entry_ms['dkdv']:.4f}, dq "
+              f"{entry_ms['dq']:.4f}) plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) share "
+              f"{b_ms / ms:.3f} library_ms {lib_ms:.4f} (SDPA's backward)", flush=True)
+        check(ok, f"flash bwd {shape}: off the plain version ({detail})")
+        check(same, f"flash bwd {shape}: two calls differ")
+        entry_io = {"prep": (3 * b * sq * h * d + b * skv * h * d) * es + 8 * b * h * sq,
+                    "dkdv": (2 * b * sq * h * d + 4 * b * skv * h * d) * es + 8 * b * h * sq,
+                    "dq": (3 * b * sq * h * d + 2 * b * skv * h * d) * es + 8 * b * h * sq}
+        products = {"prep": 1, "dkdv": 4, "dq": 3}
+        for e in fa.BWD_ENTRIES:
+            e_ms, e_by = bound_ms(entry_io[e], products[e] * unit, rate)
+            entry_rows.setdefault(fa.BWD_SYMBOLS[e, dt], dict(
+                shape=shape, source="src/repro_torch/csrc/flash_attention_bwd.cu",
+                max_abs_err=max(errs), ms=entry_ms[e], plain_ms=plain_ms, bound_ms=e_ms,
+                bound_by=e_by, library_ms=lib_ms, backward_ms=ms, backward_bound_ms=b_ms))
+        del q, k, v, o, do
+        torch.cuda.empty_cache()
+    rows["flash_attention"]["entries"].update(entry_rows)
 
 
 def int8_path(dev, kernel):
@@ -2722,6 +2971,221 @@ def phase_diffusion_serving(dev, flash):
 
 
 # ---------------------------------------------------------------------------
+# phase 15: vision and diffusion training
+# ---------------------------------------------------------------------------
+
+def zoo_attentions(cfg):
+    """-> (flash_attention calls a training forward makes, those the
+    remat recompute makes again): one a ViT or DiT layer, the UNet's
+    ``diffusion_flash_per_forward`` (its mid block's self- and
+    cross-attention are not rematerialized, as in the reference), none in
+    a convnet."""
+    if cfg.kind in ("convnext", "resnet"):
+        return 0, 0
+    n = cfg.n_layers if cfg.kind in ("vit", "dit") else diffusion_flash_per_forward(cfg)
+    if cfg.remat == "none":
+        return n, 0
+    return n, n - 2 if cfg.kind == "unet" else n
+
+
+def zoo_gflop(cfg, res: int) -> float:
+    """The forward's matmul, conv and attention GFLOP of one image of
+    ``res`` px (``vision_gflop``, ``diffusion_gflop``)."""
+    return (vision_gflop if cfg.family == "vision" else diffusion_gflop)(cfg, res)
+
+
+def zoo_setup(dev, cfg, b, res, seed):
+    """Seeded weights on ``dev`` (ResNet's with its running statistics;
+    DiT's adaLN-Zero leaves drawn as ``diffusion_setup`` draws them), the
+    optimizer and one fixed batch of ``res`` px images -> (run(state) ->
+    (state, loss), state), ``state`` the trees a step updates."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import diffusion
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if cfg.family == "diffusion":
+        opt_init, step = steps.diffusion_train(cfg, donate=True)
+        params, latents, cond = diffusion_setup(dev, cfg, b, res, seed)
+        batch = (latents, cond, *diffusion.draw_train_inputs(latents, g))
+    else:
+        opt_init, step = steps.vision_train(cfg, donate=True)
+        params = vision_model(cfg).init(g, cfg, device=dev)
+        batch = (torch.randn((b, res, res, 3), generator=g, device=dev),
+                 torch.randint(0, cfg.n_classes, (b,), generator=g, device=dev))
+    if cfg.kind == "resnet":
+        params, bn = params
+        state = (params, bn, opt_init(params))
+    else:
+        state = (params, opt_init(params))
+
+    def run(st):
+        *st, loss = step(*st, *batch)
+        return tuple(st), loss
+    return run, state
+
+
+def zoo_train(dev, kernels, arch):
+    """One model's training at full width on its training shape: ZOO_STEPS
+    steps on one batch (see ZOO_STEPS), flash launches by entry in step 1
+    checked against the attentions a step (each forward once and again in
+    the remat recompute, each backward entry once), 0 builds and 0 new
+    segments under LaunchGuard, the loss falling -> launches by entry in
+    step 1 (the main path's)."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.analysis import LaunchGuard
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.kernels import flash_attention as fa
+    cfg = get_config(arch)
+    shape = get_shape(arch, ZOO_SHAPE[cfg.family])
+    b = ZOO_BATCH
+    check(shape.global_batch == b, f"{arch}: {shape.name} holds batch {shape.global_batch}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (step, state), init_s = synced(lambda: zoo_setup(dev, cfg, b, shape.img_res, SEED))
+    n_params = sum(t.numel() for t in tree.leaves(state[0]))
+    for k in kernels:
+        k.reset()
+    state, loss = step(state)
+    losses = [loss]
+    torch.cuda.synchronize()
+    took = {s_: n for k in kernels for s_, n in k.symbol_launches.items() if n}
+    n_attn, n_again = zoo_attentions(cfg)
+    want = {} if not n_attn else {
+        TC_SYMBOL: n_attn + n_again,
+        **{fa.BWD_SYMBOLS[e, torch.bfloat16]: n_attn for e in fa.BWD_ENTRIES}}
+    check(took == want, f"{arch}: flash launches by entry in a step {took}, not {want}")
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    warm_segments = []
+
+    def segments():
+        return torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+    while (len(warm_segments) < GUARD_WARMUP
+           or any(warm_segments[-ZOO_SETTLED:])) and len(warm_segments) < ZOO_WARMUP_MAX:
+        seg0 = segments()
+        state, loss = step(state)
+        losses.append(loss)
+        warm_segments.append(segments() - seg0)
+    torch.cuda.synchronize()
+    print(f"{arch} warm-up: new allocator segments in steps 2-{len(losses)}: {warm_segments}",
+          flush=True)
+    check(not any(warm_segments[-ZOO_SETTLED:]),
+          f"{arch}: the allocator did not settle in {ZOO_WARMUP_MAX} warm-up steps (new "
+          f"segments a step {warm_segments})")
+    with LaunchGuard(f"{arch} {shape.name} training step") as guard:
+        state, loss = step(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_timed = ZOO_STEPS - len(losses)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+    events[0].record()
+    for e in events[1:]:
+        state, loss = step(state)
+        losses.append(loss)
+        e.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    mean_ms = sum(ms) / len(ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).tolist()
+    gflop = 3 * zoo_gflop(cfg, shape.img_res) * b
+    bound = 1e3 * gflop * 1e9 / BF16_FLOPS
+    print(f"{arch} train {shape.name} (B {b}, {shape.img_res} px, remat {cfg.remat}, "
+          f"no batch cut): "
+          f"{n_params / 1e6:.1f} M params drawn in {init_s:.2f} s; {mean_ms:.4f} ms a step (steps "
+          f"{', '.join(f'{t:.4f}' for t in ms)}), {1e3 * b / mean_ms:.1f} images/s; "
+          f"{gflop / 1e3:.4f} TFLOP a step (3 x the forward's), bf16 bound {bound:.4f} ms, "
+          f"share {bound / mean_ms:.3f}; peak memory {peak_gb:.2f} GB (step 1 {first_peak:.2f}); "
+          f"flash launches by entry in a step {took}; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}", flush=True)
+    print(f"guard {guard.label}: builds {guard.builds} new segments {guard.new_segments} syncs "
+          f"{guard.syncs}; launches by entry {json.dumps(guard.launches)}", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{arch}: the loss did not fall over {ZOO_STEPS} steps: {losses}")
+    guard.assert_steady_state()
+    del state, step
+    torch.cuda.empty_cache()
+    return took
+
+
+def zoo_cuda_vs_cpu(dev, arch):
+    """The reduced config in float32: one step's loss and gradients on the
+    card (the float32 flash kernels, forward and backward, for the
+    attention) and on the CPU (the plain version), from the same seeded
+    weights and batch -> the largest gradient error over the leaves'
+    tolerances."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import steps
+    from repro_torch.models import diffusion
+    cfg = reduced(get_config(arch))
+    if arch == "vit-h14":   # its own head dim, D 80
+        cfg = dataclasses.replace(cfg, d_model=160, d_ff=320)
+    g = torch.Generator(device=dev).manual_seed(SEED + 4)
+    if cfg.family == "vision":
+        p = vision_model(cfg).init(g, cfg, device=dev)
+        batch = (torch.randn((8, cfg.img_res, cfg.img_res, 3), generator=g, device=dev),
+                 torch.randint(0, cfg.n_classes, (8,), generator=g, device=dev))
+        loss_fn = steps.vision_loss(cfg)
+    else:
+        p, latents, cond = diffusion_setup(dev, cfg, 3, cfg.img_res, SEED + 4)
+        batch = (latents, cond, *diffusion.draw_train_inputs(latents, g))
+        loss_fn = steps.diffusion_loss(cfg)
+    runs = []
+    for d in (dev, "cpu"):
+        pd, bd = tree.from_numpy(p, d), [x.to(d) for x in batch]
+        if cfg.kind == "resnet":
+            params, state = pd
+            runs.append(steps.value_and_grad(lambda q: loss_fn(q, state, *bd), params))
+        else:
+            runs.append(steps.value_and_grad(lambda q: loss_fn(q, *bd), pd))
+    (loss, grads, aux), (loss_c, grads_c, aux_c) = runs
+    loss_err = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+    paths, want = tree.flatten_with_paths(grads_c)
+    top = max(w.abs().max().item() for w in want)
+    zero = {path: w.abs().max().item() / top for path, w in zip(paths, want)
+            if zoo_zero_grad(cfg, path)}
+    check(all(x < ZOO_ZERO_NOISE for x in zero.values()),
+          f"{arch}: a leaf taken as 0 in exact arithmetic is not: {zero}")
+    errs = {path: (a.cpu() - w).abs().max().item()
+            / (ZOO_ZERO_GRAD * top if path in zero else max(w.abs().max().item(), 1e-30))
+            for path, a, w in zip(paths, tree.leaves(grads), want)}
+    if aux is not None:
+        errs.update({f"running statistics {i}": rnorm(a.cpu(), w) for i, (a, w) in
+                     enumerate(zip(tree.leaves(aux), tree.leaves(aux_c)))})
+    worst = max(errs, key=errs.get)
+    tol = ZOO_F32_GRAD_TOL[cfg.kind]
+    print(f"{arch} reduced float32 step card vs CPU: loss {loss.item():.7e} / "
+          f"{loss_c.item():.7e} (rel {loss_err:.2e}, limit {ZOO_F32_LOSS_RTOL:.0e}); {len(errs)} "
+          f"gradient leaves{' and statistics' if aux is not None else ''} within "
+          f"{errs[worst]:.3e} of each leaf's max (worst {worst}; limit {tol:.0e})", flush=True)
+    check(loss_err <= ZOO_F32_LOSS_RTOL and errs[worst] <= tol,
+          f"{arch}: reduced step card vs CPU differs (loss {loss_err:.2e}, {worst} "
+          f"{errs[worst]:.2e})")
+    return errs[worst]
+
+
+def phase_zoo_training(dev, kernels):
+    """Phase 15 -> flash launches by entry in the six models' first
+    steps (the main path's)."""
+    entries = {}
+    for arch in ZOO_ARCHS:
+        t0 = time.perf_counter()
+        for sym, n in zoo_train(dev, kernels, arch).items():
+            entries[sym] = entries.get(sym, 0) + n
+        print(f"phase 15 {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for arch in ZOO_ARCHS:
+        zoo_cuda_vs_cpu(dev, arch)
+    print(f"phase 15 card vs CPU: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
+# ---------------------------------------------------------------------------
 # phase 9: counter training
 # ---------------------------------------------------------------------------
 
@@ -3506,6 +3970,7 @@ def main():
     kernel = {k.name: k for k in ops.KERNELS}
     t0 = time.perf_counter()
     rows = phase_kernels(dev)
+    phase_flash_bwd(dev, rows)
     launches = {"int8_matmul": int8_path(dev, kernel["int8_matmul"])}
     entry_launches = dict(kernel["int8_matmul"].symbol_launches)  # by entry, main paths only
     print(f"phase kernels: {time.perf_counter() - t0:.1f} s", flush=True)
@@ -3591,6 +4056,16 @@ def main():
     for sym, n in diffusion_entries.items():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase diffusion serving: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    zoo_entries = phase_zoo_training(dev, [kernel["flash_attention"],
+                                           kernel["flash_attention_bwd"]])
+    # the row's top-level count is csrc/flash_attention.cu's (the forward);
+    # the backward library's launches stand under its own entries
+    launches["flash_attention"] += sum(n for sym, n in zoo_entries.items()
+                                       if sym not in kernel["flash_attention_bwd"].symbol_launches)
+    for sym, n in zoo_entries.items():
+        entry_launches[sym] = entry_launches.get(sym, 0) + n
+    print(f"phase zoo training: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",
@@ -3605,7 +4080,7 @@ def main():
              source=f"src/repro_torch/csrc/{sources[name]}.cu",
              replaces=replaces[name], launches=launches[sources[name]],
              **{k: v for k, v in rows[name].items() if k != "entries"},
-             entries=[dict(entry=sym, launches=entry_launches[sym], **row)
+             entries=[dict(entry=sym, launches=entry_launches.get(sym, 0), **row)
                       for sym, row in rows[name]["entries"].items()])
         for name in replaces]}
     print(json.dumps(line))

@@ -127,9 +127,12 @@ class LMConfig:
 class VisionConfig:
     """An image classifier: ``kind`` "vit" (patch, n_layers, d_model,
     n_heads, d_ff), "convnext" (depths, dims) or "resnet" (bottleneck
-    depths, width). The reference's training-only fields (``remat``,
-    ``scan_layers``) are left out: the port runs the layers in a loop and
-    has no backward for these models."""
+    depths, width). ``remat`` is the reference's: "none", or any other
+    value for a training forward that recomputes each block in its
+    backward and keeps only its matrix products' and convolutions'
+    outputs (``layers.remat``, the counterpart of JAX's
+    ``dots_saveable``). The reference's ``scan_layers`` is left out: the
+    port runs the layers in a loop."""
 
     name: str
     family: str = "vision"
@@ -147,6 +150,7 @@ class VisionConfig:
     dims: Tuple[int, ...] = ()
     width: int = 64
     param_dtype: str = "bfloat16"
+    remat: str = "dots_saveable"
 
     @property
     def n_params(self) -> int:
@@ -184,9 +188,9 @@ class DiffusionConfig:
     """A latent diffusion model on 8x-downsampled, 4-channel VAE latents:
     ``kind`` "dit" (patch, n_layers, d_model, n_heads, n_classes) or
     "unet" (ch, ch_mult, n_res_blocks, attn_levels, and the text
-    context's ctx_dim and ctx_len). The reference's training-only fields
-    (``remat``, ``scan_layers``) are left out: the port runs the layers
-    in a loop and has no backward for these models."""
+    context's ctx_dim and ctx_len). ``remat`` as ``VisionConfig``'s; the
+    reference's ``scan_layers`` is left out: the port runs the layers in
+    a loop."""
 
     name: str
     family: str = "diffusion"
@@ -208,6 +212,7 @@ class DiffusionConfig:
     ctx_dim: int = 768
     ctx_len: int = 77
     param_dtype: str = "bfloat16"
+    remat: str = "dots_saveable"
 
     @property
     def n_params(self) -> int:
@@ -339,7 +344,8 @@ def reduced(cfg):
     rank 32 with heads of 16 + 8 (value 16). A vision model: 32-px input,
     10 classes, float32; ViT 2 layers of d_model 32 (2 heads, d_ff 64) on
     8-px patches, ConvNeXt one block a stage at dims 8-16-24-32, ResNet
-    one bottleneck a stage at width 8. A diffusion model, float32: DiT 2
+    one bottleneck a stage at width 8. Vision and diffusion models get
+    ``remat="none"``, as the reference's. A diffusion model, float32: DiT 2
     layers of d_model 32 (2 heads) at 32 px, 10 classes; the UNet at 64
     px, ch 16, two levels (1, 2) of one res block, attention at level 1
     only, a context of 8 x 32. A counter: the first three stages
@@ -359,7 +365,8 @@ def reduced(cfg):
             n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16,
             d_ff=128, vocab_size=256, moe=moe, mla=mla, param_dtype="float32")
     if isinstance(cfg, VisionConfig):
-        small = dict(name=cfg.name + "-smoke", img_res=32, n_classes=10, param_dtype="float32")
+        small = dict(name=cfg.name + "-smoke", img_res=32, n_classes=10, param_dtype="float32",
+                     remat="none")
         if cfg.kind == "vit":
             return replace(cfg, patch=8, n_layers=2, d_model=32, n_heads=2, d_ff=64, **small)
         if cfg.kind == "convnext":
@@ -368,10 +375,10 @@ def reduced(cfg):
     if isinstance(cfg, DiffusionConfig):
         if cfg.kind == "dit":
             return replace(cfg, name=cfg.name + "-smoke", img_res=32, n_layers=2, d_model=32,
-                           n_heads=2, n_classes=10, param_dtype="float32")
+                           n_heads=2, n_classes=10, param_dtype="float32", remat="none")
         return replace(cfg, name=cfg.name + "-smoke", img_res=64, ch=16, ch_mult=(1, 2),
                        n_res_blocks=1, attn_levels=(1,), ctx_dim=32, ctx_len=8,
-                       param_dtype="float32")
+                       param_dtype="float32", remat="none")
     if not isinstance(cfg, DetectorConfig):
         raise TypeError(type(cfg))
     w = tuple(max(8, x // 2) for x in cfg.widths[:3])

@@ -37,6 +37,18 @@ the softmax weights to bf16, the kernels keep them in float32. A CUDA
 tensor launches the kernel its route names or raises; there is no
 fallback between routes. ``KERNEL.symbol_launches`` counts each route's
 entry point.
+
+The gradient: where grad mode is on and q, k or v requires a gradient,
+:func:`flash_attention` runs through a ``torch.autograd.Function`` whose
+forward is the call above (same routes, padding and ``sm_scale``) and
+saves q, k, v and the unpadded output; its backward is
+:func:`flash_attention_bwd`, the hand-written CUDA-core kernel of
+``csrc/flash_attention_bwd.cu`` (no TPU counterpart: the reference lets
+XLA differentiate its oracle), whose three entries count their launches
+on ``BWD_KERNEL``. It takes non-causal attention with Hq == Hkv and D <=
+``MAX_BWD_D``, any Sq and Skv; a causal mask or GQA raises a
+``ValueError`` before the forward launches. Without a gradient nothing is
+saved and the launches are the forward's alone.
 """
 from __future__ import annotations
 
@@ -59,6 +71,16 @@ _ARGS = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P]
 KERNEL = CudaKernel("flash_attention", {sym: _ARGS for sym in SYMBOLS.values()})
 MAX_D = 256
 MAX_GRID_YZ = 65535
+# the backward's three entries a dtype, launched in this order
+BWD_ENTRIES = ("prep", "dkdv", "dq")
+BWD_SYMBOLS = {(e, dt): f"flash_attention_bwd_{e}_{n}" for e in BWD_ENTRIES
+               for dt, n in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
+_BWD_ARGS = {"prep": [P] * 6 + [I] * 5 + [ctypes.c_float, P],
+             "dkdv": [P] * 8 + [I] * 5 + [ctypes.c_float, P],
+             "dq": [P] * 7 + [I] * 5 + [ctypes.c_float, P]}
+BWD_KERNEL = CudaKernel("flash_attention_bwd",
+                        {sym: _BWD_ARGS[e] for (e, _), sym in BWD_SYMBOLS.items()})
+MAX_BWD_D = 128
 
 
 def choose_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -70,12 +92,55 @@ def choose_route(dtype: torch.dtype, head_dim: int) -> str:
     return CUDA_CORE
 
 
+def check_backward(q_shape, k_shape, causal: bool) -> None:
+    """Raise a ``ValueError`` for what the backward kernel does not take:
+    a causal mask, GQA (Hq != Hkv) or D > ``MAX_BWD_D`` (shapes other than
+    4-D are left to the input checks)."""
+    if len(q_shape) != 4 or len(k_shape) != 4:
+        return
+    if causal:
+        raise ValueError("flash_attention's backward takes non-causal attention only "
+                         "(the causal backward is the LM training slice's)")
+    if q_shape[2] != k_shape[2]:
+        raise ValueError(f"flash_attention's backward takes Hq == Hkv, got {q_shape[2]} "
+                         f"query and {k_shape[2]} kv heads (GQA is the LM training slice's)")
+    if q_shape[3] > MAX_BWD_D:
+        raise ValueError(f"flash_attention's backward takes D <= {MAX_BWD_D}, got "
+                         f"{q_shape[3]}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel, and :func:`flash_attention_bwd` as its
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, route):
+        out = _forward(q, k, v, False, route).contiguous()
+        ctx.save_for_backward(q, k, v, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, dout.contiguous()), None)
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = False, route: Optional[str] = None) -> torch.Tensor:
     """q (B, Sq, Hq, D), k/v (B, Skv, Hkv, D), contiguous, float32 or
     bf16, on one CUDA device -> (B, Sq, Hq, D) in q's dtype. ``route``
     defaults to :func:`choose_route`; naming one forces it (a benchmark
-    times the CUDA-core route at a tensor-core shape)."""
+    times the CUDA-core route at a tensor-core shape). Where grad mode is
+    on and an input requires a gradient, the result carries
+    :func:`flash_attention_bwd` as its backward (checked first by
+    :func:`check_backward`)."""
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        check_backward(q.shape, k.shape, causal)
+        return _FlashAttention.apply(q, k, v, route)
+    return _forward(q, k, v, causal, route)
+
+
+def _check_inputs(q, k, v):
     if not (q.is_cuda and k.is_cuda and v.is_cuda) or not (q.device == k.device == v.device):
         raise ValueError("flash_attention kernel takes CUDA tensors on one device")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype or v.dtype != q.dtype:
@@ -92,6 +157,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"need one batch and head dim D <= {MAX_D}, Hq % Hkv == 0, Skv > 0")
     if not (q.is_contiguous() and k.is_contiguous() and v.is_contiguous()):
         raise ValueError("flash_attention takes contiguous tensors")
+
+
+def _forward(q, k, v, causal, route):
+    _check_inputs(q, k, v)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     route = choose_route(q.dtype, d) if route is None else route
     symbol = SYMBOLS.get((route, q.dtype))
     if symbol is None or (route == TENSOR_CORE and d not in TENSOR_CORE_D
@@ -110,3 +181,40 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                       out.data_ptr(), b, sq, skv, hq, hkv, dk, int(causal),
                       1.0 / math.sqrt(d), stream)
     return out[..., :d] if dk != d else out
+
+
+def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                        dout: torch.Tensor):
+    """The gradient of non-causal :func:`flash_attention` -> (dq, dk, dv)
+    in the inputs' dtype: q, o, dout (B, Sq, H, D), k, v (B, Skv, H, D),
+    contiguous, float32 or bf16, on one CUDA device, D <= ``MAX_BWD_D``,
+    ``o`` the forward's output. Three launches: ``prep`` (each row's
+    log-sum-exp, recomputed from q and k, and rowsum(dout * o) into
+    float32 scratch), ``dkdv``, ``dq``; ``sm_scale = 1/sqrt(D)``."""
+    check_backward(q.shape, k.shape, False)
+    _check_inputs(q, k, v)
+    if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or \
+            dout.dtype != q.dtype or o.device != q.device or dout.device != q.device:
+        raise ValueError(f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype} and dout "
+                         f"{tuple(dout.shape)} {dout.dtype} must be q's shape and dtype "
+                         f"{tuple(q.shape)} {q.dtype}, on its device")
+    if not (o.is_contiguous() and dout.is_contiguous()):
+        raise ValueError("flash_attention_bwd takes contiguous tensors")
+    b, sq, h, d = q.shape
+    skv = k.shape[1]
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    if q.numel() == 0:
+        return dq, dk.zero_(), dv.zero_()
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    delta = torch.empty_like(lse)
+    ptr = {n: t.data_ptr() for n, t in dict(q=q, k=k, v=v, o=o, do=dout, lse=lse, delta=delta,
+                                            dq=dq, dk=dk, dv=dv).items()}
+    sizes = (b, sq, skv, h, d, 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    sym = {e: BWD_SYMBOLS[e, q.dtype] for e in BWD_ENTRIES}
+    BWD_KERNEL.launch(sym["prep"], ptr["q"], ptr["k"], ptr["o"], ptr["do"], ptr["lse"],
+                      ptr["delta"], *sizes)
+    BWD_KERNEL.launch(sym["dkdv"], ptr["q"], ptr["k"], ptr["v"], ptr["do"], ptr["lse"],
+                      ptr["delta"], ptr["dk"], ptr["dv"], *sizes)
+    BWD_KERNEL.launch(sym["dq"], ptr["q"], ptr["k"], ptr["v"], ptr["do"], ptr["lse"],
+                      ptr["delta"], ptr["dq"], *sizes)
+    return dq, dk, dv

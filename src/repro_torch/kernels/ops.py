@@ -24,7 +24,11 @@ have more than one entry in their one source:
   deepseek-v2-lite's MLA prefill), and D 80 (ViT-H/14) zero-padded to
   128 there; float32 and bf16 of other head dims
   on the CUDA cores (the rule is
-  :func:`repro_torch.kernels.flash_attention.choose_route`).
+  :func:`repro_torch.kernels.flash_attention.choose_route`). Under
+  autograd its gradient is the sixth library,
+  ``csrc/flash_attention_bwd.cu`` (``prep``, ``dkdv``, ``dq``; non-causal,
+  Hq == Hkv, D <= 128; ``flash_attention.BWD_KERNEL``). A CPU tensor's
+  gradient is autograd's of ``ref.attention``.
 - ``int8_matmul`` (``csrc/int8_matmul.cu``): the s8 tensor cores where
   K and N are multiples of 16, dp4a on the CUDA cores otherwise (the
   rule is :func:`repro_torch.kernels.int8_matmul.choose_route`).
@@ -45,7 +49,8 @@ from repro_torch.kernels import kmeans_assign as _kmeans
 from repro_torch.kernels import ref
 from repro_torch.kernels import tile_moments as _moments
 
-KERNELS = (_moments.KERNEL, _kmeans.KERNEL, _iou.KERNEL, _flash.KERNEL, _int8.KERNEL)
+KERNELS = (_moments.KERNEL, _kmeans.KERNEL, _iou.KERNEL, _flash.KERNEL, _int8.KERNEL,
+           _flash.BWD_KERNEL)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

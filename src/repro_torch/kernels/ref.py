@@ -49,6 +49,20 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return out.reshape(b, sq, hq, d).to(q.dtype)
 
 
+def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
+                  do: torch.Tensor):
+    """The plain version of ``flash_attention_bwd``: (dq, dk, dv) of
+    non-causal :func:`attention` against the output gradient ``do``, by
+    ``torch.autograd.grad`` through its arithmetic (q scaled in float32
+    and rounded, float32 products and softmax, the weights cast to
+    ``v.dtype``), each in its input's dtype. ``o``, the forward's output
+    that the kernel reads, is recomputed here."""
+    del o
+    with torch.enable_grad():
+        qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
+        return torch.autograd.grad(attention(qq, kk, vv), (qq, kk, vv), do)
+
+
 def tile_moments(tiles: torch.Tensor) -> torch.Tensor:
     """Color moments featurizer (paper §III-C): per tile and channel the
     mean, ``sqrt(m2 + 1e-12)`` and ``cbrt(m3)``, with m2 and m3 taken

@@ -1,12 +1,13 @@
-"""ConvNeXt of the port (ConvNeXt-B): serving.
+"""ConvNeXt of the port (ConvNeXt-B): serving and training.
 
 Counterpart of ``repro/models/convnext.py``: a 4x4 stride-4 patchify
 stem and its LayerNorm, four stages of blocks (7x7 depthwise SAME conv,
 LayerNorm, inverted MLP with GELU, a layer scale ``gamma``, a residual),
 a LayerNorm and 2x2 stride-2 VALID conv between stages, global average
 pooling, LayerNorm and a linear head. No kernel of the port: the
-convolutions and products are cuDNN's and cuBLAS's. The backward is not
-ported.
+convolutions and products are cuDNN's and cuBLAS's.
+``forward(..., train=True)`` wraps each block in ``layers.remat`` as the
+reference does (``cfg.remat``); the backward is autograd's.
 
 Parameters are a dict of tensors in the reference's layout: HWIO convs
 (the depthwise ones (7, 7, 1, C), run with ``groups=C``), dense weights
@@ -76,14 +77,19 @@ def _block(p: dict, x: torch.Tensor) -> torch.Tensor:
     return x + p["gamma"] * h
 
 
-def forward(params: dict, cfg: VisionConfig, images: torch.Tensor) -> torch.Tensor:
-    """images (B, H, W, 3) -> logits (B, n_classes) float32."""
+def forward(params: dict, cfg: VisionConfig, images: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
+    """images (B, H, W, 3) -> logits (B, n_classes) float32. A stage's
+    block j reads slice j of its stacked leaves (unbound once); ``train``
+    rematerializes each block where ``cfg.remat`` asks (the numbers are
+    the same)."""
     x = L.conv2d(images.to(_dt(cfg)), params["stem_w"], stride=4,
                  padding="VALID") + params["stem_b"]
     x = L.layernorm(x, params["stem_ln_s"], params["stem_ln_b"])
+    block = L.remat(_block, cfg, train)
     for i, stage in enumerate(params["stages"]):
-        for j in range(stage["dw"].shape[0]):
-            x = _block({k: a[j] for k, a in stage.items()}, x)
+        for p in L.unstack(stage):
+            x = block(p, x)
         if i < len(params["downs"]):
             d = params["downs"][i]
             x = L.layernorm(x, d["ln_s"], d["ln_b"])

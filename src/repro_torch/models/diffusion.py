@@ -1,5 +1,6 @@
-"""Diffusion sampling of the port, shared by DiT and the UNet: the
-cosine noise schedule, ``add_noise`` and the deterministic DDIM sampler.
+"""Diffusion sampling and training of the port, shared by DiT and the
+UNet: the cosine noise schedule, ``add_noise``, the eps-prediction
+``train_loss`` and the deterministic DDIM sampler.
 
 Counterpart of ``repro/models/diffusion.py``. The schedule is the
 reference's float32 table bit for bit: XLA's CPU ``cos`` is glibc's
@@ -14,8 +15,10 @@ step), where the reference scans: the timesteps and the schedule's
 coefficients are host floats, each the reference's float32 value, so a
 step never syncs with the card. ``sample`` takes its starting noise from
 the caller, who draws it with an explicit ``torch.Generator`` (the
-tests pass the reference's own array). ``train_loss`` is not ported: it
-needs the models' backward.
+tests pass the reference's own array). ``train_loss`` takes its
+timesteps and noise from the caller too, where the reference draws them
+from a JAX key inside: ``draw_train_inputs`` draws them from an explicit
+generator (the tests derive the key's own).
 """
 from __future__ import annotations
 
@@ -59,6 +62,27 @@ def add_noise(latents: torch.Tensor, noise: torch.Tensor, t: torch.Tensor) -> to
     int in [0, N)."""
     a = alphas_cumprod(device=latents.device)[t][:, None, None, None]
     return torch.sqrt(a) * latents + torch.sqrt(1 - a) * noise
+
+
+def draw_train_inputs(latents: torch.Tensor, gen: torch.Generator):
+    """A training step's draws, from ``gen`` on the latents' device ->
+    (t (B,) int32 uniform in [0, N_TRAIN_STEPS), noise float32 standard
+    normal of the latents' shape)."""
+    t = torch.randint(0, N_TRAIN_STEPS, (latents.shape[0],), generator=gen,
+                      device=latents.device, dtype=torch.int32)
+    noise = torch.randn(latents.shape, generator=gen, device=latents.device,
+                        dtype=torch.float32)
+    return t, noise
+
+
+def train_loss(eps_fn: Callable, latents: torch.Tensor, t: torch.Tensor,
+               noise: torch.Tensor) -> torch.Tensor:
+    """The eps-prediction loss of ``repro/models/diffusion.py``'s
+    ``train_loss`` on the caller's ``t`` and ``noise``: x_t =
+    ``add_noise`` of the latents in float32, eps = eps_fn(x_t, t), then
+    mean((eps - noise)^2), a 0-d float32 tensor."""
+    x_t = add_noise(latents.float(), noise, t)
+    return torch.mean(torch.square(eps_fn(x_t, t) - noise))
 
 
 def _coefs(t: int):

@@ -1,14 +1,18 @@
-"""DiT (Diffusion Transformer, DiT-S/2) of the port: serving.
+"""DiT (Diffusion Transformer, DiT-S/2) of the port: serving and
+training.
 
 Counterpart of ``repro/models/dit.py``: patchified VAE latents (a stub
 VAE: 8x downsample, 4 channels) plus a 2-D sin-cos position embedding,
 adaLN-Zero blocks conditioned on the timestep and class embedding,
 multi-head self-attention and a GELU MLP, a final adaLN and a linear
-unpatchify to (eps, sigma). The backward is not ported.
+unpatchify to (eps, sigma). ``forward(..., train=True)`` wraps each
+block in ``layers.remat`` as the reference does (``cfg.remat``); the
+backward is autograd's, through the ``flash_attention`` kernel's own.
 
 Parameters are a dict of tensors in the reference's layout: dense
 weights (d_in, d_out) used as ``x @ w``, the blocks' leaves stacked on a
-leading layer axis under ``blocks``; the layers run in a Python loop.
+leading layer axis under ``blocks``; the layers run in a Python loop
+over the stack unbound once (``layers.unstack``).
 ``init`` zeroes the adaLN-Zero leaves (``ADALN_ZERO``) as the reference
 does, so a forward from it returns exactly 0. Attention goes through
 ``ops.attention`` (on CUDA in bf16 the ``flash_attention`` kernel's
@@ -129,15 +133,17 @@ def embed(params: dict, cfg: DiffusionConfig, latents: torch.Tensor, t: torch.Te
 
 
 def forward(params: dict, cfg: DiffusionConfig, latents: torch.Tensor, t: torch.Tensor,
-            y: torch.Tensor):
+            y: torch.Tensor, train: bool = False):
     """latents (B, Hl, Wl, C), t (B,) timesteps, y (B,) class ids ->
     (eps, sigma), each (B, Hl, Wl, C) float32. Layer i reads slice i of
-    the stacked block leaves."""
+    the stacked block leaves; ``train`` rematerializes each block where
+    ``cfg.remat`` asks (the numbers are the same)."""
     b, hl, wl, c = latents.shape
     p = cfg.patch
     x, cond = embed(params, cfg, latents, t, y)
-    for i in range(cfg.n_layers):
-        x = _block({k: a[i] for k, a in params["blocks"].items()}, cfg, x, cond)
+    block = L.remat(lambda pb, xb: _block(pb, cfg, xb, cond), cfg, train)
+    for pb in L.unstack(params["blocks"]):
+        x = block(pb, x)
     ada = L.silu(cond) @ params["final_ada_w"] + params["final_ada_b"]
     sh, sc = torch.chunk(ada, 2, dim=-1)
     x = _modulate(_ln(x), sh, sc) @ params["final_w"] + params["final_b"]

@@ -1,6 +1,7 @@
 """Neural-net primitives of the port: initializers, convolution (NHWC/
 HWIO at the boundary), RMSNorm, LayerNorm, GroupNorm, BatchNorm, RoPE,
-SwiGLU, the GELU MLP and the sinusoidal embedding.
+SwiGLU, the GELU MLP, the sinusoidal embedding, and the training
+forward's helpers (``unstack`` of a layer stack, ``remat`` of a block).
 
 Counterpart of ``repro/models/layers.py``. Tensors keep JAX's layout at
 the public functions: activations NHWC and weights HWIO for the
@@ -12,10 +13,13 @@ op by op in the input's dtype, as XLA expands them.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 
 def truncated_normal(gen: torch.Generator, shape, stddev: float,
@@ -202,3 +206,38 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0)
     freqs = torch.exp(torch.tensor(-math.log(max_period), dtype=torch.float32) * i / half)
     args = t.float()[:, None] * freqs[None]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+def unstack(stack: dict) -> list:
+    """A dict of layer-stacked leaves (n, ...) -> n dicts of one layer's
+    slices, each leaf unbound once: under autograd ``torch.unbind``'s
+    backward stacks the n slices' gradients in one copy, where indexing
+    ``a[i]`` a layer makes a zero gradient of the whole stack for each."""
+    keys = list(stack)
+    return [dict(zip(keys, parts)) for parts in zip(*(torch.unbind(stack[k]) for k in keys))]
+
+
+# the ops whose outputs a rematerialized block keeps: matrix products and
+# convolutions, as they reach the dispatcher (``x @ w`` is mm or bmm,
+# ``F.conv2d`` is convolution)
+_DOTS = frozenset({torch.ops.aten.mm.default, torch.ops.aten.addmm.default,
+                   torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default,
+                   torch.ops.aten.convolution.default})
+
+
+def _dots_saveable(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOTS else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def remat(fn, cfg, train: bool):
+    """``fn`` as the reference's models wrap a block: where ``train`` and
+    ``cfg.remat != "none"``, a checkpoint (``torch.utils.checkpoint``, not
+    reentrant) whose policy keeps the outputs of matrix products and
+    convolutions and recomputes the rest in the backward (JAX's
+    ``dots_saveable``, which the reference applies for every remat value
+    but "none"); else ``fn`` itself. The recompute runs the same ops on
+    the same inputs, so the gradients are those without it."""
+    if not train or cfg.remat == "none":
+        return fn
+    context = functools.partial(create_selective_checkpoint_contexts, _dots_saveable)
+    return functools.partial(checkpoint, fn, use_reentrant=False, context_fn=context)

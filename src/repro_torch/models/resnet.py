@@ -1,5 +1,5 @@
-"""ResNet of the port (ResNet-152): serving, and the forward's BatchNorm
-statistics.
+"""ResNet of the port (ResNet-152): serving and training, with the
+forward's BatchNorm statistics.
 
 Counterpart of ``repro/models/resnet.py``: a 7x7 stride-2 SAME stem
 conv, BatchNorm and ReLU, a 3x3 stride-2 SAME max-pool (XLA's
@@ -7,8 +7,9 @@ conv, BatchNorm and ReLU, a 3x3 stride-2 SAME max-pool (XLA's
 of bottleneck blocks (1x1, 3x3 carrying the stage's stride, 1x1, each
 with BatchNorm; a projection on each stage's first block), global
 average pooling and a linear head. No kernel of the port: the
-convolutions and products are cuDNN's and cuBLAS's. The backward is not
-ported.
+convolutions and products are cuDNN's and cuBLAS's; the backward is
+autograd's. ``forward(..., train=True)`` wraps each bottleneck in
+``layers.remat`` as the reference does (``cfg.remat``).
 
 BatchNorm is functional, as in the reference: ``params`` hold each
 norm's (scale, bias), a separate ``state`` its running (mean, var) in
@@ -108,7 +109,8 @@ def forward(params: dict, state: dict, cfg: VisionConfig, images: torch.Tensor,
             train: bool = False):
     """images (B, H, W, 3) -> (logits (B, n_classes) float32, the new
     running statistics: updated with the batch's if ``train``, else
-    ``state``'s)."""
+    ``state``'s). ``train`` also rematerializes each bottleneck where
+    ``cfg.remat`` asks (the numbers are the same)."""
     x = L.conv2d(images.to(_dt(cfg)), params["stem_w"], stride=2)
     x, stem_s = _bn(x, params["stem_bn"], state["stem_bn"], train)
     x = L.max_pool_same(torch.relu(x), 3, 2)
@@ -116,7 +118,10 @@ def forward(params: dict, state: dict, cfg: VisionConfig, images: torch.Tensor,
     for i, (stage_p, stage_s) in enumerate(zip(params["stages"], state["stages"])):
         new_stage = []
         for b, (p, s) in enumerate(zip(stage_p, stage_s)):
-            x, ns = _bottleneck(p, s, x, 2 if (b == 0 and i > 0) else 1, train)
+            stride = 2 if (b == 0 and i > 0) else 1
+            block = L.remat(lambda p, s, x, stride=stride: _bottleneck(p, s, x, stride, train),
+                            cfg, train)
+            x, ns = block(p, s, x)
             new_stage.append(ns)
         new_state["stages"].append(new_stage)
     x = torch.mean(x, dim=(1, 2))

@@ -1,4 +1,4 @@
-"""SD-1.5-class UNet of the port: serving.
+"""SD-1.5-class UNet of the port: serving and training.
 
 Counterpart of ``repro/models/unet.py``: res blocks with the time
 embedding, spatial transformer blocks (self-attention, cross-attention
@@ -6,7 +6,10 @@ over a ``ctx_len`` text context, a GEGLU feed-forward) at the configured
 levels, a skip-connected encoder and decoder (stride-2 SAME downsample,
 2x nearest upsample). The modality frontends are stubs: the model takes
 VAE latents (img_res / 8, 4 channels) and precomputed text embeddings
-(B, ctx_len, ctx_dim). The backward is not ported.
+(B, ctx_len, ctx_dim). ``forward(..., train=True)`` wraps each down
+and up block (not the mid block) in ``layers.remat`` as the reference
+does (``cfg.remat``); the backward is autograd's, through the
+``flash_attention`` kernel's own.
 
 Parameters are the reference's tree: dicts of tensors, the stages and
 their blocks in lists; convolutions HWIO, dense weights (d_in, d_out)
@@ -191,15 +194,19 @@ def time_embedding(params: dict, cfg: DiffusionConfig, t: torch.Tensor) -> torch
 
 
 def forward(params: dict, cfg: DiffusionConfig, latents: torch.Tensor, t: torch.Tensor,
-            ctx: torch.Tensor) -> torch.Tensor:
+            ctx: torch.Tensor, train: bool = False) -> torch.Tensor:
     """latents (B, Hl, Wl, 4), t (B,), ctx (B, ctx_len, ctx_dim) -> eps
-    (B, Hl, Wl, 4) float32."""
+    (B, Hl, Wl, 4) float32. ``train`` rematerializes each down and up
+    block where ``cfg.remat`` asks (the numbers are the same)."""
     temb = time_embedding(params, cfg, t)
+    block = L.remat(_block, cfg, train)
+    up_block = L.remat(lambda blk, h, skip: _block(blk, torch.cat([h, skip], dim=-1), temb, ctx),
+                       cfg, train)
     h = L.conv2d(latents.to(_dt(cfg)), params["conv_in"])
     skips = [h]
     for stage in params["down"]:
         for blk in stage["blocks"]:
-            h = _block(blk, h, temb, ctx)
+            h = block(blk, h, temb, ctx)
             skips.append(h)
         if "down_w" in stage:
             h = L.conv2d(h, stage["down_w"], stride=2)
@@ -208,7 +215,7 @@ def forward(params: dict, cfg: DiffusionConfig, latents: torch.Tensor, t: torch.
     h = _res(m["res2"], _xformer(m["attn"], _res(m["res1"], h, temb), ctx), temb)
     for stage in params["up"]:
         for blk in stage["blocks"]:
-            h = _block(blk, torch.cat([h, skips.pop()], dim=-1), temb, ctx)
+            h = up_block(blk, h, skips.pop())
         if "up_w" in stage:
             h = L.conv2d(upsample2x(h), stage["up_w"])
     h = L.silu(L.groupnorm(h, params["gn_out_s"], params["gn_out_b"]))

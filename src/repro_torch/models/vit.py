@@ -1,15 +1,18 @@
-"""Vision Transformer of the port (ViT-L/16, ViT-H/14): serving.
+"""Vision Transformer of the port (ViT-L/16, ViT-H/14): serving and
+training.
 
 Counterpart of ``repro/models/vit.py``: patchify by a VALID conv, a cls
 token, learned position embeddings (resized bilinearly, as
 ``jax.image.resize``, for another resolution than init's), pre-norm
 blocks of multi-head attention and a GELU MLP, a final LayerNorm and a
-linear head on the cls token. The backward is not ported.
+linear head on the cls token. ``forward(..., train=True)`` wraps each
+block in ``layers.remat`` as the reference does (``cfg.remat``); the
+backward is autograd's, through the ``flash_attention`` kernel's own.
 
 Parameters are a dict of tensors in the reference's layout: the patch
 conv HWIO, dense weights (d_in, d_out) used as ``x @ w``, the blocks'
 leaves stacked on a leading layer axis under ``blocks``. The layers run
-in a Python loop. Attention goes through ``ops.attention`` (on CUDA the
+in a Python loop over the stack unbound once (``layers.unstack``). Attention goes through ``ops.attention`` (on CUDA the
 ``flash_attention`` kernel's tensor-core entry in bf16: ViT-L/16's heads
 of 64 natively, ViT-H/14's heads of 80 zero-padded to 128 by the
 wrapper).
@@ -109,11 +112,14 @@ def embed(params: dict, cfg: VisionConfig, images: torch.Tensor) -> torch.Tensor
     return torch.cat([cls, x], dim=1) + pos
 
 
-def forward(params: dict, cfg: VisionConfig, images: torch.Tensor) -> torch.Tensor:
+def forward(params: dict, cfg: VisionConfig, images: torch.Tensor,
+            train: bool = False) -> torch.Tensor:
     """images (B, H, W, 3) -> logits (B, n_classes) float32. Layer i
-    reads slice i of the stacked block leaves."""
+    reads slice i of the stacked block leaves; ``train`` rematerializes
+    each block where ``cfg.remat`` asks (the numbers are the same)."""
     x = embed(params, cfg, images)
-    for i in range(cfg.n_layers):
-        x = _block({k: a[i] for k, a in params["blocks"].items()}, cfg, x)
+    block = L.remat(lambda p, xb: _block(p, cfg, xb), cfg, train)
+    for p in L.unstack(params["blocks"]):
+        x = block(p, x)
     x = L.layernorm(x, params["ln_f_s"], params["ln_f_b"])
     return (x[:, 0, :] @ params["head"]).float()
