@@ -12,7 +12,9 @@ nothing of JAX or of the reference package ``repro``. Phases:
    spills of each kernel entry (a spill, a serialized ``wgmma`` or an
    ignored ``setmaxnreg`` in the tensor-core ``flash_attention``, a
    missing instantiation of it at D 64, 128 or 192, or a spill or a
-   missing one of the 12 entries of its backward, fails the run);
+   missing entry of either backward library (the CUDA-core one's 12, the
+   tensor-core one's prep and its dkdv and dq at D 64, 80 and 128), fails
+   the run);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at ragged ones (a bf16
    ``flash_attention`` also against the plain version on its inputs
@@ -42,13 +44,16 @@ nothing of JAX or of the reference package ``repro``. Phases:
    card could take (``bound_ms``) and, where one PyTorch call computes
    the same function, that call (``library_ms``, a yardstick the port
    never calls); ``flash_attention``'s backward (the ``prep``, ``dkdv``
-   and ``dq`` entries of ``csrc/flash_attention_bwd.cu``, one launch each
-   a call, checked) against ``ref.attention_bwd`` at every attention
-   shape of phase 15's steps (ViT-L/16's 197 tokens, ViT-H/14's 257 at D
-   80, DiT-S/2's 256, the UNet's level 0 self-attention, its
-   cross-attention to 77 keys, 64 and 16 queries; bf16) and ragged
-   float32 and bf16 ones, two calls bit-equal, each entry also timed
-   alone, beside the backward of ``scaled_dot_product_attention``; and
+   and ``dq`` entries of ``csrc/flash_attention_bwd_sm90.cu`` for bf16 at
+   D 64, 80 and 128, reading the forward's log-sum-exp, or of
+   ``csrc/flash_attention_bwd.cu`` otherwise, one launch each a call,
+   checked) against ``ref.attention_bwd`` at every attention shape of
+   phase 15's steps (ViT-L/16's 197 tokens, ViT-H/14's 257 at D 80,
+   DiT-S/2's 256, the UNet's level 0 self-attention, its cross-attention
+   to 77 keys, 64 and 16 queries; bf16) and ragged float32 and bf16 ones,
+   two calls bit-equal, each entry also timed alone, beside the backward
+   of ``scaled_dot_product_attention``; every tensor-core case also forced
+   onto the CUDA-core entries (checked the same, and slower: checked); and
    ``int8_matmul``'s one path, ``ops.int8_matmul`` at the kernel bench's
    shape, on the tensor-core entry;
 3. the Mission at full width: the ``targetfuse-space`` and
@@ -208,8 +213,8 @@ phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
 monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
 forwards of phase 13, the diffusion samples of phase 14a-b, the first
 training step of each model in phase 15 and ``int8_matmul``'s one path;
-``flash_attention``'s entries include its backward's six, from
-``csrc/flash_attention_bwd.cu``),
+``flash_attention``'s entries include its backward's nine, from
+``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``),
 then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
 {...}}``. Any failure exits non-zero before that last line.
@@ -352,19 +357,21 @@ def zoo_zero_grad(cfg, path: str) -> bool:
     leaf = path.rsplit("/", 1)[-1]
     return cfg.kind == "unet" and (leaf.startswith("temb_") or leaf in ("t_w1", "t_b1", "t_w2",
                                                                          "t_b2"))
-# phase 2: flash_attention's backward (csrc/flash_attention_bwd.cu) against
-# ref.attention_bwd. float32: atol and rtol FLASH_BWD_F32_TOL, the
-# forward's contract. bf16: each of dq, dk, dv within relative norm
-# FLASH_BWD_BF16_RNORM of the plain version in bf16 (it rounds the scaled
-# q, the weights and their gradient to bf16 where the kernel keeps
-# float32), and within FLASH_BWD_UPCAST_RNORM of the plain gradient of the
-# inputs upcast to float32: the kernel rounds its outputs once, and reads
-# the forward's bf16 output for Delta = rowsum(dO * O), which moves dq and
-# dk near 0 by more than an elementwise rtol of 2^-7 allows (measured on
-# the CPU emulation: relative norm 1.7e-3, dv elementwise within 3.9e-3 of
-# each value; on the H100 1.658e-3 to 1.846e-3, the largest at the
-# 16-query mid block, every dv elementwise within 3.88e-3): the gate is
-# twice the largest
+# phase 2: flash_attention's backward (csrc/flash_attention_bwd_sm90.cu and
+# csrc/flash_attention_bwd.cu) against ref.attention_bwd. float32: atol and
+# rtol FLASH_BWD_F32_TOL, the forward's contract. bf16: each of dq, dk, dv
+# within relative norm FLASH_BWD_BF16_RNORM of the plain version in bf16 (it
+# rounds the scaled q, the weights and their gradient to bf16 where the
+# kernels keep float32), and within FLASH_BWD_UPCAST_RNORM of the plain
+# gradient of the inputs upcast to float32: the kernels round their outputs
+# once, and read the forward's bf16 output for Delta = rowsum(dO * O), which
+# moves dq and dk near 0 by more than an elementwise rtol of 2^-7 allows
+# (the CUDA-core route, float32 inside, on the CPU emulation: relative norm
+# 1.7e-3, dv elementwise within 3.9e-3 of each value; on the H100 1.658e-3
+# to 1.846e-3, the largest at the 16-query mid block, every dv elementwise
+# within 3.88e-3): the gate is twice the largest. The tensor-core route
+# also rounds P and dS to bf16 for their products (2.2e-3 to 2.7e-3 in its
+# emulation, tests/test_torch_flash_bwd_tc.py) under the same gate
 FLASH_BWD_F32_TOL = 2e-5
 FLASH_BWD_BF16_RNORM = 3e-2
 FLASH_BWD_UPCAST_RNORM = 3.7e-3
@@ -782,11 +789,19 @@ INT8_TC_ENTRY = "int8_tc_kernel"  # the tensor-core int8_matmul kernel
 def ptxas_report(logs: dict):
     """Registers, spills and shared memory of every kernel entry, from
     ptxas's report in this run's build. Fails if a tensor-core entry of
-    ``flash_attention`` or ``int8_matmul`` spills, if ptxas serializes a
-    ``wgmma`` or ignores a ``setmaxnreg``, or if an instantiation of
-    ``flash_tc_kernel`` (one a head dim of ``TENSOR_CORE_D``) is missing
-    from the report."""
-    from repro_torch.kernels.flash_attention import TENSOR_CORE_D
+    ``flash_attention`` or ``int8_matmul`` or any entry of its backward
+    spills, if ptxas serializes a ``wgmma`` or ignores a ``setmaxnreg``, if
+    an instantiation of ``flash_tc_kernel`` (one a head dim of
+    ``TENSOR_CORE_D``) or of the tensor-core backward's (one a head dim of
+    ``TENSOR_CORE_BWD_D``) is missing from the report, or if a backward
+    library reports another number of entries."""
+    from repro_torch.kernels.flash_attention import TENSOR_CORE_BWD_D, TENSOR_CORE_D
+    # flash_attention's backward libraries -> their kernel entries:
+    # csrc/flash_attention_bwd.cu's 3 kernels x (float32, bf16) x (DP 64,
+    # 128), csrc/flash_attention_bwd_sm90.cu's prep and its dkdv and dq at
+    # each head dim of TENSOR_CORE_BWD_D; none may spill
+    bwd_libs = {"flash_attention_bwd": 3 * 2 * 2,
+                "flash_attention_bwd_sm90": 1 + 2 * len(TENSOR_CORE_BWD_D)}
     if "flash_attention" not in logs:
         print("ptxas: flash_attention was built by an earlier run, no report to check", flush=True)
     for name, log in logs.items():
@@ -799,7 +814,7 @@ def ptxas_report(logs: dict):
                 spill = line
             elif line.startswith("ptxas info") and ": Used " in line:
                 print(f"ptxas {name} {entry}: {line.split(': ', 1)[1]}; {spill}", flush=True)
-                if TC_ENTRY in entry or INT8_TC_ENTRY in entry or name == "flash_attention_bwd":
+                if TC_ENTRY in entry or INT8_TC_ENTRY in entry or name in bwd_libs:
                     check("0 bytes spill stores, 0 bytes spill loads" in spill,
                           f"ptxas: {entry} spills ({spill})")
             if "wgmma" in line and "serializ" in line:
@@ -816,11 +831,18 @@ def ptxas_report(logs: dict):
                   f"ptxas reported no {TC_ENTRY}<{d}, 64> (entries {entries})")
     if "int8_matmul" in logs:
         check(INT8_TC_ENTRY in logs["int8_matmul"], "ptxas reported no int8 tensor-core entry")
-    if "flash_attention_bwd" in logs:   # 3 kernels x (float32, bf16) x (DP 64, 128)
-        entries = [line.split("'")[1] for line in logs["flash_attention_bwd"].splitlines()
+    for name, want in bwd_libs.items():
+        if name not in logs:
+            continue
+        entries = [line.split("'")[1] for line in logs[name].splitlines()
                    if "Compiling entry function" in line]
-        check(len(entries) == 12 and all("bwd_" in e for e in entries),
-              f"ptxas reported {len(entries)} backward entries, not 12: {entries}")
+        check(len(entries) == want and all("bwd_" in e for e in entries),
+              f"ptxas reported {len(entries)} entries of {name}, not {want}: {entries}")
+    if "flash_attention_bwd_sm90" in logs:   # each tensor-core kernel at each head dim
+        log = logs["flash_attention_bwd_sm90"]
+        for kern in ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel"):
+            for d in TENSOR_CORE_BWD_D:
+                check(f"{kern}ILi{d}E" in log, f"ptxas reported no {kern}<{d}>")
 
 
 def int8_args(g, dev, m, k, n):
@@ -937,23 +959,27 @@ def flash_bwd_cases():
             ("unet-sd15 train_256 mid block (16 queries)", (bu, 16, 16, 20, 64), bf16),
             ("ragged", (2, 200, 200, 4, 64), f32), ("ragged D 80", (2, 197, 77, 3, 80), f32),
             ("one query", (1, 1, 100, 2, 16), f32), ("ragged D 128", (2, 130, 65, 4, 128), f32),
-            ("ragged D 128", (2, 100, 300, 4, 128), bf16)]
+            ("ragged D 128", (2, 100, 300, 4, 128), bf16), ("ragged D 80", (2, 197, 77, 3, 80), bf16),
+            ("one query", (1, 1, 100, 2, 64), bf16), ("D 96", (2, 130, 70, 2, 96), bf16)]
 
 
-def bwd_entry_ms(q, k, v, o, do, reps: int) -> dict:
-    """Each backward entry's device ms in ``flash_attention_bwd``, by a
+def bwd_entry_ms(q, k, v, o, do, lse, route, reps: int) -> dict:
+    """Each entry's device ms in ``flash_attention_bwd`` on ``route``, by a
     CUDA event recorded after each of its launches, over ``reps`` calls
     queued behind ``torch.cuda._sleep``."""
     import torch
     from repro_torch.kernels import flash_attention as fa
-    lib = fa.BWD_KERNEL
+    lib = fa.BWD_TC_KERNEL if route == fa.TENSOR_CORE else fa.BWD_KERNEL
     marks, launch = [], lib.launch
 
     def marked(symbol, *args):
         launch(symbol, *args)
         marks.append((symbol, torch.cuda.Event(enable_timing=True)))
         marks[-1][1].record()
-    fa.flash_attention_bwd(q, k, v, o, do)   # warm-up
+
+    def call():
+        fa.flash_attention_bwd(q, k, v, o, do, lse, route=route)
+    call()   # warm-up
     start = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     torch.cuda._sleep(50_000_000)
@@ -961,7 +987,7 @@ def bwd_entry_ms(q, k, v, o, do, reps: int) -> dict:
     lib.launch = marked   # on the instance, for these calls only
     try:
         for _ in range(reps):
-            fa.flash_attention_bwd(q, k, v, o, do)
+            call()
     finally:
         del lib.launch
     torch.cuda.synchronize()
@@ -977,70 +1003,56 @@ def rnorm(got, want) -> float:
     return ((got.double() - want.double()).norm() / want.double().norm()).item()
 
 
+def bwd_symbols(route, dt) -> dict:
+    """flash_attention_bwd's entries on ``route`` -> {entry: symbol}."""
+    from repro_torch.kernels import flash_attention as fa
+    if route == fa.TENSOR_CORE:
+        return dict(fa.BWD_TC_SYMBOLS)
+    return {e: fa.BWD_SYMBOLS[e, dt] for e in fa.BWD_ENTRIES}
+
+
 def phase_flash_bwd(dev, rows):
-    """Phase 2, flash_attention's backward: each case against
-    ``ref.attention_bwd`` (one launch of each of its three entries,
-    checked; two calls bit-equal, checked; the tolerances above), timed
-    with CUDA events beside its bound, the plain version and the backward
-    of ``scaled_dot_product_attention`` on the same inputs (autograd
-    through it, the forward outside the timing), each entry also alone.
-    The bound counts the five products the gradient needs (s, dP, dV, dK,
-    dQ: 10 B H Sq Skv D operations, at the inputs' type's peak) and each
-    input and output once; an entry's, the products it runs (prep 1, dkdv
-    4, dq 3). Adds the six entries to ``rows["flash_attention"]``."""
+    """Phase 2, flash_attention's backward: each case on its route
+    (``choose_bwd_route``: bf16 at D 64, 80 and 128 on the tensor-core
+    entries, reading the forward's log-sum-exp; the rest on the CUDA-core
+    ones) against ``ref.attention_bwd`` (one launch of each of its three
+    entries, checked; two calls bit-equal, checked; the tolerances above),
+    timed with CUDA events beside its bound, the plain version and the
+    backward of ``scaled_dot_product_attention`` on the same inputs
+    (autograd through it, the forward outside the timing), each entry also
+    alone. A tensor-core case also runs forced onto the CUDA-core entries
+    (the same checks), timed the same way. The bound counts the five
+    products the gradient needs (s, dP, dV, dK, dQ: 10 B H Sq Skv D
+    operations, at the inputs' type's peak) and each input and output
+    once; an entry's, the products it runs (CUDA cores: prep 1, dkdv 4, dq
+    3, 8 in all; tensor cores: prep 0, dkdv 4, dq 3, 7 in all) and its
+    bytes. Adds each route's entries to ``rows["flash_attention"]``."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    lib = fa.BWD_KERNEL
     entry_rows = {}
     for label, (b, sq, skv, h, d), dt in flash_bwd_cases():
         q, do = (torch.randn((b, sq, h, d), generator=g, device=dev).to(dt) for _ in range(2))
         k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).to(dt) for _ in range(2))
-        with torch.no_grad():   # the forward's output as the Function saves it
-            o = fa.flash_attention(q, k, v).contiguous()
+        route = fa.choose_bwd_route(dt, d)
+        with torch.no_grad():   # the forward's output (and lse) as the Function saves them
+            if route == fa.TENSOR_CORE:
+                o, lse = fa._forward(q, k, v, False, None, with_lse=True)
+                o = o.contiguous()
+            else:
+                o, lse = fa.flash_attention(q, k, v).contiguous(), None
         shape = f"{label}: q{(b, sq, h, d)} kv{(b, skv, h, d)} {str(dt)[6:]}"
-        want_syms = {fa.BWD_SYMBOLS[e, dt]: 1 for e in fa.BWD_ENTRIES}
-        before = dict(lib.symbol_launches)
-        got = fa.flash_attention_bwd(q, k, v, o, do)
-        again = fa.flash_attention_bwd(q, k, v, o, do)
-        torch.cuda.synchronize()
-        took = {s_: n - before[s_] for s_, n in lib.symbol_launches.items() if n != before[s_]}
-        check(took == {s_: 2 for s_ in want_syms}, f"flash bwd {shape}: launched {took}")
-        same = all(bit_equal(a, b_) for a, b_ in zip(got, again))
-        del again
+        routes = [route] + ([fa.CUDA_CORE] if route == fa.TENSOR_CORE else [])
         t_plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t_plain[0].record()
         want = ref.attention_bwd(q, k, v, o, do)
         t_plain[1].record()
         torch.cuda.synchronize()
-        errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
-        if dt == torch.float32:
-            ok = all(torch.allclose(a, w, atol=FLASH_BWD_F32_TOL, rtol=FLASH_BWD_F32_TOL)
-                     for a, w in zip(got, want))
-            detail = f"max_abs_err dq/dk/dv {', '.join(f'{e:.3e}' for e in errs)} (atol, rtol " \
-                     f"{FLASH_BWD_F32_TOL:.0e})"
-        else:
-            rn = [rnorm(a, w) for a, w in zip(got, want)]
-            del want
-            exact = ref.attention_bwd(*(t.float() for t in (q, k, v, o)), do.float())
-            up = [rnorm(a, w) for a, w in zip(got, exact)]
-            rel = [((a.float() - w).abs() / (w.abs() + 1e-3 * w.abs().max())).max().item()
-                   for a, w in zip(got, exact)]
-            del exact
-            ok = max(rn) <= FLASH_BWD_BF16_RNORM and max(up) <= FLASH_BWD_UPCAST_RNORM
-            detail = (f"max_abs_err dq/dk/dv {', '.join(f'{e:.3e}' for e in errs)}; relative "
-                      f"norm against the plain version {', '.join(f'{x:.3e}' for x in rn)} "
-                      f"(limit {FLASH_BWD_BF16_RNORM:.0e}), against float32 upcast inputs "
-                      f"{', '.join(f'{x:.3e}' for x in up)} (limit {FLASH_BWD_UPCAST_RNORM:.0e}); "
-                      f"elementwise relative (atol 1e-3 of the max) {', '.join(f'{x:.3e}' for x in rel)}")
-        got = want = None
-        torch.cuda.empty_cache()
+        exact = (None if dt == torch.float32
+                 else ref.attention_bwd(*(t.float() for t in (q, k, v, o)), do.float()))
         big = b * h * sq * skv * d > 2e10
-        ms = cuda_ms(lambda: fa.flash_attention_bwd(q, k, v, o, do), reps=3 if big else 10,
-                     warmup=1)
-        entry_ms = bwd_entry_ms(q, k, v, o, do, reps=3 if big else 10)
         plain_ms = (t_plain[0].elapsed_time(t_plain[1]) if big
                     else cuda_ms(lambda: ref.attention_bwd(q, k, v, o, do), reps=3, warmup=1))
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
@@ -1054,23 +1066,78 @@ def phase_flash_bwd(dev, rows):
         rate = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
         io = 4 * (b * sq * h * d + b * skv * h * d) * es   # q, o, do, dq; k, v, dk, dv
         b_ms, b_by = bound_ms(io, 5 * unit, rate)
-        print(f"kernel flash_attention_bwd {shape}: {detail}; two calls bit-equal {same}; ms "
-              f"{ms:.4f} (prep {entry_ms['prep']:.4f}, dkdv {entry_ms['dkdv']:.4f}, dq "
-              f"{entry_ms['dq']:.4f}) plain_ms {plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) share "
-              f"{b_ms / ms:.3f} library_ms {lib_ms:.4f} (SDPA's backward)", flush=True)
-        check(ok, f"flash bwd {shape}: off the plain version ({detail})")
-        check(same, f"flash bwd {shape}: two calls differ")
-        entry_io = {"prep": (3 * b * sq * h * d + b * skv * h * d) * es + 8 * b * h * sq,
-                    "dkdv": (2 * b * sq * h * d + 4 * b * skv * h * d) * es + 8 * b * h * sq,
-                    "dq": (3 * b * sq * h * d + 2 * b * skv * h * d) * es + 8 * b * h * sq}
-        products = {"prep": 1, "dkdv": 4, "dq": 3}
-        for e in fa.BWD_ENTRIES:
-            e_ms, e_by = bound_ms(entry_io[e], products[e] * unit, rate)
-            entry_rows.setdefault(fa.BWD_SYMBOLS[e, dt], dict(
-                shape=shape, source="src/repro_torch/csrc/flash_attention_bwd.cu",
-                max_abs_err=max(errs), ms=entry_ms[e], plain_ms=plain_ms, bound_ms=e_ms,
-                bound_by=e_by, library_ms=lib_ms, backward_ms=ms, backward_bound_ms=b_ms))
-        del q, k, v, o, do
+        route_ms = {}
+        for r in routes:
+            lib = fa.BWD_TC_KERNEL if r == fa.TENSOR_CORE else fa.BWD_KERNEL
+            syms = bwd_symbols(r, dt)
+
+            def call():
+                return fa.flash_attention_bwd(q, k, v, o, do, lse, route=r)
+            before = dict(lib.symbol_launches)
+            got = call()
+            again = call()
+            torch.cuda.synchronize()
+            took = {s_: n - before[s_] for s_, n in lib.symbol_launches.items()
+                    if n != before[s_]}
+            check(took == {s_: 2 for s_ in syms.values()},
+                  f"flash bwd {shape} {r}: launched {took}")
+            same = all(bit_equal(a, b_) for a, b_ in zip(got, again))
+            del again
+            errs = [(a.float() - w.float()).abs().max().item() for a, w in zip(got, want)]
+            if dt == torch.float32:
+                ok = all(torch.allclose(a, w, atol=FLASH_BWD_F32_TOL, rtol=FLASH_BWD_F32_TOL)
+                         for a, w in zip(got, want))
+                detail = (f"max_abs_err dq/dk/dv {', '.join(f'{e:.3e}' for e in errs)} (atol, "
+                          f"rtol {FLASH_BWD_F32_TOL:.0e})")
+            else:
+                rn = [rnorm(a, w) for a, w in zip(got, want)]
+                up = [rnorm(a, w) for a, w in zip(got, exact)]
+                rel = [((a.float() - w).abs() / (w.abs() + 1e-3 * w.abs().max())).max().item()
+                       for a, w in zip(got, exact)]
+                ok = max(rn) <= FLASH_BWD_BF16_RNORM and max(up) <= FLASH_BWD_UPCAST_RNORM
+                detail = (f"max_abs_err dq/dk/dv {', '.join(f'{e:.3e}' for e in errs)}; relative "
+                          f"norm against the plain version {', '.join(f'{x:.3e}' for x in rn)} "
+                          f"(limit {FLASH_BWD_BF16_RNORM:.0e}), against float32 upcast inputs "
+                          f"{', '.join(f'{x:.3e}' for x in up)} (limit "
+                          f"{FLASH_BWD_UPCAST_RNORM:.0e}); elementwise relative (atol 1e-3 of "
+                          f"the max) {', '.join(f'{x:.3e}' for x in rel)}")
+            got = None
+            torch.cuda.empty_cache()
+            ms = cuda_ms(call, reps=3 if big else 10, warmup=1)
+            entry_ms = bwd_entry_ms(q, k, v, o, do, lse, r, reps=3 if big else 10)
+            route_ms[r] = ms
+            versus = ("" if r == route else
+                      f" (the {route} route {route_ms[route]:.4f}, {ms / route_ms[route]:.2f}x "
+                      f"faster)")
+            print(f"kernel flash_attention_bwd {shape} {r}: {detail}; two calls bit-equal "
+                  f"{same}; ms {ms:.4f} (prep {entry_ms['prep']:.4f}, dkdv "
+                  f"{entry_ms['dkdv']:.4f}, dq {entry_ms['dq']:.4f}){versus} plain_ms "
+                  f"{plain_ms:.4f} bound_ms {b_ms:.4f} ({b_by}) share {b_ms / ms:.3f} library_ms "
+                  f"{lib_ms:.4f} (SDPA's backward)", flush=True)
+            check(ok, f"flash bwd {shape} {r}: off the plain version ({detail})")
+            check(same, f"flash bwd {shape} {r}: two calls differ")
+            tc = r == fa.TENSOR_CORE
+            lse_io = 8 * b * h * (fa.lse_stride(sq) if tc else sq)   # lse and Delta
+            entry_io = {"prep": (2 * b * sq * h * d * es + lse_io // 2 if tc else
+                                 (3 * b * sq * h * d + b * skv * h * d) * es + lse_io),
+                        "dkdv": (2 * b * sq * h * d + 4 * b * skv * h * d) * es + lse_io,
+                        "dq": (3 * b * sq * h * d + 2 * b * skv * h * d) * es + lse_io}
+            products = {"prep": 0 if tc else 1, "dkdv": 4, "dq": 3}
+            source = f"src/repro_torch/csrc/{'flash_attention_bwd_sm90' if tc else 'flash_attention_bwd'}.cu"
+            for e, sym in syms.items():
+                e_ms, e_by = bound_ms(entry_io[e], products[e] * unit, rate)
+                entry_rows.setdefault(sym, dict(
+                    shape=shape, source=source, max_abs_err=max(errs), ms=entry_ms[e],
+                    plain_ms=plain_ms, bound_ms=e_ms, bound_by=e_by, library_ms=lib_ms,
+                    backward_ms=ms, backward_bound_ms=b_ms))
+        if len(routes) == 2:
+            print(f"flash_attention_bwd {shape}: tensor cores {route_ms[fa.TENSOR_CORE]:.4f} ms, "
+                  f"CUDA cores {route_ms[fa.CUDA_CORE]:.4f} ms, SDPA's backward {lib_ms:.4f} ms, "
+                  f"bound {b_ms:.4f} ms", flush=True)
+            check(route_ms[fa.TENSOR_CORE] < route_ms[fa.CUDA_CORE],
+                  f"flash bwd {shape}: the tensor-core route is not faster than the CUDA-core "
+                  f"one ({route_ms})")
+        del q, k, v, o, do, lse, want, exact
         torch.cuda.empty_cache()
     rows["flash_attention"]["entries"].update(entry_rows)
 
@@ -3052,8 +3119,7 @@ def zoo_train(dev, kernels, arch):
     took = {s_: n for k in kernels for s_, n in k.symbol_launches.items() if n}
     n_attn, n_again = zoo_attentions(cfg)
     want = {} if not n_attn else {
-        TC_SYMBOL: n_attn + n_again,
-        **{fa.BWD_SYMBOLS[e, torch.bfloat16]: n_attn for e in fa.BWD_ENTRIES}}
+        TC_SYMBOL: n_attn + n_again, **{sym: n_attn for sym in fa.BWD_TC_SYMBOLS.values()}}
     check(took == want, f"{arch}: flash launches by entry in a step {took}, not {want}")
     first_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
@@ -4057,12 +4123,12 @@ def main():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase diffusion serving: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    zoo_entries = phase_zoo_training(dev, [kernel["flash_attention"],
-                                           kernel["flash_attention_bwd"]])
+    bwd_libs = [kernel["flash_attention_bwd"], kernel["flash_attention_bwd_sm90"]]
+    zoo_entries = phase_zoo_training(dev, [kernel["flash_attention"], *bwd_libs])
     # the row's top-level count is csrc/flash_attention.cu's (the forward);
-    # the backward library's launches stand under its own entries
+    # the backward libraries' launches stand under their own entries
     launches["flash_attention"] += sum(n for sym, n in zoo_entries.items()
-                                       if sym not in kernel["flash_attention_bwd"].symbol_launches)
+                                       if not any(sym in k.symbol_launches for k in bwd_libs))
     for sym, n in zoo_entries.items():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase zoo training: {time.perf_counter() - t0:.1f} s", flush=True)

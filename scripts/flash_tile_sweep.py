@@ -80,8 +80,8 @@ def launch(lib, q, k, v, causal):
     skv, hkv = k.shape[1], k.shape[2]
     out = torch.empty_like(q)
     err = lib.flash_attention_bf16_sm90(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), b, sq, skv, hq, hkv, d,
-        int(causal), 1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), None, b, sq, skv, hq, hkv, d,
+        int(causal), 0, 1.0 / math.sqrt(d), torch.cuda.current_stream().cuda_stream)
     if err:
         raise RuntimeError(f"flash_attention_bf16_sm90 failed with CUDA error {err}")
     return out
@@ -124,7 +124,7 @@ def main():
         for line in ptxas_lines(log):
             print(f"ptxas {name} {line}", flush=True)
         lib = ctypes.CDLL(str(path))
-        lib.flash_attention_bf16_sm90.argtypes = flash_attention._ARGS
+        lib.flash_attention_bf16_sm90.argtypes = flash_attention._TC_ARGS
         lib.flash_attention_bf16_sm90.restype = ctypes.c_int
         libs[name] = lib
     if not ok:

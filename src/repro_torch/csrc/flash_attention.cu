@@ -83,6 +83,11 @@
 // §6): D 128 on the producer-warpgroup layout is 13% slower with 64-key
 // tiles and no faster with 128 (where it still spills), and a third stage
 // gains about 1% at D 192, so the defaults stay.
+// With a non-null lse pointer (the training forward, whose gradient is
+// csrc/flash_attention_bwd_sm90.cu) the epilogue also writes each row's
+// log-sum-exp m + log2(l), float32 in log2 units; with null (inference)
+// nothing more is written. The TMA, mbarrier and wgmma helpers are in
+// sm90.cuh, shared with that backward.
 // Later work: ping-pong between the two consumer warpgroups, a persistent
 // grid, and the GQA heads of one kv head packed in a block.
 #include <cuda.h>
@@ -90,6 +95,8 @@
 #include <cuda_runtime.h>
 
 #include <cstdint>
+
+#include "sm90.cuh"
 
 namespace {
 
@@ -343,203 +350,6 @@ struct TcLayout {
 };
 constexpr int kTcProducerRegs = 24, kTcConsumerRegs = 240;
 
-template <int N>
-__device__ __forceinline__ void setmaxnreg_dec() {
-  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-template <int N>
-__device__ __forceinline__ void setmaxnreg_inc() {
-  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar), "r"(count) : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar) : "memory");
-}
-
-__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
-  uint32_t done;
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-      "selp.u32 %0, 1, 0, p;\n}\n"
-      : "=r"(done)
-      : "r"(bar), "r"(parity)
-      : "memory");
-  return done != 0;
-}
-
-__device__ __forceinline__ uint64_t global_ns() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
-  return t;
-}
-
-// wait until the phase of parity `parity` has completed. A phase that is
-// not done after 4 s (a load that never lands) traps: the launch fails
-// with an error instead of holding the card
-__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = global_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (global_ns() - t0 > 4000000000ull) __trap();
-}
-
-// one box of a 4-D tensor map (D, H, S, B) into shared memory, completing
-// on `bar`
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map, uint32_t bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.tile.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(bar)
-      : "memory");
-}
-
-// shared-memory matrix descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo, uint32_t sbo) {
-  return (uint64_t)((addr & 0x3FFFF) >> 4) | ((uint64_t)((lbo >> 4) & 0x3FFF) << 16) |
-         ((uint64_t)((sbo >> 4) & 0x3FFF) << 32) | (1ull << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_wait_all() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
-}
-// keep the compiler from moving reads or writes of accumulator registers
-// across the asynchronous products
-template <int N>
-__device__ __forceinline__ void fence_regs(float (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
-}
-template <int N>
-__device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
-#pragma unroll
-  for (int i = 0; i < N; ++i) asm volatile("" : "+r"(r[i])::"memory");
-}
-
-#define WG_F8(i)                                                                          \
-  "+f"(d[i + 0]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]),         \
-      "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-#define WG_ACC32 WG_F8(0), WG_F8(8), WG_F8(16), WG_F8(24)
-#define WG_ACC64 WG_ACC32, WG_F8(32), WG_F8(40), WG_F8(48), WG_F8(56)
-#define WG_ACC96 WG_ACC64, WG_F8(64), WG_F8(72), WG_F8(80), WG_F8(88)
-
-// wgmma m64nNk16, bf16 in, float32 accumulate, scale-d = 1:
-// ss: d (64 x N) += a (64 x 16) . b (16 x N), both from shared memory,
-//     K-major (no transpose);
-// rs: the same with a from registers and b N-major (transposed)
-template <int N>
-struct Wgmma;
-
-template <>
-struct Wgmma<64> {
-  static __device__ __forceinline__ void ss(float (&d)[32], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "%32, %33, p, 1, 1, 0, 0;\n}\n"
-        : WG_ACC32
-        : "l"(a), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[32], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-        "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-        : WG_ACC32
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-  }
-};
-
-template <>
-struct Wgmma<128> {
-  static __device__ __forceinline__ void ss(float (&d)[64], uint64_t a, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "%64, %65, p, 1, 1, 0, 0;\n}\n"
-        : WG_ACC64
-        : "l"(a), "l"(b), "r"(1));
-  }
-  static __device__ __forceinline__ void rs(float (&d)[64], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-        "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-        : WG_ACC64
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-  }
-};
-
-// N = 192 is only the second product's width (D 192); s = q . k stays N = BK
-template <>
-struct Wgmma<192> {
-  static __device__ __forceinline__ void rs(float (&d)[96], uint32_t a0, uint32_t a1,
-                                            uint32_t a2, uint32_t a3, uint64_t b) {
-    asm volatile(
-        "{\n.reg .pred p;\nsetp.ne.b32 p, %101, 0;\n"
-        "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
-        "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-        "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-        "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-        "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, "
-        "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
-        "{%96, %97, %98, %99}, %100, p, 1, 1, 1;\n}\n"
-        : WG_ACC96
-        : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "l"(b), "r"(1));
-  }
-};
-
-__device__ __forceinline__ uint32_t bf16x2_bits(__nv_bfloat162 x) {
-  return *reinterpret_cast<uint32_t*>(&x);
-}
-
-// the four lanes that share an accumulator row
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
-
 template <int D, int BK>
 constexpr int tc_smem_bytes() {
   // Q, then per stage K and V, each D/64 boxes of rows x 128 bytes; the
@@ -550,8 +360,9 @@ constexpr int tc_smem_bytes() {
 template <int D, int BK>
 __global__ void __launch_bounds__(TcLayout<D>::kThreads, 1)
 flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
-                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o, int sq,
-                int skv, int hq, int hkv, int causal, float scale_log2) {
+                const __grid_constant__ CUtensorMap tm_v, __nv_bfloat16* __restrict__ o,
+                float* __restrict__ lse, int sq, int skv, int hq, int hkv, int causal,
+                int lse_stride, float scale_log2) {
   using L = TcLayout<D>;
   constexpr int DB = D / 64;                      // 64-wide boxes of the head dim
   constexpr uint32_t kQBox = kTcBQ * 128;         // bytes of one Q box
@@ -727,49 +538,20 @@ flash_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant_
         *reinterpret_cast<__nv_bfloat162*>(ob + (row0 + 8) * row_stride + 8 * i + col) =
             __floats2bfloat162_rn(acc[4 * i + 2] / den1, acc[4 * i + 3] / den1);
     }
+    // the log-sum-exp of each row in log2 units, for the backward (the
+    // four lanes of a row hold the same m and l; one writes)
+    if (lse != nullptr && lane % 4 == 0) {
+      float* lb = lse + ((long long)b * hq + h) * lse_stride;
+      if (row0 < sq) lb[row0] = m0 + log2f(l0);
+      if (row0 + 8 < sq) lb[row0 + 8] = m1 + log2f(l1);
+    }
   }
-}
-
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-// libcuda's cuTensorMapEncodeTiled, looked up through the runtime (no -lcuda)
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t err = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                       cudaEnableDefault, &found);
-#else
-    cudaError_t err = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                              &found);
-#endif
-    if (err == cudaSuccess && found == cudaDriverEntryPointSuccess) fn = (EncodeTiled)p;
-  }
-  return fn;
-}
-
-// (B, S, H, D) contiguous bf16 as a 4-D map (D, H, S, B), box (64, 1, rows,
-// 1) under the 128-byte swizzle; rows past S read as zeros
-bool encode_bshd(EncodeTiled fn, CUtensorMap* map, const void* ptr, int b, int s, int h, int d,
-                 int rows) {
-  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)h, (cuuint64_t)s, (cuuint64_t)b};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)h * d * 2,
-                                 (cuuint64_t)s * h * d * 2};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1};
-  const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides, box,
-            elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
-int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int sq, int skv,
-              int hq, int hkv, int causal, float sm_scale, cudaStream_t stream) {
+int launch_tc(const void* q, const void* k, const void* v, void* o, void* lse, int b, int sq,
+              int skv, int hq, int hkv, int causal, int lse_stride, float sm_scale,
+              cudaStream_t stream) {
   EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv;
@@ -783,8 +565,9 @@ int launch_tc(const void* q, const void* k, const void* v, void* o, int b, int s
       cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(hq, b, (sq + kTcBQ - 1) / kTcBQ);
-  kernel<<<grid, TcLayout<D>::kThreads, bytes, stream>>>(tq, tk, tv, (__nv_bfloat16*)o, sq, skv,
-                                                         hq, hkv, causal, sm_scale * kLog2e);
+  kernel<<<grid, TcLayout<D>::kThreads, bytes, stream>>>(tq, tk, tv, (__nv_bfloat16*)o,
+                                                         (float*)lse, sq, skv, hq, hkv, causal,
+                                                         lse_stride, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
@@ -808,18 +591,24 @@ extern "C" int flash_attention_bf16(const void* q, const void* k, const void* v,
 
 // The tensor-core route: q: (b, sq, hq, d), k and v: (b, skv, hkv, d), o:
 // (b, sq, hq, d), contiguous bf16 with 16-byte aligned data, d 64, 128 or
-// 192, hq % hkv == 0, skv >= 1. Returns cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments it refuses or a tensor map that
-// cuTensorMapEncodeTiled refuses).
+// 192, hq % hkv == 0, skv >= 1. lse: null, or float32 (b, hq, lse_stride)
+// with lse_stride >= sq, where each row's log-sum-exp of s * sm_scale in
+// log2 units (m + log2(l)) is written for the backward
+// (flash_attention_bwd_sm90.cu); rows past sq are not written. Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments it refuses
+// or a tensor map that cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attention_bf16_sm90(const void* q, const void* k, const void* v, void* o,
-                                         int b, int sq, int skv, int hq, int hkv, int d,
-                                         int causal, float sm_scale, void* stream) {
+                                         void* lse, int b, int sq, int skv, int hq, int hkv,
+                                         int d, int causal, int lse_stride, float sm_scale,
+                                         void* stream) {
   if (b <= 0 || sq <= 0) return (int)cudaGetLastError();
   if (skv <= 0 || (d != 64 && d != 128 && d != 192) || hkv <= 0 || hq % hkv != 0 || b > 65535 ||
-      (sq + kTcBQ - 1) / kTcBQ > 65535)
+      (sq + kTcBQ - 1) / kTcBQ > 65535 || (lse != nullptr && lse_stride < sq))
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return launch_tc<64>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
-  if (d == 128) return launch_tc<128>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
-  return launch_tc<192>(q, k, v, o, b, sq, skv, hq, hkv, causal, sm_scale, s);
+  if (d == 64)
+    return launch_tc<64>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, lse_stride, sm_scale, s);
+  if (d == 128)
+    return launch_tc<128>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, lse_stride, sm_scale, s);
+  return launch_tc<192>(q, k, v, o, lse, b, sq, skv, hq, hkv, causal, lse_stride, sm_scale, s);
 }

@@ -35,12 +35,14 @@
 // rounded up to 4. Keys past Skv get P = 0, query rows past Sq get P = 0
 // in dkdv and are not stored by dq or prep.
 //
-// Bound: operations. The three entries run 7 products of 2*B*H*Sq*Skv*D
-// flops (prep: s; dkdv: s, dP, dV, dK; dq: s, dP, dQ) on ~9*B*H*S*D
-// elements moved, far above the card's operations-per-byte line; float32
-// FMAs on the CUDA cores at 67 TFLOP/s (TF32 would break the float32
-// contract). A tensor-core design (wgmma for the five products, P and dS
-// in registers) is later work.
+// Bound: operations. The three entries run 8 products of 2*B*H*Sq*Skv*D
+// flops (prep: s; dkdv: s, dP, dV, dK; dq: s, dP, dQ) where the gradient
+// needs 5, on ~9*B*H*S*D elements moved, far above the card's
+// operations-per-byte line; float32 FMAs on the CUDA cores at 67 TFLOP/s
+// (TF32 would break the float32 contract). bf16 with D 64, 80 or 128 takes
+// the tensor-core route instead (csrc/flash_attention_bwd_sm90.cu: 7
+// products on wgmma, the log-sum-exp read from the forward); this file
+// keeps float32 and the other bf16 head dims.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 

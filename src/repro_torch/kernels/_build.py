@@ -2,8 +2,9 @@
 
 Each ``csrc/<name>.cu`` has a plain C interface and compiles with
 ``nvcc`` for ``sm_90a`` into its own shared library, loaded with
-``ctypes``. A build happens at first use, keyed by a hash of the source
-and the flags, into ``build/kernels/`` at the root of the checkout;
+``ctypes``. A build happens at first use, keyed by a hash of the source,
+the ``csrc/*.cuh`` headers it includes and the flags, into
+``build/kernels/`` at the root of the checkout;
 :func:`build_all` starts one ``nvcc`` per source, all at once. Nothing
 here runs when the module is imported, so the CPU tests import it
 without ``nvcc`` or a GPU.
@@ -13,6 +14,7 @@ from __future__ import annotations
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import threading
@@ -84,7 +86,10 @@ class CudaKernel:
             self.symbol_launches = dict.fromkeys(self.symbols, 0)
 
     def lib_path(self) -> Path:
-        h = hashlib.sha256(self.source.read_bytes())
+        text = self.source.read_bytes()
+        h = hashlib.sha256(text)
+        for header in re.findall(rb'#include "([^"]+)"', text):
+            h.update((CSRC / header.decode()).read_bytes())
         h.update(" ".join(FLAGS).encode())
         return BUILD_DIR / f"lib{self.name}-{h.hexdigest()[:16]}.so"
 

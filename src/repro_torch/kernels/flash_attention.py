@@ -42,13 +42,28 @@ The gradient: where grad mode is on and q, k or v requires a gradient,
 :func:`flash_attention` runs through a ``torch.autograd.Function`` whose
 forward is the call above (same routes, padding and ``sm_scale``) and
 saves q, k, v and the unpadded output; its backward is
-:func:`flash_attention_bwd`, the hand-written CUDA-core kernel of
-``csrc/flash_attention_bwd.cu`` (no TPU counterpart: the reference lets
-XLA differentiate its oracle), whose three entries count their launches
-on ``BWD_KERNEL``. It takes non-causal attention with Hq == Hkv and D <=
-``MAX_BWD_D``, any Sq and Skv; a causal mask or GQA raises a
-``ValueError`` before the forward launches. Without a gradient nothing is
-saved and the launches are the forward's alone.
+:func:`flash_attention_bwd` (no TPU counterpart: the reference lets XLA
+differentiate its oracle), three launches on one of two routes, the rule
+:func:`choose_bwd_route`:
+
+- ``"tensor_core"`` (``csrc/flash_attention_bwd_sm90.cu``, entries
+  counted on ``BWD_TC_KERNEL``): bf16 with D 64, 80 or 128
+  (``TENSOR_CORE_BWD_D``; D 80 read in place, no padding). wgmma and
+  TMA, P and dS fed to their products as one bf16 each. It reads each
+  row's log-sum-exp from the forward: on this route the Function's
+  forward has ``flash_attention_bf16_sm90`` write it (float32 (B, H,
+  ``lse_stride(Sq)``), log2 units) and saves it. ``prep`` is then
+  rowsum(dO * O) alone.
+- ``"cuda_core"`` (``csrc/flash_attention_bwd.cu``, on ``BWD_KERNEL``):
+  float32 and bf16 of other head dims; float32 FMAs, ``prep`` recomputing
+  the log-sum-exp from q and k.
+
+A forced ``route`` applies to the Function's forward and backward alike.
+Both take non-causal attention with Hq == Hkv and D <= ``MAX_BWD_D``, any
+Sq and Skv; a causal mask or GQA raises a ``ValueError`` before the
+forward launches. Without a gradient nothing is saved, the forward writes
+no log-sum-exp (its lse pointer is null) and the launches are the
+forward's alone.
 """
 from __future__ import annotations
 
@@ -68,7 +83,11 @@ SYMBOLS = {(TENSOR_CORE, torch.bfloat16): "flash_attention_bf16_sm90",
            (CUDA_CORE, torch.float32): "flash_attention_f32",
            (CUDA_CORE, torch.bfloat16): "flash_attention_bf16"}
 _ARGS = [P, P, P, P, I, I, I, I, I, I, I, ctypes.c_float, P]
-KERNEL = CudaKernel("flash_attention", {sym: _ARGS for sym in SYMBOLS.values()})
+# the tensor-core entry also takes the lse pointer (null, or float32 (B, Hq,
+# lse_stride)) after o, and lse_stride after causal
+_TC_ARGS = [P, P, P, P, P, I, I, I, I, I, I, I, I, ctypes.c_float, P]
+KERNEL = CudaKernel("flash_attention", {
+    sym: _TC_ARGS if route == TENSOR_CORE else _ARGS for (route, _), sym in SYMBOLS.items()})
 MAX_D = 256
 MAX_GRID_YZ = 65535
 # the backward's three entries a dtype, launched in this order
@@ -81,6 +100,17 @@ _BWD_ARGS = {"prep": [P] * 6 + [I] * 5 + [ctypes.c_float, P],
 BWD_KERNEL = CudaKernel("flash_attention_bwd",
                         {sym: _BWD_ARGS[e] for (e, _), sym in BWD_SYMBOLS.items()})
 MAX_BWD_D = 128
+# the tensor-core backward: bf16 head dims, entries (in launch order), and
+# the row padding of its float32 lse and Delta buffers (a multiple of its
+# query tile, kBwdTile, so every tile's rows are one aligned bulk copy)
+TENSOR_CORE_BWD_D = (64, 80, 128)
+BWD_TC_SYMBOLS = {e: f"flash_attention_bwd_{e}_bf16_sm90" for e in BWD_ENTRIES}
+_BWD_TC_ARGS = {"prep": [P] * 3 + [I] * 5 + [P],
+                "dkdv": [P] * 8 + [I] * 6 + [ctypes.c_float, P],
+                "dq": [P] * 7 + [I] * 6 + [ctypes.c_float, P]}
+BWD_TC_KERNEL = CudaKernel("flash_attention_bwd_sm90",
+                           {sym: _BWD_TC_ARGS[e] for e, sym in BWD_TC_SYMBOLS.items()})
+LSE_ROW_PAD = 64
 
 
 def choose_route(dtype: torch.dtype, head_dim: int) -> str:
@@ -90,6 +120,20 @@ def choose_route(dtype: torch.dtype, head_dim: int) -> str:
     if dtype == torch.bfloat16 and (head_dim in TENSOR_CORE_D or head_dim in PADDED_D):
         return TENSOR_CORE
     return CUDA_CORE
+
+
+def choose_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
+    """The route of the gradient of a CUDA call: ``"tensor_core"`` for
+    bf16 with D 64, 80 or 128, ``"cuda_core"`` for everything else."""
+    if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_BWD_D:
+        return TENSOR_CORE
+    return CUDA_CORE
+
+
+def lse_stride(sq: int) -> int:
+    """Row length of the log-sum-exp and Delta buffers (B, H, stride) of
+    the tensor-core backward: Sq rounded up to ``LSE_ROW_PAD``."""
+    return -(-sq // LSE_ROW_PAD) * LSE_ROW_PAD
 
 
 def check_backward(q_shape, k_shape, causal: bool) -> None:
@@ -111,18 +155,26 @@ def check_backward(q_shape, k_shape, causal: bool) -> None:
 
 class _FlashAttention(torch.autograd.Function):
     """The forward kernel, and :func:`flash_attention_bwd` as its
-    gradient."""
+    gradient, on the backward's route (``route`` if forced, else
+    :func:`choose_bwd_route`); on the tensor-core route the forward also
+    writes and saves each row's log-sum-exp."""
 
     @staticmethod
     def forward(ctx, q, k, v, route):
-        out = _forward(q, k, v, False, route).contiguous()
-        ctx.save_for_backward(q, k, v, out)
+        ctx.route = choose_bwd_route(q.dtype, q.shape[-1]) if route is None else route
+        if ctx.route == TENSOR_CORE:
+            out, lse = _forward(q, k, v, False, route, with_lse=True)
+        else:
+            out, lse = _forward(q, k, v, False, route), None
+        out = out.contiguous()
+        ctx.save_for_backward(q, k, v, out, lse)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
-        return (*flash_attention_bwd(q, k, v, out, dout.contiguous()), None)
+        q, k, v, out, lse = ctx.saved_tensors
+        return (*flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, route=ctx.route),
+                None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -133,7 +185,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     times the CUDA-core route at a tensor-core shape). Where grad mode is
     on and an input requires a gradient, the result carries
     :func:`flash_attention_bwd` as its backward (checked first by
-    :func:`check_backward`)."""
+    :func:`check_backward`), on the forced route if one is named."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
         check_backward(q.shape, k.shape, causal)
         return _FlashAttention.apply(q, k, v, route)
@@ -159,7 +211,11 @@ def _check_inputs(q, k, v):
         raise ValueError("flash_attention takes contiguous tensors")
 
 
-def _forward(q, k, v, causal, route):
+def _forward(q, k, v, causal, route, with_lse=False):
+    """The forward launch -> out, or (out, lse) ``with_lse`` (tensor-core
+    route only): lse float32 (B, Hq, ``lse_stride(Sq)``), each row's
+    log-sum-exp of ``s * sm_scale`` in log2 units, the rows past Sq
+    unwritten."""
     _check_inputs(q, k, v)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
@@ -168,6 +224,8 @@ def _forward(q, k, v, causal, route):
     if symbol is None or (route == TENSOR_CORE and d not in TENSOR_CORE_D
                           and d not in PADDED_D):
         raise ValueError(f"flash_attention: no {route!r} kernel for {q.dtype} with D {d}")
+    if with_lse and route != TENSOR_CORE:
+        raise ValueError("flash_attention writes the log-sum-exp on its tensor-core route only")
     dk = PADDED_D.get(d, d) if route == TENSOR_CORE else d
     if dk != d:   # new contiguous, aligned tensors, zero past column d
         q, k, v = (torch.nn.functional.pad(t, (0, dk - d)) for t in (q, k, v))
@@ -175,22 +233,39 @@ def _forward(q, k, v, causal, route):
         raise ValueError("flash_attention's tensor-core route reads 16-byte aligned data "
                          "(its TMA maps)")
     out = torch.empty_like(q)
+    stride = lse_stride(sq)
+    lse = (torch.empty((b, hq, stride), dtype=torch.float32, device=q.device) if with_lse
+           else None)
     if out.numel():
         stream = torch.cuda.current_stream(q.device).cuda_stream
-        KERNEL.launch(symbol, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-                      out.data_ptr(), b, sq, skv, hq, hkv, dk, int(causal),
-                      1.0 / math.sqrt(d), stream)
-    return out[..., :d] if dk != d else out
+        if route == TENSOR_CORE:
+            KERNEL.launch(symbol, q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+                          None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, dk,
+                          int(causal), stride, 1.0 / math.sqrt(d), stream)
+        else:
+            KERNEL.launch(symbol, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                          out.data_ptr(), b, sq, skv, hq, hkv, dk, int(causal),
+                          1.0 / math.sqrt(d), stream)
+    out = out[..., :d] if dk != d else out
+    return (out, lse) if with_lse else out
 
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                        dout: torch.Tensor):
+                        dout: torch.Tensor, lse: Optional[torch.Tensor] = None, *,
+                        route: Optional[str] = None):
     """The gradient of non-causal :func:`flash_attention` -> (dq, dk, dv)
     in the inputs' dtype: q, o, dout (B, Sq, H, D), k, v (B, Skv, H, D),
     contiguous, float32 or bf16, on one CUDA device, D <= ``MAX_BWD_D``,
-    ``o`` the forward's output. Three launches: ``prep`` (each row's
-    log-sum-exp, recomputed from q and k, and rowsum(dout * o) into
-    float32 scratch), ``dkdv``, ``dq``; ``sm_scale = 1/sqrt(D)``."""
+    ``o`` the forward's output; ``sm_scale = 1/sqrt(D)``. ``route``
+    defaults to :func:`choose_bwd_route`. Three launches each:
+
+    - ``"tensor_core"``: ``lse`` is the forward's log-sum-exp (``_forward(...,
+      with_lse=True)``), float32 (B, H, ``lse_stride(Sq)``); ``prep``
+      (rowsum(dout * o) into float32 scratch of that shape), ``dkdv``,
+      ``dq`` on wgmma.
+    - ``"cuda_core"``: ``lse`` is not read; ``prep`` (each row's
+      log-sum-exp, recomputed from q and k, and rowsum(dout * o)),
+      ``dkdv``, ``dq`` on float32 FMAs."""
     check_backward(q.shape, k.shape, False)
     _check_inputs(q, k, v)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or \
@@ -202,14 +277,34 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         raise ValueError("flash_attention_bwd takes contiguous tensors")
     b, sq, h, d = q.shape
     skv = k.shape[1]
+    route = choose_bwd_route(q.dtype, d) if route is None else route
+    if route == TENSOR_CORE:
+        _check_tensor_core_bwd(q, k, v, o, dout, lse)
+    elif route != CUDA_CORE:
+        raise ValueError(f"flash_attention_bwd: no route {route!r}")
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
     if q.numel() == 0:
         return dq, dk.zero_(), dv.zero_()
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    if route == TENSOR_CORE:
+        stride = lse.shape[2]
+        delta = torch.empty_like(lse)
+        ptr = {n: t.data_ptr() for n, t in dict(q=q, k=k, v=v, o=o, do=dout, lse=lse,
+                                                delta=delta, dq=dq, dk=dk, dv=dv).items()}
+        sizes = (b, sq, skv, h, d, stride, 1.0 / math.sqrt(d), stream)
+        sym = BWD_TC_SYMBOLS
+        BWD_TC_KERNEL.launch(sym["prep"], ptr["o"], ptr["do"], ptr["delta"], b, sq, h, d,
+                             stride, stream)
+        BWD_TC_KERNEL.launch(sym["dkdv"], ptr["q"], ptr["k"], ptr["v"], ptr["do"], ptr["lse"],
+                             ptr["delta"], ptr["dk"], ptr["dv"], *sizes)
+        BWD_TC_KERNEL.launch(sym["dq"], ptr["q"], ptr["k"], ptr["v"], ptr["do"], ptr["lse"],
+                             ptr["delta"], ptr["dq"], *sizes)
+        return dq, dk, dv
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
     delta = torch.empty_like(lse)
     ptr = {n: t.data_ptr() for n, t in dict(q=q, k=k, v=v, o=o, do=dout, lse=lse, delta=delta,
                                             dq=dq, dk=dk, dv=dv).items()}
-    sizes = (b, sq, skv, h, d, 1.0 / math.sqrt(d), torch.cuda.current_stream(q.device).cuda_stream)
+    sizes = (b, sq, skv, h, d, 1.0 / math.sqrt(d), stream)
     sym = {e: BWD_SYMBOLS[e, q.dtype] for e in BWD_ENTRIES}
     BWD_KERNEL.launch(sym["prep"], ptr["q"], ptr["k"], ptr["o"], ptr["do"], ptr["lse"],
                       ptr["delta"], *sizes)
@@ -218,3 +313,19 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     BWD_KERNEL.launch(sym["dq"], ptr["q"], ptr["k"], ptr["v"], ptr["do"], ptr["lse"],
                       ptr["delta"], ptr["dq"], *sizes)
     return dq, dk, dv
+
+
+def _check_tensor_core_bwd(q, k, v, o, dout, lse):
+    """What the tensor-core backward takes beyond :func:`check_backward`:
+    bf16 with D in ``TENSOR_CORE_BWD_D``, 16-byte aligned data (its TMA
+    maps and 16-byte loads), and the forward's lse."""
+    b, sq, h, d = q.shape
+    if q.dtype != torch.bfloat16 or d not in TENSOR_CORE_BWD_D:
+        raise ValueError(f"flash_attention_bwd: no 'tensor_core' kernel for {q.dtype} with D {d}")
+    if any(t.data_ptr() % 16 for t in (q, k, v, o, dout)):
+        raise ValueError("flash_attention_bwd's tensor-core route reads 16-byte aligned data")
+    if lse is None or lse.shape != (b, h, lse_stride(sq)) or lse.dtype != torch.float32 or \
+            lse.device != q.device or not lse.is_contiguous():
+        got = None if lse is None else (tuple(lse.shape), lse.dtype)
+        raise ValueError(f"flash_attention_bwd's tensor-core route reads the forward's "
+                         f"log-sum-exp, float32 {(b, h, lse_stride(sq))}, got {got}")

@@ -25,10 +25,13 @@ have more than one entry in their one source:
   128 there; float32 and bf16 of other head dims
   on the CUDA cores (the rule is
   :func:`repro_torch.kernels.flash_attention.choose_route`). Under
-  autograd its gradient is the sixth library,
-  ``csrc/flash_attention_bwd.cu`` (``prep``, ``dkdv``, ``dq``; non-causal,
-  Hq == Hkv, D <= 128; ``flash_attention.BWD_KERNEL``). A CPU tensor's
-  gradient is autograd's of ``ref.attention``.
+  autograd its gradient (``prep``, ``dkdv``, ``dq``; non-causal, Hq ==
+  Hkv, D <= 128) is the seventh library, ``csrc/flash_attention_bwd_sm90.cu``
+  (tensor cores, bf16 with D 64, 80, 128; ``flash_attention.BWD_TC_KERNEL``),
+  or the sixth, ``csrc/flash_attention_bwd.cu`` (CUDA cores, everything
+  else; ``flash_attention.BWD_KERNEL``); the rule is
+  :func:`repro_torch.kernels.flash_attention.choose_bwd_route`. A CPU
+  tensor's gradient is autograd's of ``ref.attention``.
 - ``int8_matmul`` (``csrc/int8_matmul.cu``): the s8 tensor cores where
   K and N are multiples of 16, dp4a on the CUDA cores otherwise (the
   rule is :func:`repro_torch.kernels.int8_matmul.choose_route`).
@@ -50,7 +53,7 @@ from repro_torch.kernels import ref
 from repro_torch.kernels import tile_moments as _moments
 
 KERNELS = (_moments.KERNEL, _kmeans.KERNEL, _iou.KERNEL, _flash.KERNEL, _int8.KERNEL,
-           _flash.BWD_KERNEL)
+           _flash.BWD_KERNEL, _flash.BWD_TC_KERNEL)
 
 
 def _on_cuda(t: torch.Tensor) -> bool:

@@ -243,11 +243,12 @@ def test_no_gradient_takes_the_forward_alone(monkeypatch):
 def test_the_autograd_function_saves_and_calls_the_backward(monkeypatch):
     """The Function's forward is the forward call (made contiguous); its
     backward hands q, k, v, the output and the output's gradient to
-    ``flash_attention_bwd`` and returns its (dq, dk, dv)."""
+    ``flash_attention_bwd`` and returns its (dq, dk, dv). float32 takes
+    the CUDA-core route, which reads no log-sum-exp of the forward."""
     seen = {}
 
-    def fake_bwd(q, k, v, o, dout):
-        seen.update(q=q, k=k, v=v, o=o, dout=dout)
+    def fake_bwd(q, k, v, o, dout, lse=None, route=None):
+        seen.update(q=q, k=k, v=v, o=o, dout=dout, lse=lse, route=route)
         return 2 * q, 3 * k, 4 * v
     monkeypatch.setattr(flash, "_forward", lambda q, k, v, causal, route: q + v)
     monkeypatch.setattr(flash, "flash_attention_bwd", fake_bwd)
@@ -256,6 +257,7 @@ def test_the_autograd_function_saves_and_calls_the_backward(monkeypatch):
     assert torch.equal(out, q.detach() + v.detach())
     dq, dk, dv = torch.autograd.grad(out.sum(), (q, k, v))
     assert torch.equal(seen["o"], out.detach()) and torch.equal(seen["dout"], torch.ones_like(q))
+    assert seen["lse"] is None and seen["route"] == "cuda_core"
     assert torch.equal(dq, 2 * q) and torch.equal(dk, 3 * k) and torch.equal(dv, 4 * v)
 
 
@@ -273,7 +275,8 @@ def test_backward_entries_and_counts():
 def test_backward_launches_three_entries_in_order(monkeypatch):
     """A stand-in library (the entry points return 0, cudaSuccess) and
     tensors that pass for CUDA ones: one launch of each entry, in order,
-    each counted."""
+    each counted (bf16 D 80 forced onto the CUDA-core route; the
+    tensor-core route's launches are tests/test_torch_flash_bwd_tc.py's)."""
     kernel = flash.BWD_KERNEL
     order = []
     kernel._lib = SimpleNamespace(**{s: (lambda s: lambda *a: order.append((s, a)) or 0)(s)
@@ -286,7 +289,7 @@ def test_backward_launches_three_entries_in_order(monkeypatch):
     try:
         kernel.reset()
         q, k, v, o, do = (torch.zeros(2, 5, 3, 80, dtype=torch.bfloat16) for _ in range(5))
-        flash.flash_attention_bwd(q, k, v, o, do)
+        flash.flash_attention_bwd(q, k, v, o, do, route="cuda_core")
         assert [s for s, _ in order] == [f"flash_attention_bwd_{e}_bf16"
                                          for e in ("prep", "dkdv", "dq")]
         assert all(a[-7:-2] == (2, 5, 5, 3, 80) and a[-2] == 1 / math.sqrt(80)
@@ -324,7 +327,7 @@ def test_the_autograd_function_under_remat(monkeypatch):
         calls["forward"] += 1
         return ref.attention(q, k, v, causal=causal)
 
-    def bwd(q, k, v, o, dout):
+    def bwd(q, k, v, o, dout, lse=None, route=None):
         calls["backward"] += 1
         return ref.attention_bwd(q, k, v, o, dout)
     monkeypatch.setattr(flash, "_forward", fwd)

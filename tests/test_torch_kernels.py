@@ -214,7 +214,7 @@ def test_ops_sends_cpu_tensors_to_the_plain_versions():
     xq, wq, xs, ws = (torch.from_numpy(a) for a in _int8_inputs(5, 70, 3, seed=0))
     assert torch.equal(ops.int8_matmul(xq, wq, xs, ws), ref.int8_matmul(xq, wq, xs, ws))
     assert [(k.launches, k._lib) for k in ops.KERNELS] == before
-    assert before == [(0, None)] * len(ops.KERNELS) and len(ops.KERNELS) == 6
+    assert before == [(0, None)] * len(ops.KERNELS) and len(ops.KERNELS) == 7
 
 
 @pytest.mark.parametrize("call", [

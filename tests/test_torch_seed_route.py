@@ -196,7 +196,7 @@ def test_kmeans_library_has_both_entries():
                                                 "kmeans_assign_lanes_f32",
                                                 "kmeanspp_seed_lanes_f32"}
     assert kmeans_assign.KERNEL.source.name == "kmeans_assign.cu"
-    assert len(ops.KERNELS) == 6 and kmeans_assign.KERNEL in ops.KERNELS
+    assert len(ops.KERNELS) == 7 and kmeans_assign.KERNEL in ops.KERNELS
     assert int8_matmul.KERNEL in ops.KERNELS
     for k in ops.KERNELS:
         assert set(k.symbol_launches) == set(k.symbols)
