@@ -50,9 +50,13 @@ nothing of JAX or of the reference package ``repro``. Phases:
    checked) against ``ref.attention_bwd`` at every attention shape of
    phase 15's steps (ViT-L/16's 197 tokens, ViT-H/14's 257 at D 80,
    DiT-S/2's 256, the UNet's level 0 self-attention, its cross-attention
-   to 77 keys, 64 and 16 queries; bf16) and ragged float32 and bf16 ones,
-   two calls bit-equal, each entry also timed alone, beside the backward
-   of ``scaled_dot_product_attention``; every tensor-core case also forced
+   to 77 keys, 64 and 16 queries; bf16), ragged float32 and bf16 ones,
+   and phase 16's causal GQA attention of phi4-mini-3.8b ((1, 4096, 24 /
+   8, 128) bf16) and qwen3-8b ((1, 4096, 32 / 8, 128)) with ragged causal
+   GQA cases (Sq = Skv, Sq < Skv, Sq > Skv; float32 and bf16, D 64, 80,
+   128), two calls bit-equal, each entry also timed alone, beside the
+   backward of ``scaled_dot_product_attention`` (``is_causal``,
+   ``enable_gqa`` where the case has them); every tensor-core case also forced
    onto the CUDA-core entries (checked the same, and slower: checked); and
    ``int8_matmul``'s one path, ``ops.int8_matmul`` at the kernel bench's
    shape, on the tensor-core entry;
@@ -72,7 +76,11 @@ nothing of JAX or of the reference package ``repro``. Phases:
    random bf16 weights) prefills 2 prompts of 4096 tokens and decodes 32
    greedy tokens; ``flash_attention`` launches once a layer in the
    prefill, every launch on its tensor-core entry; decode logits are held
-   against ``forward_train`` over prompt and generated tokens;
+   against ``forward_train`` over prompt and generated tokens; then
+   phi4-mini-3.8b at full width (32 layers, tied embeddings over 200064
+   tokens) prefills the same 2 x 4096 tokens (flash once a layer, on the
+   tensor-core entry, checked) and decodes one token, both logits held
+   against ``forward_train``;
 6. the constellation at full width: ``run_scenario`` of targetfuse (a
    ``Fleet``; each round's contacts a ``ContactPlan`` at ground-segment
    depth 0) over benchmarks/fleet_bench.py's contact cell (32 satellites,
@@ -204,15 +212,38 @@ nothing of JAX or of the reference package ``repro``. Phases:
    then ``LaunchGuard`` over a steady step (0 builds, 0 new segments;
    checked); each reduced config in float32, one step's loss
    and gradients card against CPU (checked).
+16. LM training (``launch/steps.py`` ``lm_train``, ``models/lm.py``
+   ``loss_fn``, ``launch/train.py``): phi4-mini-3.8b at full width and
+   depth (3.84 B parameters) on one 4096-token row, and qwen3-8b at full
+   width cut to LM_TRAIN_LAYERS layers on two rows as two micro-batches
+   (``grad_accum`` 2), train_4k's sequence (seeded bf16 weights drawn on
+   the card, seeded tokens, labels the tokens rolled by one, ``remat``
+   "dots_saveable", donated steps with AdamW in place): LM_TRAIN_STEPS
+   steps on one batch, the loss falling (checked); ms a step (CUDA
+   events), tokens/s, the share of the bf16 bound (the reference's
+   ``model_flops``: 3x the forward's), peak memory; flash launches by
+   entry in a step (the forward twice a layer and micro-batch, with the
+   remat recompute, on the tensor-core entry; ``prep``, ``dkdv``, ``dq``
+   once; checked); warm-up steps until the allocator settles, then
+   ``LaunchGuard`` over a steady step (0 builds, 0 new segments;
+   checked); step 1 run again from the seed, its loss and every leaf of
+   the new state bit-equal (checked), after the embedding gather's
+   backward is checked bit-equal over repeated tokens; each reduced
+   config in float32, ``loss_fn``'s gradients card (the CUDA-core causal
+   GQA kernels) against CPU (checked); ``python -m
+   repro_torch.launch.train --steps 20`` twice over one checkpoint folder,
+   the second (``--compress``) resuming from step 10 (checked).
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
-first phase 2 case and its launches on the main paths: the Mission's
+first phase 2 case, the backward's entries also at the causal GQA
+``train_4k`` shapes (``causal_gqa``), and its launches on the main paths: the Mission's
 runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
 phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
 monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
 forwards of phase 13, the diffusion samples of phase 14a-b, the first
-training step of each model in phase 15 and ``int8_matmul``'s one path;
+training step of each model in phases 15 and 16 and ``int8_matmul``'s one
+path;
 ``flash_attention``'s entries include its backward's nine, from
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``),
 then the
@@ -221,6 +252,7 @@ then the
 """
 from __future__ import annotations
 
+import gc
 import inspect
 import json
 import math
@@ -328,6 +360,25 @@ ZOO_BATCH = 256
 # the rest are timed by CUDA events; the loss must fall from step 1 to
 # the last
 ZOO_STEPS = 10
+# phase 16 (and phase 2's causal GQA backward cases): LM_SHAPES' train_4k
+# sequence, kept; its batch of 256 cut to what one card holds. phi4-mini-3.8b
+# at full width and depth (3.84 B parameters: 46 GB of bf16 weights, bf16
+# gradients and float32 AdamW moments) takes one 4096-token row; qwen3-8b at
+# full width takes LM_TRAIN_LAYERS of its 36 layers (the state and a float32
+# accumulator, 16 bytes a parameter, reckon to ~8 layers) and two rows as
+# two micro-batches (grad_accum 2), the accumulation path of lm_train. Each
+# trains LM_TRAIN_STEPS donated steps on one batch, as phase 15 (warm-up
+# until the allocator settles, one step under LaunchGuard, the rest timed)
+LM_TRAIN_SEQ = 4096
+LM_TRAIN_ARCHS = ("phi4-mini-3.8b", "qwen3-8b")
+LM_TRAIN_ACCUM = {"phi4-mini-3.8b": 1, "qwen3-8b": 2}
+LM_TRAIN_LAYERS = {"qwen3-8b": 8}
+LM_TRAIN_STEPS = 10
+# phase 16: the reduced configs in float32, loss_fn's gradients card vs CPU,
+# each leaf within LM_F32_GRAD_TOL of its own largest magnitude (the
+# transformers' tolerance of phase 15; float32 sums in another order, TF32
+# off) and the loss within ZOO_F32_LOSS_RTOL
+LM_F32_GRAD_TOL = 1e-4
 ZOO_SETTLED, ZOO_WARMUP_MAX = 2, 6
 # phase 15: the reduced configs in float32, one step card vs CPU (ViT-H/14
 # with heads of 80, its own head dim, at d_model 160, so that the float32
@@ -799,9 +850,9 @@ def ptxas_report(logs: dict):
     # flash_attention's backward libraries -> their kernel entries:
     # csrc/flash_attention_bwd.cu's 3 kernels x (float32, bf16) x (DP 64,
     # 128), csrc/flash_attention_bwd_sm90.cu's prep and its dkdv and dq at
-    # each head dim of TENSOR_CORE_BWD_D; none may spill
+    # each head dim of TENSOR_CORE_BWD_D, causal and not; none may spill
     bwd_libs = {"flash_attention_bwd": 3 * 2 * 2,
-                "flash_attention_bwd_sm90": 1 + 2 * len(TENSOR_CORE_BWD_D)}
+                "flash_attention_bwd_sm90": 1 + 2 * 2 * len(TENSOR_CORE_BWD_D)}
     if "flash_attention" not in logs:
         print("ptxas: flash_attention was built by an earlier run, no report to check", flush=True)
     for name, log in logs.items():
@@ -842,7 +893,9 @@ def ptxas_report(logs: dict):
         log = logs["flash_attention_bwd_sm90"]
         for kern in ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel"):
             for d in TENSOR_CORE_BWD_D:
-                check(f"{kern}ILi{d}E" in log, f"ptxas reported no {kern}<{d}>")
+                for causal in (0, 1):   # the mangled <D, kCausal>
+                    check(f"{kern}ILi{d}ELb{causal}E" in log,
+                          f"ptxas reported no {kern}<{d}, {bool(causal)}>")
 
 
 def int8_args(g, dev, m, k, n):
@@ -945,25 +998,49 @@ def phase_kernels(dev):
 
 def flash_bwd_cases():
     """Phase 2's cases of flash_attention's backward, (label, (B, Sq, Skv,
-    H, D), dtype): each attention of phase 15's steps at its batch (bf16,
-    non-causal, Hq == Hkv), then ragged float32 and bf16 cases."""
+    Hq, Hkv, D), dtype, causal): each attention of phase 15's steps at its
+    batch (bf16, non-causal, Hq == Hkv), ragged float32 and bf16 cases,
+    then phase 16's causal GQA attention of phi4-mini-3.8b (24 / 8 heads)
+    and qwen3-8b (32 / 8) at LM_TRAIN_SEQ tokens a row, and ragged causal
+    GQA cases (Sq = Skv, Sq < Skv, Sq > Skv; float32 and bf16)."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     bl = bh = bd = bu = ZOO_BATCH
-    return [("vit-l16 cls_224", (bl, 197, 197, 16, 64), bf16),
-            ("vit-h14 cls_224 (D 80)", (bh, 257, 257, 16, 80), bf16),
-            ("dit-s2 train_256", (bd, 256, 256, 6, 64), bf16),
-            ("unet-sd15 train_256 level 0 self", (bu, 1024, 1024, 5, 64), bf16),
-            ("unet-sd15 train_256 level 0 cross (77 keys)", (bu, 1024, 77, 5, 64), bf16),
-            ("unet-sd15 train_256 level 2 (64 queries)", (bu, 64, 64, 20, 64), bf16),
-            ("unet-sd15 train_256 mid block (16 queries)", (bu, 16, 16, 20, 64), bf16),
-            ("ragged", (2, 200, 200, 4, 64), f32), ("ragged D 80", (2, 197, 77, 3, 80), f32),
-            ("one query", (1, 1, 100, 2, 16), f32), ("ragged D 128", (2, 130, 65, 4, 128), f32),
-            ("ragged D 128", (2, 100, 300, 4, 128), bf16), ("ragged D 80", (2, 197, 77, 3, 80), bf16),
-            ("one query", (1, 1, 100, 2, 64), bf16), ("D 96", (2, 130, 70, 2, 96), bf16)]
+    s = LM_TRAIN_SEQ
+    cases = [("vit-l16 cls_224", (bl, 197, 197, 16, 16, 64), bf16),
+             ("vit-h14 cls_224 (D 80)", (bh, 257, 257, 16, 16, 80), bf16),
+             ("dit-s2 train_256", (bd, 256, 256, 6, 6, 64), bf16),
+             ("unet-sd15 train_256 level 0 self", (bu, 1024, 1024, 5, 5, 64), bf16),
+             ("unet-sd15 train_256 level 0 cross (77 keys)", (bu, 1024, 77, 5, 5, 64), bf16),
+             ("unet-sd15 train_256 level 2 (64 queries)", (bu, 64, 64, 20, 20, 64), bf16),
+             ("unet-sd15 train_256 mid block (16 queries)", (bu, 16, 16, 20, 20, 64), bf16),
+             ("ragged", (2, 200, 200, 4, 4, 64), f32), ("ragged D 80", (2, 197, 77, 3, 3, 80), f32),
+             ("one query", (1, 1, 100, 2, 2, 16), f32),
+             ("ragged D 128", (2, 130, 65, 4, 4, 128), f32),
+             ("ragged D 128", (2, 100, 300, 4, 4, 128), bf16),
+             ("ragged D 80", (2, 197, 77, 3, 3, 80), bf16),
+             ("one query", (1, 1, 100, 2, 2, 64), bf16), ("D 96", (2, 130, 70, 2, 2, 96), bf16)]
+    causal = [("phi4-mini-3.8b train_4k causal GQA", (1, s, s, 24, 8, 128), bf16),
+              ("qwen3-8b train_4k causal GQA", (1, s, s, 32, 8, 128), bf16),
+              ("ragged causal GQA", (2, 200, 200, 6, 2, 64), f32),
+              ("ragged causal GQA Sq < Skv", (2, 130, 260, 4, 2, 128), f32),
+              ("ragged causal GQA", (2, 200, 200, 6, 2, 64), bf16),
+              ("ragged causal GQA D 80", (2, 197, 197, 6, 2, 80), bf16),
+              ("ragged causal GQA Sq < Skv", (2, 130, 260, 4, 2, 128), bf16),
+              ("ragged causal GQA Sq > Skv", (2, 260, 130, 4, 2, 128), bf16)]
+    return [(*c, False) for c in cases] + [(*c, True) for c in causal]
 
 
-def bwd_entry_ms(q, k, v, o, do, lse, route, reps: int) -> dict:
+def causal_pairs(sq: int, skv: int, causal: bool) -> int:
+    """(query, key) pairs the attention reads: every pair, or under the
+    top-left causal mask row r's keys 0..r (at most Skv)."""
+    if not causal:
+        return sq * skv
+    n = min(sq, skv)
+    return n * (n + 1) // 2 + (sq - n) * skv
+
+
+def bwd_entry_ms(q, k, v, o, do, lse, route, reps: int, causal: bool = False) -> dict:
     """Each entry's device ms in ``flash_attention_bwd`` on ``route``, by a
     CUDA event recorded after each of its launches, over ``reps`` calls
     queued behind ``torch.cuda._sleep``."""
@@ -978,7 +1055,7 @@ def bwd_entry_ms(q, k, v, o, do, lse, route, reps: int) -> dict:
         marks[-1][1].record()
 
     def call():
-        fa.flash_attention_bwd(q, k, v, o, do, lse, route=route)
+        fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, route=route)
     call()   # warm-up
     start = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
@@ -1011,8 +1088,9 @@ def bwd_symbols(route, dt) -> dict:
     return {e: fa.BWD_SYMBOLS[e, dt] for e in fa.BWD_ENTRIES}
 
 
-def phase_flash_bwd(dev, rows):
-    """Phase 2, flash_attention's backward: each case on its route
+def phase_flash_bwd(dev, rows, cases=None):
+    """Phase 2, flash_attention's backward: each case (``cases``, default
+    :func:`flash_bwd_cases`) on its route
     (``choose_bwd_route``: bf16 at D 64, 80 and 128 on the tensor-core
     entries, reading the forward's log-sum-exp; the rest on the CUDA-core
     ones) against ``ref.attention_bwd`` (one launch of each of its three
@@ -1022,49 +1100,56 @@ def phase_flash_bwd(dev, rows):
     (autograd through it, the forward outside the timing), each entry also
     alone. A tensor-core case also runs forced onto the CUDA-core entries
     (the same checks), timed the same way. The bound counts the five
-    products the gradient needs (s, dP, dV, dK, dQ: 10 B H Sq Skv D
-    operations, at the inputs' type's peak) and each input and output
-    once; an entry's, the products it runs (CUDA cores: prep 1, dkdv 4, dq
-    3, 8 in all; tensor cores: prep 0, dkdv 4, dq 3, 7 in all) and its
-    bytes. Adds each route's entries to ``rows["flash_attention"]``."""
+    products the gradient needs (s, dP, dV, dK, dQ: 10 B Hq D operations a
+    (query, key) pair the mask leaves, ``causal_pairs``, at the inputs'
+    type's peak) and each input and output once; an entry's, the products
+    it runs (CUDA cores: prep 1, dkdv 4, dq 3, 8 in all; tensor cores: prep
+    0, dkdv 4, dq 3, 7 in all) and its bytes. The entries of the first case
+    of each route add to ``rows["flash_attention"]``; each entry's
+    ``causal_gqa`` holds its rows of the causal ``train_4k`` cases
+    (phi4-mini-3.8b's and qwen3-8b's), or of its first causal case where it
+    runs none of those. -> {label: {route:
+    ms, "sdpa": ms, "bound": ms}} of each case."""
     import torch
     import torch.nn.functional as F
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import ref
     g = torch.Generator(device=dev).manual_seed(SEED + 3)
-    entry_rows = {}
-    for label, (b, sq, skv, h, d), dt in flash_bwd_cases():
+    entry_rows, causal_rows, times = {}, {}, {}
+    for label, (b, sq, skv, h, hkv, d), dt, causal in cases or flash_bwd_cases():
         q, do = (torch.randn((b, sq, h, d), generator=g, device=dev).to(dt) for _ in range(2))
-        k, v = (torch.randn((b, skv, h, d), generator=g, device=dev).to(dt) for _ in range(2))
+        k, v = (torch.randn((b, skv, hkv, d), generator=g, device=dev).to(dt) for _ in range(2))
         route = fa.choose_bwd_route(dt, d)
         with torch.no_grad():   # the forward's output (and lse) as the Function saves them
             if route == fa.TENSOR_CORE:
-                o, lse = fa._forward(q, k, v, False, None, with_lse=True)
+                o, lse = fa._forward(q, k, v, causal, None, with_lse=True)
                 o = o.contiguous()
             else:
-                o, lse = fa.flash_attention(q, k, v).contiguous(), None
-        shape = f"{label}: q{(b, sq, h, d)} kv{(b, skv, h, d)} {str(dt)[6:]}"
+                o, lse = fa.flash_attention(q, k, v, causal=causal).contiguous(), None
+        shape = (f"{label}: q{(b, sq, h, d)} kv{(b, skv, hkv, d)} {str(dt)[6:]}"
+                 f"{' causal' if causal else ''}")
         routes = [route] + ([fa.CUDA_CORE] if route == fa.TENSOR_CORE else [])
         t_plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t_plain[0].record()
-        want = ref.attention_bwd(q, k, v, o, do)
+        want = ref.attention_bwd(q, k, v, o, do, causal=causal)
         t_plain[1].record()
         torch.cuda.synchronize()
-        exact = (None if dt == torch.float32
-                 else ref.attention_bwd(*(t.float() for t in (q, k, v, o)), do.float()))
+        exact = (None if dt == torch.float32 else
+                 ref.attention_bwd(*(t.float() for t in (q, k, v, o)), do.float(), causal=causal))
         big = b * h * sq * skv * d > 2e10
-        plain_ms = (t_plain[0].elapsed_time(t_plain[1]) if big
-                    else cuda_ms(lambda: ref.attention_bwd(q, k, v, o, do), reps=3, warmup=1))
+        plain_ms = (t_plain[0].elapsed_time(t_plain[1]) if big else
+                    cuda_ms(lambda: ref.attention_bwd(q, k, v, o, do, causal=causal), reps=3,
+                            warmup=1))
         qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (q, k, v))
-        out = F.scaled_dot_product_attention(qt, kt, vt)
+        out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal, enable_gqa=h != hkv)
         dot = do.transpose(1, 2)
         lib_ms = cuda_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dot,
                                                      retain_graph=True), reps=5, warmup=1)
         del qt, kt, vt, out
         es = q.element_size()
-        unit = 2.0 * b * h * sq * skv * d
+        unit = 2.0 * b * h * causal_pairs(sq, skv, causal) * d
         rate = BF16_FLOPS if dt == torch.bfloat16 else FP32_FLOPS
-        io = 4 * (b * sq * h * d + b * skv * h * d) * es   # q, o, do, dq; k, v, dk, dv
+        io = 4 * (b * sq * h * d + b * skv * hkv * d) * es   # q, o, do, dq; k, v, dk, dv
         b_ms, b_by = bound_ms(io, 5 * unit, rate)
         route_ms = {}
         for r in routes:
@@ -1072,7 +1157,7 @@ def phase_flash_bwd(dev, rows):
             syms = bwd_symbols(r, dt)
 
             def call():
-                return fa.flash_attention_bwd(q, k, v, o, do, lse, route=r)
+                return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, route=r)
             before = dict(lib.symbol_launches)
             got = call()
             again = call()
@@ -1104,7 +1189,8 @@ def phase_flash_bwd(dev, rows):
             got = None
             torch.cuda.empty_cache()
             ms = cuda_ms(call, reps=3 if big else 10, warmup=1)
-            entry_ms = bwd_entry_ms(q, k, v, o, do, lse, r, reps=3 if big else 10)
+            entry_ms = bwd_entry_ms(q, k, v, o, do, lse, r, reps=3 if big else 10,
+                                    causal=causal)
             route_ms[r] = ms
             versus = ("" if r == route else
                       f" (the {route} route {route_ms[route]:.4f}, {ms / route_ms[route]:.2f}x "
@@ -1119,17 +1205,22 @@ def phase_flash_bwd(dev, rows):
             tc = r == fa.TENSOR_CORE
             lse_io = 8 * b * h * (fa.lse_stride(sq) if tc else sq)   # lse and Delta
             entry_io = {"prep": (2 * b * sq * h * d * es + lse_io // 2 if tc else
-                                 (3 * b * sq * h * d + b * skv * h * d) * es + lse_io),
-                        "dkdv": (2 * b * sq * h * d + 4 * b * skv * h * d) * es + lse_io,
-                        "dq": (3 * b * sq * h * d + 2 * b * skv * h * d) * es + lse_io}
+                                 (3 * b * sq * h * d + b * skv * hkv * d) * es + lse_io),
+                        "dkdv": (2 * b * sq * h * d + 4 * b * skv * hkv * d) * es + lse_io,
+                        "dq": (3 * b * sq * h * d + 2 * b * skv * hkv * d) * es + lse_io}
             products = {"prep": 0 if tc else 1, "dkdv": 4, "dq": 3}
             source = f"src/repro_torch/csrc/{'flash_attention_bwd_sm90' if tc else 'flash_attention_bwd'}.cu"
             for e, sym in syms.items():
                 e_ms, e_by = bound_ms(entry_io[e], products[e] * unit, rate)
-                entry_rows.setdefault(sym, dict(
-                    shape=shape, source=source, max_abs_err=max(errs), ms=entry_ms[e],
-                    plain_ms=plain_ms, bound_ms=e_ms, bound_by=e_by, library_ms=lib_ms,
-                    backward_ms=ms, backward_bound_ms=b_ms))
+                row = dict(shape=shape, source=source, max_abs_err=max(errs), ms=entry_ms[e],
+                           plain_ms=plain_ms, bound_ms=e_ms, bound_by=e_by, library_ms=lib_ms,
+                           backward_ms=ms, backward_bound_ms=b_ms)
+                entry_rows.setdefault(sym, row)
+                kept = causal_rows.setdefault(sym, []) if causal else None
+                if causal and ("train_4k" in label or not kept):
+                    kept.append(row)
+        times[label + (" causal" if causal else "") + f" {str(dt)[6:]}"] = dict(
+            route_ms, sdpa=lib_ms, bound=b_ms, plain=plain_ms)
         if len(routes) == 2:
             print(f"flash_attention_bwd {shape}: tensor cores {route_ms[fa.TENSOR_CORE]:.4f} ms, "
                   f"CUDA cores {route_ms[fa.CUDA_CORE]:.4f} ms, SDPA's backward {lib_ms:.4f} ms, "
@@ -1139,7 +1230,11 @@ def phase_flash_bwd(dev, rows):
                   f"one ({route_ms})")
         del q, k, v, o, do, lse, want, exact
         torch.cuda.empty_cache()
-    rows["flash_attention"]["entries"].update(entry_rows)
+    for sym, row in entry_rows.items():
+        rows["flash_attention"]["entries"].setdefault(sym, row)
+    for sym, kept in causal_rows.items():
+        rows["flash_attention"]["entries"][sym]["causal_gqa"] = kept
+    return times
 
 
 def int8_path(dev, kernel):
@@ -1991,7 +2086,55 @@ def phase_lm_serving(dev, flash):
     check(max(rel) <= LM_DECODE_RTOL, f"decode logits off the forward's by {max(rel):.4e}")
     del params, cache, outs, got, want
     torch.cuda.empty_cache()
+    for sym, n in phi4_serving(dev, flash).items():
+        launches += n
+        routes[sym] = routes.get(sym, 0) + n
     return launches, routes
+
+
+def phi4_serving(dev, flash):
+    """phi4-mini-3.8b at full width (32 layers, d_model 3072, 24 / 8 heads,
+    tied embeddings over 200064 tokens; seeded bf16 weights) once through
+    the serving path: prefill of LM_BATCH prompts of LM_PROMPT seeded
+    tokens (flash once a layer, on the tensor-core entry, checked), one
+    greedy decode step, and the logits of both against ``forward_train``
+    over prompt and token (relative norm within LM_DECODE_RTOL, checked)
+    -> flash launches by entry in the prefill."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.models import lm
+    cfg = get_config("phi4-mini-3.8b")
+    b, s = LM_BATCH, LM_PROMPT
+    g = torch.Generator(device=dev).manual_seed(SEED + 7)
+    params = lm.init(g, cfg, device=dev)
+    prompt = torch.randint(0, cfg.vocab_size, (b, s), generator=g, device=dev)
+    before = dict(flash.symbol_launches)
+    (logits, pre), prefill_s = synced(lambda: lm.prefill(params, cfg, prompt))
+    took = {sym: n - before[sym] for sym, n in flash.symbol_launches.items() if n != before[sym]}
+    check(took == {TC_SYMBOL: cfg.n_layers},
+          f"phi4-mini prefill's flash launches by entry {took}, not {cfg.n_layers} on {TC_SYMBOL}")
+    cache = extended_cache(cfg, pre, s + 1, dev)
+    del pre
+    tok = logits.argmax(-1, keepdim=True)
+    (log1, _), decode_s = synced(lambda: lm.decode_step(params, cfg, tok, cache, s))
+    check(flash.symbol_launches == {sym: before[sym] + took.get(sym, 0) for sym in before},
+          "phi4-mini decode launched flash_attention")
+    with torch.no_grad():
+        full, _ = lm.forward_train(params, cfg, torch.cat([prompt, tok], dim=1))
+    want = full[:, s - 1:].float()
+    del full
+    got = torch.stack([logits, log1], dim=1).float()
+    rel = ((got - want).norm(dim=(0, 2)) / want.norm(dim=(0, 2))).tolist()
+    print(f"phi4-mini-3.8b serving: {cfg.n_params / 1e9:.3f} B params; prefill B {b} x {s}: "
+          f"{prefill_s:.4f} s ({b * s / prefill_s:.1f} tokens/s), flash launches by entry "
+          f"{took}; one decode step {1e3 * decode_s:.4f} ms; logits against forward_train, "
+          f"relative norm prefill {rel[0]:.4e}, decode {rel[1]:.4e} (limit {LM_DECODE_RTOL})",
+          flush=True)
+    check(all(math.isfinite(x) for x in rel) and max(rel) <= LM_DECODE_RTOL,
+          f"phi4-mini decode logits off the forward's by {max(rel):.4e}")
+    del params, cache, got, want, logits, log1
+    torch.cuda.empty_cache()
+    return took
 
 
 def profile_step(name, step):
@@ -3041,6 +3184,19 @@ def phase_diffusion_serving(dev, flash):
 # phase 15: vision and diffusion training
 # ---------------------------------------------------------------------------
 
+def lm_train_gflop(cfg, b: int, s: int) -> float:
+    """A training step's GFLOP by the reference's ``model_flops``
+    (repro/launch/steps.py): 3x the forward's, 2 FLOPs an active
+    parameter a token plus causal attention's used half, L B S^2 H
+    (qk + v head dims)."""
+    if cfg.mla is None:
+        qk = v = cfg.head_dim
+    else:
+        qk, v = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim
+    fwd = 2.0 * cfg.n_active_params * b * s + cfg.n_layers * b * s * s * cfg.n_heads * (qk + v)
+    return 3.0 * fwd / 1e9
+
+
 def zoo_attentions(cfg):
     """-> (flash_attention calls a training forward makes, those the
     remat recompute makes again): one a ViT or DiT layer, the UNet's
@@ -3248,6 +3404,274 @@ def phase_zoo_training(dev, kernels):
     for arch in ZOO_ARCHS:
         zoo_cuda_vs_cpu(dev, arch)
     print(f"phase 15 card vs CPU: {time.perf_counter() - t0:.1f} s", flush=True)
+    return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 16: LM training
+# ---------------------------------------------------------------------------
+
+def lm_train_config(arch):
+    """Phase 16's config of ``arch`` and its cut: full width, qwen3-8b's
+    depth cut to LM_TRAIN_LAYERS -> (config, the cuts as text)."""
+    import dataclasses
+    from repro_torch.configs import get_config
+    cfg = get_config(arch)
+    cuts = [f"batch {LM_TRAIN_ACCUM[arch]} rows of 256 (train_4k's)"]
+    layers = LM_TRAIN_LAYERS.get(arch)
+    if layers is not None:
+        cuts.append(f"{layers} of {cfg.n_layers} layers")
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    return cfg, "; ".join(cuts)
+
+
+def state_digest(trees) -> list:
+    """Each leaf's sum of its bit patterns (int64) and of its values
+    (float64), reduced on the card: equal digests of two runs stand for
+    equal bits without a second copy of a 46 GB state."""
+    import torch
+    from repro_torch import tree
+    out = []
+    for x in tree.leaves(trees):
+        bits = x.view(torch.int16 if x.element_size() == 2 else torch.int32)
+        out.append((int(torch.sum(bits, dtype=torch.int64)),
+                    float(torch.sum(x, dtype=torch.float64))))
+    return out
+
+
+def lm_train_setup(dev, cfg, accum, seed):
+    """Seeded bf16 weights (``lm.init`` on the card), ``lm_train``'s donated
+    step with ``grad_accum``, one fixed batch of ``accum`` rows of
+    LM_TRAIN_SEQ seeded tokens, labels = roll(tokens, -1) -> (run(state) ->
+    (state, loss), state)."""
+    import torch
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    g = torch.Generator(device=dev).manual_seed(seed)
+    params = lm.init(g, cfg, device=dev)
+    tokens = torch.randint(0, cfg.vocab_size, (accum, LM_TRAIN_SEQ), generator=g, device=dev)
+    labels = torch.roll(tokens, -1, dims=1)
+    opt_init, step = steps.lm_train(cfg, grad_accum=accum, donate=True)
+
+    def run(st):
+        *st, loss = step(*st, tokens, labels)
+        return tuple(st), loss
+    return run, (params, opt_init(params))
+
+
+def lm_train_cell(dev, kernels, arch):
+    """One LM's training at full width: LM_TRAIN_STEPS donated steps on one
+    batch (step 1 counts the flash launches by entry: each layer's forward
+    twice, once in the remat recompute, and each backward entry once, a
+    micro-batch; then warm-up steps until the allocator settles, a step
+    under LaunchGuard, the rest timed by CUDA events), the loss falling,
+    and step 1 run again from the same seed, its loss and every leaf of
+    the new state bit-equal (``state_digest``); one more step under
+    torch.profiler (after a warm-up step) -> launches by entry in step 1
+    (the main path's)."""
+    import torch
+    from repro_torch.analysis import LaunchGuard
+    from repro_torch.configs import get_shape
+    from repro_torch.kernels import flash_attention as fa
+    cfg, cuts = lm_train_config(arch)
+    accum = LM_TRAIN_ACCUM[arch]
+    shape = get_shape(arch, "train_4k")
+    check(shape.seq_len == LM_TRAIN_SEQ, f"{arch}: train_4k's sequence is {shape.seq_len}")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    (step, state), init_s = synced(lambda: lm_train_setup(dev, cfg, accum, SEED))
+    state_gb = (sum(t.numel() * t.element_size() for t in _leaves(state[0]))
+                + 2 * 4 * sum(t.numel() for t in _leaves(state[0]))) / 1e9
+    for k in kernels:
+        k.reset()
+    state, loss = step(state)
+    losses = [loss]
+    torch.cuda.synchronize()
+    first_digest = state_digest((state[0], state[1].mu, state[1].nu))
+    took = {s_: n for k in kernels for s_, n in k.symbol_launches.items() if n}
+    n = cfg.n_layers * accum
+    want = {TC_SYMBOL: 2 * n, **{sym: n for sym in fa.BWD_TC_SYMBOLS.values()}}
+    check(took == want, f"{arch}: flash launches by entry in a step {took}, not {want}")
+    first_peak = torch.cuda.max_memory_allocated() / 1e9
+    torch.cuda.empty_cache()
+    warm_segments = []
+
+    def segments():
+        return torch.cuda.memory_stats(dev).get("segment.all.allocated", 0)
+    while (len(warm_segments) < GUARD_WARMUP
+           or any(warm_segments[-ZOO_SETTLED:])) and len(warm_segments) < ZOO_WARMUP_MAX:
+        seg0 = segments()
+        state, loss = step(state)
+        losses.append(loss)
+        warm_segments.append(segments() - seg0)
+    torch.cuda.synchronize()
+    print(f"{arch} warm-up: new allocator segments in steps 2-{len(losses)}: {warm_segments}",
+          flush=True)
+    check(not any(warm_segments[-ZOO_SETTLED:]),
+          f"{arch}: the allocator did not settle in {ZOO_WARMUP_MAX} warm-up steps (new "
+          f"segments a step {warm_segments})")
+    with LaunchGuard(f"{arch} train_4k training step") as guard:
+        state, loss = step(state)
+        losses.append(loss)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    n_timed = LM_TRAIN_STEPS - len(losses)
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(n_timed + 1)]
+    events[0].record()
+    for e in events[1:]:
+        state, loss = step(state)
+        losses.append(loss)
+        e.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    mean_ms = sum(ms) / len(ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses = torch.stack(losses).tolist()
+    tokens = accum * LM_TRAIN_SEQ
+    gflop = lm_train_gflop(cfg, accum, LM_TRAIN_SEQ)
+    bound = 1e3 * gflop * 1e9 / BF16_FLOPS
+    print(f"{arch} train train_4k (S {LM_TRAIN_SEQ}, {accum} row(s), grad_accum {accum}, remat "
+          f"{cfg.remat}; cut: {cuts}): {cfg.n_params / 1e9:.3f} B params drawn in {init_s:.2f} s, "
+          f"{state_gb:.2f} GB of bf16 weights and float32 moments; {mean_ms:.4f} ms a step "
+          f"(steps {', '.join(f'{t:.4f}' for t in ms)}), {1e3 * tokens / mean_ms:.1f} tokens/s; "
+          f"{gflop / 1e3:.4f} TFLOP a step (the reference's model_flops), bf16 bound "
+          f"{bound:.4f} ms, share {bound / mean_ms:.3f}; peak memory {peak_gb:.2f} GB (step 1 "
+          f"{first_peak:.2f}); flash launches by entry in a step {took}; losses "
+          f"{', '.join(f'{x:.6f}' for x in losses)}", flush=True)
+    print(f"guard {guard.label}: builds {guard.builds} new segments {guard.new_segments} syncs "
+          f"{guard.syncs}; launches by entry {json.dumps(guard.launches)}", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"{arch}: the loss did not fall over {LM_TRAIN_STEPS} steps: {losses}")
+    guard.assert_steady_state()
+    box = [state]
+
+    def one_step():
+        box[0] = step(box[0])[0]
+    profile_step(f"{arch} training step", one_step)
+    del state, step, box
+    gc.collect()   # nothing of the old state may outlive it: the rerun draws a new one
+    torch.cuda.empty_cache()
+    # step 1 again, from the same seed
+    step, state = lm_train_setup(dev, cfg, accum, SEED)
+    state, loss = step(state)
+    again = state_digest((state[0], state[1].mu, state[1].nu))
+    same = loss.item() == losses[0] and again == first_digest
+    print(f"{arch}: step 1 run again from the seed: loss {loss.item():.7f} / {losses[0]:.7f}, "
+          f"{len(again)} leaves' digests equal {again == first_digest}", flush=True)
+    check(same, f"{arch}: a rerun of step 1 differs")
+    del state, step
+    torch.cuda.empty_cache()
+    return took
+
+
+def embedding_backward_is_deterministic(dev):
+    """The embedding gather's backward at phi4-mini's width, 4096 tokens
+    drawn from 64 ids (each repeated ~64 times), twice: the gradients of
+    the (200064, 3072) bf16 table bit-equal (its CUDA route sorts the
+    indices and sums each id's rows in order, with no atomics)."""
+    import torch
+    g = torch.Generator(device=dev).manual_seed(SEED + 5)
+    table = torch.randn((200064, 3072), generator=g, device=dev).bfloat16().requires_grad_()
+    ids = torch.randint(0, 64, (1, LM_TRAIN_SEQ), generator=g, device=dev) * 3001
+    dy = torch.randn((1, LM_TRAIN_SEQ, 3072), generator=g, device=dev).bfloat16()
+    grads = [torch.autograd.grad(table[ids], table, dy)[0] for _ in range(2)]
+    same = bit_equal(grads[0], grads[1])
+    print(f"embedding gather backward, {LM_TRAIN_SEQ} tokens of 64 ids: two runs bit-equal {same}",
+          flush=True)
+    check(same, "the embedding gather's backward is not deterministic on the card")
+    del table, grads, dy
+    torch.cuda.empty_cache()
+
+
+def lm_train_cuda_vs_cpu(dev, flash_kernels, arch):
+    """The reduced config in float32: ``loss_fn``'s loss and gradients on the
+    card (the CUDA-core flash kernels with the causal mask and GQA,
+    forward and backward, once a layer each) and on the CPU (the plain
+    version), from the same seeded weights and tokens -> the largest leaf
+    error over its own max."""
+    import numpy as np
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    cfg = reduced(get_config(arch))
+    p = lm.init(torch.Generator().manual_seed(SEED + 6), cfg, device="cpu")
+    tokens = np.random.default_rng(SEED + 6).integers(0, cfg.vocab_size, (2, 64))
+    runs = []
+    for d in (dev, "cpu"):
+        t = torch.from_numpy(tokens).to(d)
+        before = {s_: n for k in flash_kernels for s_, n in k.symbol_launches.items()}
+        runs.append(steps.value_and_grad(lambda q: lm.loss_fn(q, cfg, t, torch.roll(t, -1, 1)),
+                                         tree.from_numpy(p, d)))
+        took = {s_: n - before[s_] for k in flash_kernels for s_, n in k.symbol_launches.items()
+                if n != before[s_]}
+        want = ({} if d == "cpu" else
+                {s_: cfg.n_layers for s_ in ("flash_attention_f32", *(
+                    f"flash_attention_bwd_{e}_f32" for e in ("prep", "dkdv", "dq")))})
+        check(took == want, f"{arch} reduced float32 on {d}: flash launches {took}, not {want}")
+    (loss, grads, _), (loss_c, grads_c, _) = runs
+    loss_err = abs(loss.item() - loss_c.item()) / abs(loss_c.item())
+    paths, want = tree.flatten_with_paths(grads_c)
+    errs = {path: (a.cpu() - w).abs().max().item() / max(w.abs().max().item(), 1e-30)
+            for path, a, w in zip(paths, tree.leaves(grads), want)}
+    worst = max(errs, key=errs.get)
+    print(f"{arch} reduced float32 loss_fn card vs CPU: loss {loss.item():.7e} / "
+          f"{loss_c.item():.7e} (rel {loss_err:.2e}, limit {ZOO_F32_LOSS_RTOL:.0e}); {len(errs)} "
+          f"gradient leaves within {errs[worst]:.3e} of each leaf's max (worst {worst}; limit "
+          f"{LM_F32_GRAD_TOL:.0e})", flush=True)
+    check(loss_err <= ZOO_F32_LOSS_RTOL and errs[worst] <= LM_F32_GRAD_TOL,
+          f"{arch}: reduced step card vs CPU differs (loss {loss_err:.2e}, {worst} "
+          f"{errs[worst]:.2e})")
+    return errs[worst]
+
+
+def lm_train_cli():
+    """``python -m repro_torch.launch.train --steps 20`` (reduced qwen3-8b,
+    the reference's defaults) on the card twice over one ``--ckpt-dir``:
+    the first run checkpoints at steps 10 and 20; step 20's checkpoint is
+    removed, as a crash before its commit would leave the folder, and the
+    second run (``--compress``: the int8 codec on the card) resumes from
+    step 10 and runs 10 steps (checked from the printed report)."""
+    import os
+    import shutil
+    folder = ROOT / "build" / "lm_train_ckpt"
+    shutil.rmtree(folder, ignore_errors=True)
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    cmd = [sys.executable, "-m", "repro_torch.launch.train", "--steps", "20", "--ckpt-dir",
+           str(folder)]
+    lines = []
+    for extra in ([], ["--compress"]):
+        out = subprocess.run(cmd + extra, env=env, capture_output=True, text=True, timeout=300)
+        check(out.returncode == 0, f"launch.train failed: {out.stderr[-2000:]}")
+        lines.append(out.stdout.strip().splitlines()[-1])
+        print(f"python -m repro_torch.launch.train --steps 20 {' '.join(extra)}: {lines[-1]}",
+              flush=True)
+        shutil.rmtree(folder / "step_00000020", ignore_errors=True)
+    shutil.rmtree(folder, ignore_errors=True)
+    fields = [dict(f.split("=") for f in line.split()) for line in lines]
+    check(fields[0]["steps"] == "20" and fields[0]["resumed_from"] == "None"
+          and fields[1]["steps"] == "10" and fields[1]["resumed_from"] == "10"
+          and all(math.isfinite(float(f[k])) for f in fields for k in ("first_loss", "last_loss"))
+          and all(f["rejected"] == "0" for f in fields),
+          f"launch.train's runs: {lines}")
+
+
+def phase_lm_training(dev, kernels):
+    """Phase 16 -> flash launches by entry in the two models' first steps
+    (the main path's)."""
+    entries = {}
+    embedding_backward_is_deterministic(dev)
+    for arch in LM_TRAIN_ARCHS:
+        t0 = time.perf_counter()
+        for sym, n in lm_train_cell(dev, kernels, arch).items():
+            entries[sym] = entries.get(sym, 0) + n
+        print(f"phase 16 {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    for arch in LM_TRAIN_ARCHS:
+        lm_train_cuda_vs_cpu(dev, kernels, arch)
+    lm_train_cli()
+    print(f"phase 16 card vs CPU and launch.train: {time.perf_counter() - t0:.1f} s", flush=True)
     return entries
 
 
@@ -4132,6 +4556,13 @@ def main():
     for sym, n in zoo_entries.items():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase zoo training: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    lm_entries = phase_lm_training(dev, [kernel["flash_attention"], *bwd_libs])
+    launches["flash_attention"] += sum(n for sym, n in lm_entries.items()
+                                       if not any(sym in k.symbol_launches for k in bwd_libs))
+    for sym, n in lm_entries.items():
+        entry_launches[sym] = entry_launches.get(sym, 0) + n
+    print(f"phase lm training: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

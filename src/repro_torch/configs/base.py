@@ -68,9 +68,11 @@ class MLASpec:
 class LMConfig:
     """Decoder-only LM: dense GQA (qwen3-8b, phi4-mini), or with an MoE
     FFN (``moe``: qwen2-moe, deepseek) and MLA attention (``mla``:
-    deepseek). The reference's training-only fields (``remat``,
-    ``scan_layers``) are left out: the port runs its layers in a loop and
-    has no backward for the LMs."""
+    deepseek). ``remat`` is the reference's: "none", "full" (each block
+    saves nothing and recomputes everything in the backward) or
+    "dots_saveable" (it keeps the outputs of its matrix products,
+    ``layers.remat``). The reference's ``scan_layers`` is left out: the
+    port runs its layers in a loop."""
 
     name: str
     family: str = "lm"
@@ -88,6 +90,7 @@ class LMConfig:
     moe: Optional[MoESpec] = None
     mla: Optional[MLASpec] = None
     param_dtype: str = "bfloat16"
+    remat: str = "dots_saveable"
 
     def _emb_attn(self):
         """(embedding and head, one layer's attention) parameter counts."""
@@ -344,8 +347,8 @@ def reduced(cfg):
     rank 32 with heads of 16 + 8 (value 16). A vision model: 32-px input,
     10 classes, float32; ViT 2 layers of d_model 32 (2 heads, d_ff 64) on
     8-px patches, ConvNeXt one block a stage at dims 8-16-24-32, ResNet
-    one bottleneck a stage at width 8. Vision and diffusion models get
-    ``remat="none"``, as the reference's. A diffusion model, float32: DiT 2
+    one bottleneck a stage at width 8. LMs, vision and diffusion models
+    get ``remat="none"``, as the reference's. A diffusion model, float32: DiT 2
     layers of d_model 32 (2 heads) at 32 px, 10 classes; the UNet at 64
     px, ch 16, two levels (1, 2) of one res block, attention at level 1
     only, a context of 8 x 32. A counter: the first three stages
@@ -363,7 +366,8 @@ def reduced(cfg):
         return replace(
             cfg, name=cfg.name + "-smoke", n_layers=2, d_model=64,
             n_heads=4, n_kv_heads=min(cfg.n_kv_heads, 2), head_dim=16,
-            d_ff=128, vocab_size=256, moe=moe, mla=mla, param_dtype="float32")
+            d_ff=128, vocab_size=256, moe=moe, mla=mla, param_dtype="float32",
+            remat="none")
     if isinstance(cfg, VisionConfig):
         small = dict(name=cfg.name + "-smoke", img_res=32, n_classes=10, param_dtype="float32",
                      remat="none")

@@ -1,7 +1,7 @@
-// The gradient of non-causal multi-head attention in bf16 on Hopper's
-// tensor cores (sm_90a): FlashAttention-2/3's backward on wgmma and TMA,
-// with no atomics, in three entries (flash_attention_bwd_{prep,dkdv,dq}_
-// bf16_sm90), for D 64, 80 and 128.
+// The gradient of GQA attention, with an optional causal mask, in bf16 on
+// Hopper's tensor cores (sm_90a): FlashAttention-2/3's backward on wgmma
+// and TMA, with no atomics, in three entries (flash_attention_bwd_{prep,
+// dkdv,dq}_bf16_sm90), for D 64, 80 and 128.
 //
 // Replaces no TPU kernel: the reference has no backward kernel (XLA
 // differentiates repro/kernels/ref.py:attention on the CPU). It is the
@@ -9,33 +9,55 @@
 // kernels/flash_attention.py:choose_bwd_route); float32 and bf16 of other
 // head dims keep the CUDA-core entries of csrc/flash_attention_bwd.cu.
 //
-// For q, k, v, o, dO (B, S, H, D) contiguous bf16, Hq == Hkv, with s =
+// For q, o, dO (B, Sq, Hq, D) and k, v (B, Skv, Hkv, D) contiguous bf16,
+// Hq % Hkv == 0 (query head hh reads kv head hh / (Hq / Hkv)), with s =
 // q . k (products of bf16 are exact, float32 sums), lse each query row's
-// log-sum-exp of s * sm_scale in log2 units, written by the forward
-// (flash_attention_bf16_sm90's lse output, float32 (B, H, stride)):
+// log-sum-exp of s * sm_scale in log2 units over its unmasked keys, written
+// by the forward (flash_attention_bf16_sm90's lse output, float32 (B, Hq,
+// stride), with the same causal flag):
 //   P = exp2(s * sm_scale * log2(e) - lse),  Delta = rowsum(dO * O),
 //   dV = P^T dO,  dP = dO V^T,  dS = P * (dP - Delta),
 //   dK = sm_scale * dS^T q,  dQ = sm_scale * dS K.
-// P and dS enter their products as one bf16 each (as FA3's do); every sum
-// is float32; dq, dk, dv are rounded once to bf16. Each output element is
-// one thread's accumulator after a loop in a fixed order, with no atomics,
-// so two calls give the same bits.
+// With the causal mask (top-left, as the forward's: key > query index is
+// masked), P = dS = 0 at the masked entries. P and dS enter their products
+// as one bf16 each (as FA3's do); every sum is float32; dq, dk, dv are
+// rounded once to bf16. Each output element is one thread's accumulator
+// after a loop in a fixed order, with no atomics, so two calls give the
+// same bits.
 //
 // Entries (one launch each, in this order):
 // - prep: Delta alone, float32 (B, H, stride), 0 past Sq: 8 lanes a
 //   (b, s, h) row, 16-byte loads of O and dO. Bound: bytes (O and dO read
 //   once).
-// - dkdv: a block (one warpgroup) owns kBwdRows keys of one (b, h), K and
-//   V loaded once by TMA, and walks kBwdTile-query tiles of Q and dO, with
-//   their lse and Delta rows (bulk copies), through a ring of kBwdStages:
+// - dkdv: a block (one warpgroup) owns kBwdRows keys of one (b, kv head), K
+//   and V loaded once by TMA, and walks the kBwdTile-query tiles of Q and dO
+//   of each of its kv head's Hq / Hkv query heads in turn (head by head, a
+//   head's tiles in order), with their lse and Delta rows (bulk copies), all
+//   through one ring of kBwdStages, so dK and dV hold every query head's
+//   share before one store (no atomics, no float32 scratch of Hq heads):
 //   S^T = K Q^T and dP^T = V dO^T (wgmma, both operands from shared
 //   memory, K-major), P^T and dS^T in registers, then dV += P^T dO and dK
 //   += dS^T Q with P^T and dS^T from registers and dO and Q from shared
 //   memory, N-major (the transpose bit, as the forward feeds V). dK is
-//   scaled once at the end.
-// - dq: a block owns kBwdRows query rows, Q and dO loaded once, and walks
-//   kBwdTile-key tiles of K and V: S, dP, dS as in dkdv, then dQ += dS K,
-//   scaled once at the end.
+//   scaled once at the end. Causal: the query tiles that end before the
+//   block's first key are skipped (each head's walk starts at the tile that
+//   holds that key); the tile on the diagonal masks key > query.
+// - dq: a block owns kBwdRows query rows of one query head, Q and dO loaded
+//   once, and walks kBwdTile-key tiles of K and V of its kv head: S, dP, dS
+//   as in dkdv, then dQ += dS K, scaled once at the end. Causal: the key
+//   tiles past the block's last row are skipped; the diagonal tile masks.
+// The mask is a template parameter (kCausal): the non-causal kernels carry
+// none of its index arithmetic in their loops, where at D 64 a tile's four
+// products take only ~500 cycles (a runtime flag and a modulo a tile cost
+// the UNet's level 0 1.9x in dkdv).
+// Grids: without the mask every block does the same work, and the grid is
+// (tiles, heads, B), a head's blocks adjacent, so they run together and
+// read its Q and dO (dkdv) or K and V (dq) tiles from L2 (with the heads
+// fastest, ViT-L/16's dkdv took 0.603 ms against 0.366). Causal blocks do
+// uneven work, so the longest go first, as in the forward: the grid is
+// (heads, B, tiles), the tile index slowest; dkdv's block z owns the keys
+// from 64 z (the first keys see the most queries), dq's the query rows
+// from 64 (gridDim.z - 1 - z) (the last rows see the most keys).
 // Queries past Sq (dkdv) and keys past Skv (dq) get P = dS = 0 by an
 // explicit mask (lse past Sq is not written); rows past Sq or Skv are not
 // stored. D 80 (ViT-H/14) is read in place: the TMA maps have the true D,
@@ -147,14 +169,15 @@ __device__ __forceinline__ void to_bf16_operand(const float (&x)[32], uint32_t (
   for (int i = 0; i < 16; ++i) a[i] = bf16x2_bits(__floats2bfloat162_rn(x[2 * i], x[2 * i + 1]));
 }
 
-// dK and dV of kBwdRows keys: a loop over every query tile
-template <int D>
+// dK and dV of kBwdRows keys: a loop over every query tile of each of the
+// kv head's query heads
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kBwdThreads, min_blocks<D>())
 bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                    const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                    const float* __restrict__ lse, const float* __restrict__ delta,
                    __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq, int skv,
-                   int h, int stride, float sm_scale, float scale_log2) {
+                   int hq, int hkv, int stride, float sm_scale, float scale_log2) {
   constexpr uint32_t kBox = kBwdRows * 128;          // bytes of a 64-row box
   constexpr uint32_t kBytes = boxes<D>() * kBox;     // of a 64-row tile of one tensor
   constexpr uint32_t kRowBytes = kBwdTile * 4;       // of a tile's lse (or Delta)
@@ -167,23 +190,30 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
   const uint32_t bar_kv = s_rows + kBwdStages * 2 * kRowBytes, bar_full = bar_kv + 8;
   const float* rows = reinterpret_cast<const float*>(smem_raw + (s_rows - raw));
 
-  const int k0 = blockIdx.x * kBwdRows, hh = blockIdx.y, b = blockIdx.z;
+  const int hk = kCausal ? blockIdx.x : blockIdx.y, b = kCausal ? blockIdx.y : blockIdx.z;
+  const int k0 = (kCausal ? blockIdx.z : blockIdx.x) * kBwdRows;
   const int n_tiles = (sq + kBwdTile - 1) / kBwdTile;
+  const int rep = hq / hkv;
+  // causal: the first query tile that reaches key k0 (none past sq)
+  const int t_first = kCausal ? min(k0 / kBwdTile, n_tiles) : 0;
+  const int per_head = n_tiles - t_first, n_items = rep * per_head;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const long long row_off = ((long long)b * h + hh) * stride;  // of lse and Delta
 
-  // thread 0 fills stage t % kBwdStages with query tile t
-  auto load_tile = [&](int t) {
-    const int st = t % kBwdStages;
+  // thread 0 fills stage it % kBwdStages with item it: query tile t_first +
+  // it % per_head of query head hk * rep + it / per_head
+  auto load_tile = [&](int it) {
+    const int st = it % kBwdStages, j = it / per_head;
+    const int hh = hk * rep + j, q0 = (t_first + it - j * per_head) * kBwdTile;
+    const long long row_off = ((long long)b * hq + hh) * stride;  // of lse and Delta
     const uint32_t q_dst = s_ring + st * 2 * kBytes, r_dst = s_rows + st * 2 * kRowBytes;
     const uint32_t full = bar_full + 8 * st;
     mbar_expect_tx(full, 2 * kBytes + 2 * kRowBytes);
     for (int db = 0; db < boxes<D>(); ++db) {
-      tma_load(q_dst + db * kBox, &tm_q, full, db * 64, hh, t * kBwdTile, b);
-      tma_load(q_dst + kBytes + db * kBox, &tm_do, full, db * 64, hh, t * kBwdTile, b);
+      tma_load(q_dst + db * kBox, &tm_q, full, db * 64, hh, q0, b);
+      tma_load(q_dst + kBytes + db * kBox, &tm_do, full, db * 64, hh, q0, b);
     }
-    bulk_load(r_dst, lse + row_off + t * kBwdTile, kRowBytes, full);
-    bulk_load(r_dst + kRowBytes, delta + row_off + t * kBwdTile, kRowBytes, full);
+    bulk_load(r_dst, lse + row_off + q0, kRowBytes, full);
+    bulk_load(r_dst + kRowBytes, delta + row_off + q0, kRowBytes, full);
   };
   if (threadIdx.x == 0) {
     mbar_init(bar_kv, 1);
@@ -191,10 +221,10 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(bar_kv, 2 * kBytes);
     for (int db = 0; db < boxes<D>(); ++db) {
-      tma_load(s_k + db * kBox, &tm_k, bar_kv, db * 64, hh, k0, b);
-      tma_load(s_v + db * kBox, &tm_v, bar_kv, db * 64, hh, k0, b);
+      tma_load(s_k + db * kBox, &tm_k, bar_kv, db * 64, hk, k0, b);
+      tma_load(s_v + db * kBox, &tm_v, bar_kv, db * 64, hk, k0, b);
     }
-    for (int t = 0; t < kBwdStages && t < n_tiles; ++t) load_tile(t);
+    for (int it = 0; it < kBwdStages && it < n_items; ++it) load_tile(it);
   }
   __syncthreads();
 
@@ -206,12 +236,14 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
   for (int i = 0; i < D / 2; ++i) dka[i] = dva[i] = 0.f;
 
   mbar_wait(bar_kv, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int st = t % kBwdStages, q0 = t * kBwdTile;
+  int t = t_first;  // item it's query tile
+  for (int it = 0; it < n_items; ++it) {
+    const int st = it % kBwdStages, q0 = t * kBwdTile;
+    t = t + 1 == n_tiles ? t_first : t + 1;  // the next query head's walk starts again
     const uint32_t s_q = s_ring + st * 2 * kBytes, s_do = s_q + kBytes;
     const float* lse_t = rows + st * 2 * kBwdTile;
     const float* delta_t = lse_t + kBwdTile;
-    mbar_wait(bar_full + 8 * st, (t / kBwdStages) & 1);
+    mbar_wait(bar_full + 8 * st, (it / kBwdStages) & 1);
 
     // S^T = K Q^T and dP^T = V dO^T: D/16 steps of 16 along the head dim
     float s[32], dp[32];
@@ -232,8 +264,10 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     fence_regs(dp);
 
     // P^T and dS^T in place: s[4i + e] is (key0, query q0 + 8i + col + e),
-    // s[4i + 2 + e] (key0 + 8, the same query)
+    // s[4i + 2 + e] (key0 + 8, the same query); 0 for queries past sq and,
+    // on the diagonal tile, for key > query
     const bool mask = q0 + kBwdTile > sq;
+    const bool diag = kCausal && q0 < k0 + kBwdRows;
 #pragma unroll
     for (int i = 0; i < 8; ++i) {
       const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * i + col);
@@ -241,11 +275,16 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
         const float li = e ? l2.y : l2.x, di = e ? d2.y : d2.x;
-        const bool out = mask && q0 + 8 * i + col + e >= sq;
-        const float p0 = out ? 0.f : exp2f(s[4 * i + e] * scale_log2 - li);
-        const float p1 = out ? 0.f : exp2f(s[4 * i + 2 + e] * scale_log2 - li);
-        dp[4 * i + e] = out ? 0.f : p0 * (dp[4 * i + e] - di);
-        dp[4 * i + 2 + e] = out ? 0.f : p1 * (dp[4 * i + 2 + e] - di);
+        const int qi = q0 + 8 * i + col + e;
+        bool out0 = mask && qi >= sq, out1 = out0;
+        if constexpr (kCausal) {
+          out0 = out0 || (diag && key0 > qi);
+          out1 = out1 || (diag && key0 + 8 > qi);
+        }
+        const float p0 = out0 ? 0.f : exp2f(s[4 * i + e] * scale_log2 - li);
+        const float p1 = out1 ? 0.f : exp2f(s[4 * i + 2 + e] * scale_log2 - li);
+        dp[4 * i + e] = out0 ? 0.f : p0 * (dp[4 * i + e] - di);
+        dp[4 * i + 2 + e] = out1 ? 0.f : p1 * (dp[4 * i + 2 + e] - di);
         s[4 * i + e] = p0;
         s[4 * i + 2 + e] = p1;
       }
@@ -274,12 +313,12 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
     fence_regs(dva);
     fence_regs(dka);
     __syncthreads();  // every thread is done with the stage: refill it
-    if (threadIdx.x == 0 && t + kBwdStages < n_tiles) load_tile(t + kBwdStages);
+    if (threadIdx.x == 0 && it + kBwdStages < n_items) load_tile(it + kBwdStages);
   }
 
   // dka[4i + e] is (key0, column 8i + col + e), dka[4i + 2 + e] key0 + 8
-  const long long row_stride = (long long)h * D;
-  const long long off = (long long)b * skv * row_stride + (long long)hh * D;
+  const long long row_stride = (long long)hkv * D;
+  const long long off = (long long)b * skv * row_stride + (long long)hk * D;
   __nv_bfloat16* dkb = dk + off;
   __nv_bfloat16* dvb = dv + off;
 #pragma unroll
@@ -300,13 +339,13 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
   }
 }
 
-// dQ of kBwdRows query rows: a loop over every key tile
-template <int D>
+// dQ of kBwdRows query rows: a loop over every key tile of its kv head
+template <int D, bool kCausal>
 __global__ void __launch_bounds__(kBwdThreads, min_blocks<D>())
 bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                  const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                  const float* __restrict__ lse, const float* __restrict__ delta,
-                 __nv_bfloat16* __restrict__ dq, int sq, int skv, int h, int stride,
+                 __nv_bfloat16* __restrict__ dq, int sq, int skv, int hq, int hkv, int stride,
                  float sm_scale, float scale_log2) {
   constexpr uint32_t kBox = kBwdRows * 128, kBytes = boxes<D>() * kBox;
   extern __shared__ uint8_t smem_raw[];
@@ -315,8 +354,12 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   const uint32_t s_ring = s_do + kBytes;                      // stage st: K, then V
   const uint32_t bar_q = s_ring + kBwdStages * 2 * kBytes, bar_full = bar_q + 8;
 
-  const int q0 = blockIdx.x * kBwdRows, hh = blockIdx.y, b = blockIdx.z;
-  const int n_tiles = (skv + kBwdTile - 1) / kBwdTile;
+  const int hh = kCausal ? blockIdx.x : blockIdx.y, b = kCausal ? blockIdx.y : blockIdx.z;
+  const int q0 = (kCausal ? gridDim.z - 1 - blockIdx.z : blockIdx.x) * kBwdRows;
+  const int hk = hh / (hq / hkv);
+  // causal: keys past the block's last row are masked for every row
+  const int kv_end = kCausal ? min(skv, q0 + kBwdRows) : skv;
+  const int n_tiles = (kv_end + kBwdTile - 1) / kBwdTile;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   // thread 0 fills stage t % kBwdStages with key tile t
@@ -325,8 +368,8 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     const uint32_t k_dst = s_ring + st * 2 * kBytes, full = bar_full + 8 * st;
     mbar_expect_tx(full, 2 * kBytes);
     for (int db = 0; db < boxes<D>(); ++db) {
-      tma_load(k_dst + db * kBox, &tm_k, full, db * 64, hh, t * kBwdTile, b);
-      tma_load(k_dst + kBytes + db * kBox, &tm_v, full, db * 64, hh, t * kBwdTile, b);
+      tma_load(k_dst + db * kBox, &tm_k, full, db * 64, hk, t * kBwdTile, b);
+      tma_load(k_dst + kBytes + db * kBox, &tm_v, full, db * 64, hk, t * kBwdTile, b);
     }
   };
   if (threadIdx.x == 0) {
@@ -345,7 +388,7 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   // this thread holds rows row0 and row0 + 8 of every accumulator
   const int row0 = q0 + 16 * warp + lane / 4;
   const int col = 2 * (lane % 4);
-  const long long row_off = ((long long)b * h + hh) * stride;
+  const long long row_off = ((long long)b * hq + hh) * stride;
   const float lse0 = row0 < sq ? lse[row_off + row0] : 0.f;
   const float lse1 = row0 + 8 < sq ? lse[row_off + row0 + 8] : 0.f;
   const float dl0 = row0 < sq ? delta[row_off + row0] : 0.f;
@@ -379,17 +422,24 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     fence_regs(dp);
 
     // dS in place of dP: s[4i + e] is (row0, key kt0 + 8i + col + e),
-    // s[4i + 2 + e] (row0 + 8, the same key)
+    // s[4i + 2 + e] (row0 + 8, the same key); 0 for keys past skv and, on
+    // the diagonal tile, for key > row
     const bool mask = kt0 + kBwdTile > skv;
+    const bool diag = kCausal && kt0 + kBwdTile - 1 > q0;
 #pragma unroll
     for (int i = 0; i < 8; ++i)
 #pragma unroll
       for (int e = 0; e < 2; ++e) {
-        const bool out = mask && kt0 + 8 * i + col + e >= skv;
+        const int key = kt0 + 8 * i + col + e;
+        bool out0 = mask && key >= skv, out1 = out0;
+        if constexpr (kCausal) {
+          out0 = out0 || (diag && key > row0);
+          out1 = out1 || (diag && key > row0 + 8);
+        }
         const float p0 = exp2f(s[4 * i + e] * scale_log2 - lse0);
         const float p1 = exp2f(s[4 * i + 2 + e] * scale_log2 - lse1);
-        dp[4 * i + e] = out ? 0.f : p0 * (dp[4 * i + e] - dl0);
-        dp[4 * i + 2 + e] = out ? 0.f : p1 * (dp[4 * i + 2 + e] - dl1);
+        dp[4 * i + e] = out0 ? 0.f : p0 * (dp[4 * i + e] - dl0);
+        dp[4 * i + 2 + e] = out1 ? 0.f : p1 * (dp[4 * i + 2 + e] - dl1);
       }
     uint32_t dsa[16];
     to_bf16_operand(dp, dsa);
@@ -409,7 +459,7 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
     if (threadIdx.x == 0 && t + kBwdStages < n_tiles) load_tile(t + kBwdStages);
   }
 
-  const long long row_stride = (long long)h * D;
+  const long long row_stride = (long long)hq * D;
   __nv_bfloat16* dqb = dq + (long long)b * sq * row_stride + (long long)hh * D;
 #pragma unroll
   for (int i = 0; i < D / 8; ++i) {
@@ -423,9 +473,11 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
 }
 
 // the entries' common checks: 0 to launch, else an error code
-int check_args(int b, int sq, int skv, int h, int d, int stride) {
-  if (b <= 0 || sq <= 0 || skv <= 0 || h <= 0 || (d != 64 && d != 80 && d != 128) ||
-      b > 65535 || h > 65535 || stride < sq || stride % kBwdTile != 0)
+int check_args(int b, int sq, int skv, int hq, int hkv, int d, int stride) {
+  if (b <= 0 || sq <= 0 || skv <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 ||
+      (d != 64 && d != 80 && d != 128) || b > 65535 || hq > 65535 ||
+      (sq + kBwdRows - 1) / kBwdRows > 65535 || (skv + kBwdRows - 1) / kBwdRows > 65535 ||
+      stride < sq || stride % kBwdTile != 0)
     return (int)cudaErrorInvalidValue;
   return 0;
 }
@@ -435,62 +487,65 @@ int set_smem(K kernel, int bytes) {
   return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// the four TMA maps, of the true D: q and dO with boxes of q_rows rows, k
-// and v of kv_rows
+// the four TMA maps, of the true D: q and dO of hq heads with boxes of
+// q_rows rows, k and v of hkv heads with boxes of kv_rows
 template <int D>
 bool encode_maps(CUtensorMap (&m)[4], const void* q, const void* k, const void* v,
-                 const void* dout, int b, int sq, int skv, int h, int q_rows, int kv_rows) {
+                 const void* dout, int b, int sq, int skv, int hq, int hkv, int q_rows,
+                 int kv_rows) {
   EncodeTiled fn = encode_tiled();
-  return fn != nullptr && encode_bshd(fn, &m[0], q, b, sq, h, D, q_rows) &&
-         encode_bshd(fn, &m[1], k, b, skv, h, D, kv_rows) &&
-         encode_bshd(fn, &m[2], v, b, skv, h, D, kv_rows) &&
-         encode_bshd(fn, &m[3], dout, b, sq, h, D, q_rows);
+  return fn != nullptr && encode_bshd(fn, &m[0], q, b, sq, hq, D, q_rows) &&
+         encode_bshd(fn, &m[1], k, b, skv, hkv, D, kv_rows) &&
+         encode_bshd(fn, &m[2], v, b, skv, hkv, D, kv_rows) &&
+         encode_bshd(fn, &m[3], dout, b, sq, hq, D, q_rows);
 }
 
 template <int D>
 int launch_dkdv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-                const void* delta, void* dk, void* dv, int b, int sq, int skv, int h, int stride,
-                float sm_scale, cudaStream_t stream) {
+                const void* delta, void* dk, void* dv, int b, int sq, int skv, int hq, int hkv,
+                int causal, int stride, float sm_scale, cudaStream_t stream) {
   CUtensorMap m[4];
-  if (!encode_maps<D>(m, q, k, v, dout, b, sq, skv, h, kBwdTile, kBwdRows))
+  if (!encode_maps<D>(m, q, k, v, dout, b, sq, skv, hq, hkv, kBwdTile, kBwdRows))
     return (int)cudaErrorInvalidValue;
-  auto kernel = bwd_dkdv_tc_kernel<D>;
+  auto kernel = causal ? bwd_dkdv_tc_kernel<D, true> : bwd_dkdv_tc_kernel<D, false>;
   constexpr int bytes = bwd_smem<D>();
   if (int err = set_smem(kernel, bytes)) return err;
-  const dim3 grid((skv + kBwdRows - 1) / kBwdRows, h, b);
+  const int tiles = (skv + kBwdRows - 1) / kBwdRows;
+  const dim3 grid = causal ? dim3(hkv, b, tiles) : dim3(tiles, hkv, b);
   kernel<<<grid, kBwdThreads, bytes, stream>>>(
       m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
-      (__nv_bfloat16*)dv, sq, skv, h, stride, sm_scale, sm_scale * kLog2e);
+      (__nv_bfloat16*)dv, sq, skv, hq, hkv, stride, sm_scale, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-              const void* delta, void* dqo, int b, int sq, int skv, int h, int stride,
-              float sm_scale, cudaStream_t stream) {
+              const void* delta, void* dqo, int b, int sq, int skv, int hq, int hkv, int causal,
+              int stride, float sm_scale, cudaStream_t stream) {
   CUtensorMap m[4];
-  if (!encode_maps<D>(m, q, k, v, dout, b, sq, skv, h, kBwdRows, kBwdTile))
+  if (!encode_maps<D>(m, q, k, v, dout, b, sq, skv, hq, hkv, kBwdRows, kBwdTile))
     return (int)cudaErrorInvalidValue;
-  auto kernel = bwd_dq_tc_kernel<D>;
+  auto kernel = causal ? bwd_dq_tc_kernel<D, true> : bwd_dq_tc_kernel<D, false>;
   constexpr int bytes = bwd_smem<D>();
   if (int err = set_smem(kernel, bytes)) return err;
-  const dim3 grid((sq + kBwdRows - 1) / kBwdRows, h, b);
+  const int tiles = (sq + kBwdRows - 1) / kBwdRows;
+  const dim3 grid = causal ? dim3(hq, b, tiles) : dim3(tiles, hq, b);
   kernel<<<grid, kBwdThreads, bytes, stream>>>(
       m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (__nv_bfloat16*)dqo, sq,
-      skv, h, stride, sm_scale, sm_scale * kLog2e);
+      skv, hq, hkv, stride, sm_scale, sm_scale * kLog2e);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// o, dout: (b, sq, h, d) contiguous bf16, 16-byte aligned; delta: float32
-// (b, h, stride), stride >= sq a multiple of 64, written for every row (0
-// past sq). d 64, 80 or 128. Returns cudaGetLastError() (or
-// cudaErrorInvalidValue for arguments it refuses).
+// o, dout: (b, sq, h, d) contiguous bf16, 16-byte aligned (h the query
+// heads); delta: float32 (b, h, stride), stride >= sq a multiple of 64,
+// written for every row (0 past sq). d 64, 80 or 128. Returns
+// cudaGetLastError() (or cudaErrorInvalidValue for arguments it refuses).
 extern "C" int flash_attention_bwd_prep_bf16_sm90(const void* o, const void* dout, void* delta,
                                                   int b, int sq, int h, int d, int stride,
                                                   void* stream) {
-  if (int err = check_args(b, sq, 1, h, d, stride)) return err;
+  if (int err = check_args(b, sq, 1, h, h, d, stride)) return err;
   const long long n = (long long)b * h * stride;
   const long long blocks = (n + kDeltaThreads / 8 - 1) / (kDeltaThreads / 8);
   bwd_delta_kernel<<<(unsigned)blocks, kDeltaThreads, 0, (cudaStream_t)stream>>>(
@@ -498,33 +553,46 @@ extern "C" int flash_attention_bwd_prep_bf16_sm90(const void* o, const void* dou
   return (int)cudaGetLastError();
 }
 
-// q, dout: (b, sq, h, d); k, v: (b, skv, h, d), contiguous bf16, 16-byte
-// aligned; lse: the forward's, delta: prep's, float32 (b, h, stride); dk,
-// dv like k, v; dq like q. d 64, 80 or 128, sm_scale = 1/sqrt(d). Each
-// returns cudaGetLastError() (or cudaErrorInvalidValue for arguments it
-// refuses or a tensor map that cuTensorMapEncodeTiled refuses).
+// q, dout: (b, sq, hq, d); k, v: (b, skv, hkv, d), hq % hkv == 0,
+// contiguous bf16, 16-byte aligned; lse: the forward's (with the same
+// causal flag), delta: prep's, float32 (b, hq, stride); dk, dv like k, v;
+// dq like q. d 64, 80 or 128, sm_scale = 1/sqrt(d), causal 0 or 1 (top-left:
+// key > query index masked). Each returns cudaGetLastError() (or
+// cudaErrorInvalidValue for arguments it refuses or a tensor map that
+// cuTensorMapEncodeTiled refuses).
 extern "C" int flash_attention_bwd_dkdv_bf16_sm90(const void* q, const void* k, const void* v,
                                                   const void* dout, const void* lse,
                                                   const void* delta, void* dk, void* dv, int b,
-                                                  int sq, int skv, int h, int d, int stride,
-                                                  float sm_scale, void* stream) {
-  if (int err = check_args(b, sq, skv, h, d, stride)) return err;
+                                                  int sq, int skv, int hq, int hkv, int d,
+                                                  int causal, int stride, float sm_scale,
+                                                  void* stream) {
+  if (int err = check_args(b, sq, skv, hq, hkv, d, stride)) return err;
   cudaStream_t s = (cudaStream_t)stream;
+  const int c = causal != 0;
   if (d == 64)
-    return launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, b, sq, skv, h, stride, sm_scale, s);
+    return launch_dkdv<64>(q, k, v, dout, lse, delta, dk, dv, b, sq, skv, hq, hkv, c, stride,
+                           sm_scale, s);
   if (d == 80)
-    return launch_dkdv<80>(q, k, v, dout, lse, delta, dk, dv, b, sq, skv, h, stride, sm_scale, s);
-  return launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, b, sq, skv, h, stride, sm_scale, s);
+    return launch_dkdv<80>(q, k, v, dout, lse, delta, dk, dv, b, sq, skv, hq, hkv, c, stride,
+                           sm_scale, s);
+  return launch_dkdv<128>(q, k, v, dout, lse, delta, dk, dv, b, sq, skv, hq, hkv, c, stride,
+                          sm_scale, s);
 }
 
 extern "C" int flash_attention_bwd_dq_bf16_sm90(const void* q, const void* k, const void* v,
                                                 const void* dout, const void* lse,
                                                 const void* delta, void* dqo, int b, int sq,
-                                                int skv, int h, int d, int stride, float sm_scale,
-                                                void* stream) {
-  if (int err = check_args(b, sq, skv, h, d, stride)) return err;
+                                                int skv, int hq, int hkv, int d, int causal,
+                                                int stride, float sm_scale, void* stream) {
+  if (int err = check_args(b, sq, skv, hq, hkv, d, stride)) return err;
   cudaStream_t s = (cudaStream_t)stream;
-  if (d == 64) return launch_dq<64>(q, k, v, dout, lse, delta, dqo, b, sq, skv, h, stride, sm_scale, s);
-  if (d == 80) return launch_dq<80>(q, k, v, dout, lse, delta, dqo, b, sq, skv, h, stride, sm_scale, s);
-  return launch_dq<128>(q, k, v, dout, lse, delta, dqo, b, sq, skv, h, stride, sm_scale, s);
+  const int c = causal != 0;
+  if (d == 64)
+    return launch_dq<64>(q, k, v, dout, lse, delta, dqo, b, sq, skv, hq, hkv, c, stride,
+                         sm_scale, s);
+  if (d == 80)
+    return launch_dq<80>(q, k, v, dout, lse, delta, dqo, b, sq, skv, hq, hkv, c, stride,
+                         sm_scale, s);
+  return launch_dq<128>(q, k, v, dout, lse, delta, dqo, b, sq, skv, hq, hkv, c, stride,
+                        sm_scale, s);
 }

@@ -59,8 +59,12 @@ differentiate its oracle), three launches on one of two routes, the rule
   the log-sum-exp from q and k.
 
 A forced ``route`` applies to the Function's forward and backward alike.
-Both take non-causal attention with Hq == Hkv and D <= ``MAX_BWD_D``, any
-Sq and Skv; a causal mask or GQA raises a ``ValueError`` before the
+Both take the causal mask (the forward's, top-left: key > query index
+masked; the training forward writes the masked rows' log-sum-exp) and
+GQA (k, v of Hkv heads read in place, no repeat: ``dkdv`` walks each kv
+head's Hq / Hkv query heads and sums their shares before one store,
+``dq`` reads its query head's kv head), any Sq and Skv, D <=
+``MAX_BWD_D``; D > 128 (MLA's 192) raises a ``ValueError`` before the
 forward launches. Without a gradient nothing is saved, the forward writes
 no log-sum-exp (its lse pointer is null) and the launches are the
 forward's alone.
@@ -94,9 +98,10 @@ MAX_GRID_YZ = 65535
 BWD_ENTRIES = ("prep", "dkdv", "dq")
 BWD_SYMBOLS = {(e, dt): f"flash_attention_bwd_{e}_{n}" for e in BWD_ENTRIES
                for dt, n in ((torch.float32, "f32"), (torch.bfloat16, "bf16"))}
-_BWD_ARGS = {"prep": [P] * 6 + [I] * 5 + [ctypes.c_float, P],
-             "dkdv": [P] * 8 + [I] * 5 + [ctypes.c_float, P],
-             "dq": [P] * 7 + [I] * 5 + [ctypes.c_float, P]}
+# after the pointers: b, sq, skv, hq, hkv, d, causal, then sm_scale and the stream
+_BWD_ARGS = {"prep": [P] * 6 + [I] * 7 + [ctypes.c_float, P],
+             "dkdv": [P] * 8 + [I] * 7 + [ctypes.c_float, P],
+             "dq": [P] * 7 + [I] * 7 + [ctypes.c_float, P]}
 BWD_KERNEL = CudaKernel("flash_attention_bwd",
                         {sym: _BWD_ARGS[e] for (e, _), sym in BWD_SYMBOLS.items()})
 MAX_BWD_D = 128
@@ -105,9 +110,11 @@ MAX_BWD_D = 128
 # query tile, kBwdTile, so every tile's rows are one aligned bulk copy)
 TENSOR_CORE_BWD_D = (64, 80, 128)
 BWD_TC_SYMBOLS = {e: f"flash_attention_bwd_{e}_bf16_sm90" for e in BWD_ENTRIES}
+# prep: b, sq, hq, d, stride; dkdv and dq: b, sq, skv, hq, hkv, d, causal,
+# stride, then sm_scale and the stream
 _BWD_TC_ARGS = {"prep": [P] * 3 + [I] * 5 + [P],
-                "dkdv": [P] * 8 + [I] * 6 + [ctypes.c_float, P],
-                "dq": [P] * 7 + [I] * 6 + [ctypes.c_float, P]}
+                "dkdv": [P] * 8 + [I] * 8 + [ctypes.c_float, P],
+                "dq": [P] * 7 + [I] * 8 + [ctypes.c_float, P]}
 BWD_TC_KERNEL = CudaKernel("flash_attention_bwd_sm90",
                            {sym: _BWD_TC_ARGS[e] for e, sym in BWD_TC_SYMBOLS.items()})
 LSE_ROW_PAD = 64
@@ -136,21 +143,16 @@ def lse_stride(sq: int) -> int:
     return -(-sq // LSE_ROW_PAD) * LSE_ROW_PAD
 
 
-def check_backward(q_shape, k_shape, causal: bool) -> None:
-    """Raise a ``ValueError`` for what the backward kernel does not take:
-    a causal mask, GQA (Hq != Hkv) or D > ``MAX_BWD_D`` (shapes other than
-    4-D are left to the input checks)."""
+def check_backward(q_shape, k_shape) -> None:
+    """Raise a ``ValueError`` for what the backward kernels do not take:
+    D > ``MAX_BWD_D`` (causal and GQA are taken; shapes other than 4-D are
+    left to the input checks)."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return
-    if causal:
-        raise ValueError("flash_attention's backward takes non-causal attention only "
-                         "(the causal backward is the LM training slice's)")
-    if q_shape[2] != k_shape[2]:
-        raise ValueError(f"flash_attention's backward takes Hq == Hkv, got {q_shape[2]} "
-                         f"query and {k_shape[2]} kv heads (GQA is the LM training slice's)")
     if q_shape[3] > MAX_BWD_D:
         raise ValueError(f"flash_attention's backward takes D <= {MAX_BWD_D}, got "
-                         f"{q_shape[3]}")
+                         f"{q_shape[3]} (D 192, MLA's heads, is the MoE and MLA training "
+                         f"slice's)")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -160,12 +162,13 @@ class _FlashAttention(torch.autograd.Function):
     writes and saves each row's log-sum-exp."""
 
     @staticmethod
-    def forward(ctx, q, k, v, route):
+    def forward(ctx, q, k, v, causal, route):
         ctx.route = choose_bwd_route(q.dtype, q.shape[-1]) if route is None else route
+        ctx.causal = causal
         if ctx.route == TENSOR_CORE:
-            out, lse = _forward(q, k, v, False, route, with_lse=True)
+            out, lse = _forward(q, k, v, causal, route, with_lse=True)
         else:
-            out, lse = _forward(q, k, v, False, route), None
+            out, lse = _forward(q, k, v, causal, route), None
         out = out.contiguous()
         ctx.save_for_backward(q, k, v, out, lse)
         return out
@@ -173,8 +176,9 @@ class _FlashAttention(torch.autograd.Function):
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse = ctx.saved_tensors
-        return (*flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, route=ctx.route),
-                None)
+        return (*flash_attention_bwd(q, k, v, out, dout.contiguous(), lse, causal=ctx.causal,
+                                     route=ctx.route),
+                None, None)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -187,8 +191,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`flash_attention_bwd` as its backward (checked first by
     :func:`check_backward`), on the forced route if one is named."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        check_backward(q.shape, k.shape, causal)
-        return _FlashAttention.apply(q, k, v, route)
+        check_backward(q.shape, k.shape)
+        return _FlashAttention.apply(q, k, v, causal, route)
     return _forward(q, k, v, causal, route)
 
 
@@ -252,21 +256,24 @@ def _forward(q, k, v, causal, route, with_lse=False):
 
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
                         dout: torch.Tensor, lse: Optional[torch.Tensor] = None, *,
-                        route: Optional[str] = None):
-    """The gradient of non-causal :func:`flash_attention` -> (dq, dk, dv)
-    in the inputs' dtype: q, o, dout (B, Sq, H, D), k, v (B, Skv, H, D),
-    contiguous, float32 or bf16, on one CUDA device, D <= ``MAX_BWD_D``,
-    ``o`` the forward's output; ``sm_scale = 1/sqrt(D)``. ``route``
-    defaults to :func:`choose_bwd_route`. Three launches each:
+                        causal: bool = False, route: Optional[str] = None):
+    """The gradient of :func:`flash_attention` -> (dq, dk, dv) in the
+    inputs' dtype: q, o, dout (B, Sq, Hq, D), k, v (B, Skv, Hkv, D), Hq %
+    Hkv == 0, contiguous, float32 or bf16, on one CUDA device, D <=
+    ``MAX_BWD_D``, ``o`` the forward's output with the same ``causal``;
+    ``sm_scale = 1/sqrt(D)``. dk and dv sum the shares of each kv head's
+    Hq / Hkv query heads. ``route`` defaults to :func:`choose_bwd_route`.
+    Three launches each, ``causal``, Hq and Hkv passed to each but the
+    tensor-core ``prep``:
 
     - ``"tensor_core"``: ``lse`` is the forward's log-sum-exp (``_forward(...,
-      with_lse=True)``), float32 (B, H, ``lse_stride(Sq)``); ``prep``
-      (rowsum(dout * o) into float32 scratch of that shape), ``dkdv``,
-      ``dq`` on wgmma.
+      with_lse=True)`` with the same ``causal``), float32 (B, Hq,
+      ``lse_stride(Sq)``); ``prep`` (rowsum(dout * o) into float32 scratch
+      of that shape), ``dkdv``, ``dq`` on wgmma.
     - ``"cuda_core"``: ``lse`` is not read; ``prep`` (each row's
-      log-sum-exp, recomputed from q and k, and rowsum(dout * o)),
-      ``dkdv``, ``dq`` on float32 FMAs."""
-    check_backward(q.shape, k.shape, False)
+      log-sum-exp, recomputed from q and k under the mask, and rowsum(dout
+      * o)), ``dkdv``, ``dq`` on float32 FMAs."""
+    check_backward(q.shape, k.shape)
     _check_inputs(q, k, v)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or \
             dout.dtype != q.dtype or o.device != q.device or dout.device != q.device:
@@ -276,7 +283,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     if not (o.is_contiguous() and dout.is_contiguous()):
         raise ValueError("flash_attention_bwd takes contiguous tensors")
     b, sq, h, d = q.shape
-    skv = k.shape[1]
+    skv, hkv = k.shape[1], k.shape[2]
     route = choose_bwd_route(q.dtype, d) if route is None else route
     if route == TENSOR_CORE:
         _check_tensor_core_bwd(q, k, v, o, dout, lse)
@@ -291,7 +298,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         delta = torch.empty_like(lse)
         ptr = {n: t.data_ptr() for n, t in dict(q=q, k=k, v=v, o=o, do=dout, lse=lse,
                                                 delta=delta, dq=dq, dk=dk, dv=dv).items()}
-        sizes = (b, sq, skv, h, d, stride, 1.0 / math.sqrt(d), stream)
+        sizes = (b, sq, skv, h, hkv, d, int(causal), stride, 1.0 / math.sqrt(d), stream)
         sym = BWD_TC_SYMBOLS
         BWD_TC_KERNEL.launch(sym["prep"], ptr["o"], ptr["do"], ptr["delta"], b, sq, h, d,
                              stride, stream)
@@ -304,7 +311,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     delta = torch.empty_like(lse)
     ptr = {n: t.data_ptr() for n, t in dict(q=q, k=k, v=v, o=o, do=dout, lse=lse, delta=delta,
                                             dq=dq, dk=dk, dv=dv).items()}
-    sizes = (b, sq, skv, h, d, 1.0 / math.sqrt(d), stream)
+    sizes = (b, sq, skv, h, hkv, d, int(causal), 1.0 / math.sqrt(d), stream)
     sym = {e: BWD_SYMBOLS[e, q.dtype] for e in BWD_ENTRIES}
     BWD_KERNEL.launch(sym["prep"], ptr["q"], ptr["k"], ptr["o"], ptr["do"], ptr["lse"],
                       ptr["delta"], *sizes)

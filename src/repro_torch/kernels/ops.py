@@ -25,8 +25,8 @@ have more than one entry in their one source:
   128 there; float32 and bf16 of other head dims
   on the CUDA cores (the rule is
   :func:`repro_torch.kernels.flash_attention.choose_route`). Under
-  autograd its gradient (``prep``, ``dkdv``, ``dq``; non-causal, Hq ==
-  Hkv, D <= 128) is the seventh library, ``csrc/flash_attention_bwd_sm90.cu``
+  autograd its gradient (``prep``, ``dkdv``, ``dq``; causal or not, GQA,
+  D <= 128) is the seventh library, ``csrc/flash_attention_bwd_sm90.cu``
   (tensor cores, bf16 with D 64, 80, 128; ``flash_attention.BWD_TC_KERNEL``),
   or the sixth, ``csrc/flash_attention_bwd.cu`` (CUDA cores, everything
   else; ``flash_attention.BWD_KERNEL``); the rule is

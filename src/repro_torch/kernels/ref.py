@@ -50,9 +50,11 @@ def attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Tensor,
-                  do: torch.Tensor):
+                  do: torch.Tensor, *, causal: bool = False, q_offset: int = 0):
     """The plain version of ``flash_attention_bwd``: (dq, dk, dv) of
-    non-causal :func:`attention` against the output gradient ``do``, by
+    :func:`attention` (GQA: k, v of Hkv heads, their gradients summed over
+    each kv head's query heads; ``causal`` with ``q_offset``, 0 for the
+    kernels) against the output gradient ``do``, by
     ``torch.autograd.grad`` through its arithmetic (q scaled in float32
     and rounded, float32 products and softmax, the weights cast to
     ``v.dtype``), each in its input's dtype. ``o``, the forward's output
@@ -60,7 +62,8 @@ def attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: torch.Te
     del o
     with torch.enable_grad():
         qq, kk, vv = (t.detach().requires_grad_() for t in (q, k, v))
-        return torch.autograd.grad(attention(qq, kk, vv), (qq, kk, vv), do)
+        out = attention(qq, kk, vv, causal=causal, q_offset=q_offset)
+        return torch.autograd.grad(out, (qq, kk, vv), do)
 
 
 def tile_moments(tiles: torch.Tensor) -> torch.Tensor:

@@ -1,16 +1,18 @@
-"""Training steps of the model zoo's vision and diffusion families.
+"""Training steps of the LMs and the model zoo's vision and diffusion
+families.
 
 Counterpart of the step closures in ``repro/launch/steps.py``
-(``_vision_train``, ``_diff_train``) without their shardings, meshes and
-``CellPlan``: ``vision_train`` and ``diffusion_train`` return
-``(opt_init, step)`` for one config, ``step`` one AdamW update of the
-port's ``optim/adamw.py`` on a batch. ``vision_loss`` and
-``diffusion_loss`` are the steps' loss functions, and ``value_and_grad``
-their gradient: ``torch.autograd.grad`` of the loss over the parameter
-tree's leaves in JAX's leaf order (:mod:`repro_torch.tree`), through the
-models' ``forward(..., train=True)`` (``cfg.remat`` rematerializes their
-blocks as the reference's). On a card every attention's gradient is the
-``flash_attention`` backward kernel's.
+(``_lm_train``, ``_vision_train``, ``_diff_train``) without their
+shardings, meshes and ``CellPlan``: ``lm_train``, ``vision_train`` and
+``diffusion_train`` return ``(opt_init, step)`` for one config, ``step``
+one AdamW update of the port's ``optim/adamw.py`` on a batch.
+``models.lm.loss_fn``, ``vision_loss`` and ``diffusion_loss`` are the
+steps' loss functions, and ``value_and_grad`` their gradient:
+``torch.autograd.grad`` of the loss over the parameter tree's leaves in
+JAX's leaf order (:mod:`repro_torch.tree`), through the models' training
+forwards (``cfg.remat`` rematerializes their blocks as the reference's).
+On a card every attention's gradient is the ``flash_attention`` backward
+kernel's (the LMs' causal and GQA).
 
 The diffusion steps take the timesteps ``t`` and the noise as arguments,
 where the reference's draw them from a key inside the step:
@@ -20,10 +22,14 @@ where the reference's draw them from a key inside the step:
 ``donate_argnums``: the step writes the new parameters, moments (and
 ResNet's running statistics) into its arguments' tensors and returns
 those tensors, so the caller must not read the old values after the
-call. The state then stays where it was allocated, and every step asks
-the caching allocator for the same blocks in the same order; without it
-each step allocates the new state beside the old, and the cache's layout
-may take many steps to repeat. The numbers are the same either way.
+call: AdamW writes its new values into the parameters' and moments'
+tensors (``in_place=True``). The state then stays where it was
+allocated, and every step asks the caching allocator for the same blocks
+in the same order; without it each step allocates the new state beside
+the old, and the cache's layout may take many steps to repeat. A
+full-width LM's state leaves no room for that second copy
+(phi4-mini-3.8b: 46 GB of bf16 weights and gradients and float32
+moments). The numbers are the same either way.
 """
 from __future__ import annotations
 
@@ -31,7 +37,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as T
-from repro_torch.models import convnext, diffusion, dit, resnet, unet, vit
+from repro_torch.models import convnext, diffusion, dit, lm, resnet, unet, vit
 from repro_torch.optim.adamw import adamw
 
 
@@ -43,7 +49,8 @@ def ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 
 
 def _donate(old, new):
-    """``new``'s leaves copied into ``old``'s tensors -> ``old``."""
+    """``new``'s leaves copied into ``old``'s tensors -> ``old`` (ResNet's
+    running statistics)."""
     with torch.no_grad():
         torch._foreach_copy_(T.leaves(old), T.leaves(new))
     return old
@@ -51,13 +58,9 @@ def _donate(old, new):
 
 def _update(opt_update, grads, opt_state, params, donate):
     """One AdamW update -> (params, opt_state), written into the
-    arguments' tensors when ``donate``."""
-    new_params, new_state, _ = opt_update(grads, opt_state, params)
-    if not donate:
-        return new_params, new_state
-    return (_donate(params, new_params),
-            new_state._replace(mu=_donate(opt_state.mu, new_state.mu),
-                               nu=_donate(opt_state.nu, new_state.nu)))
+    arguments' tensors when ``donate`` (AdamW's ``in_place``)."""
+    params, opt_state, _ = opt_update(grads, opt_state, params, in_place=donate)
+    return params, opt_state
 
 
 def value_and_grad(loss_fn, params):
@@ -139,6 +142,46 @@ def diffusion_train(cfg, lr: float = 1e-4, donate: bool = False):
 
     def step(params, opt_state, latents, cond, t, noise):
         loss, grads, _ = value_and_grad(lambda p: loss_fn(p, latents, cond, t, noise), params)
+        params, opt_state = _update(opt_update, grads, opt_state, params, donate)
+        return params, opt_state, loss
+    return opt_init, step
+
+
+def lm_train(cfg, lr: float = 1e-4, grad_accum: int = 1, donate: bool = False):
+    """-> (opt_init, step) of an LM config, the reference's ``_lm_train``
+    step: ``step(params, opt_state, tokens, labels) -> (params, opt_state,
+    loss)``, tokens and labels (B, S) with B a multiple of ``grad_accum``.
+    With ``grad_accum > 1`` the batch is split into micro-batches of B /
+    grad_accum rows in order (row i of micro-batch j is row j B /
+    grad_accum + i), and each micro-batch's gradient is added to float32
+    zeros as ``g.float() / grad_accum`` and its loss to 0 as ``loss /
+    grad_accum``, in the reference's scan order; AdamW takes that float32
+    tree. The accumulator's leaves are updated in place, leaf by leaf, as
+    each micro-batch's gradient is freed. ``donate``: AdamW writes the new
+    parameters and moments into the arguments' tensors (``in_place``, see
+    the module's docstring) and the step returns those tensors."""
+    opt_init, opt_update = adamw(lr)
+
+    def grad_of(params, tokens, labels):
+        loss, grads, _ = value_and_grad(lambda p: lm.loss_fn(p, cfg, tokens, labels), params)
+        return loss, grads
+
+    def step(params, opt_state, tokens, labels):
+        if grad_accum > 1:
+            b, s = tokens.shape
+            acc = T.map_leaves(lambda x: torch.zeros(x.shape, dtype=torch.float32,
+                                                     device=x.device), params)
+            loss = torch.zeros((), dtype=torch.float32, device=tokens.device)
+            for t, lab in zip(tokens.reshape(grad_accum, b // grad_accum, s),
+                              labels.reshape(grad_accum, b // grad_accum, s)):
+                micro_loss, g = grad_of(params, t, lab)
+                for a, x in zip(T.leaves(acc), T.leaves(g)):
+                    a.add_(x.float() / grad_accum)
+                del g
+                loss = loss + micro_loss / grad_accum
+            grads = acc
+        else:
+            loss, grads = grad_of(params, tokens, labels)
         params, opt_state = _update(opt_update, grads, opt_state, params, donate)
         return params, opt_state, loss
     return opt_init, step

@@ -21,6 +21,8 @@ import torch.nn.functional as F
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from repro_torch import tree as T
+
 
 def truncated_normal(gen: torch.Generator, shape, stddev: float,
                      dtype=torch.float32) -> torch.Tensor:
@@ -208,13 +210,14 @@ def sinusoidal_embedding(t: torch.Tensor, dim: int, max_period: float = 10000.0)
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
 
 
-def unstack(stack: dict) -> list:
-    """A dict of layer-stacked leaves (n, ...) -> n dicts of one layer's
-    slices, each leaf unbound once: under autograd ``torch.unbind``'s
-    backward stacks the n slices' gradients in one copy, where indexing
-    ``a[i]`` a layer makes a zero gradient of the whole stack for each."""
-    keys = list(stack)
-    return [dict(zip(keys, parts)) for parts in zip(*(torch.unbind(stack[k]) for k in keys))]
+def unstack(stack) -> list:
+    """A tree (:mod:`repro_torch.tree`) of layer-stacked leaves (n, ...) ->
+    n trees of one layer's slices (views), each leaf unbound once: under
+    autograd ``torch.unbind``'s backward stacks the n slices' gradients in
+    one copy, where indexing ``a[i]`` a layer makes a zero gradient of the
+    whole stack for each."""
+    parts = [torch.unbind(a) for a in T.leaves(stack)]
+    return [T.unflatten(stack, list(layer)) for layer in zip(*parts)]
 
 
 # the ops whose outputs a rematerialized block keeps: matrix products and

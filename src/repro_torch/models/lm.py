@@ -1,11 +1,15 @@
-"""Decoder-only LM of the port: serving (prefill and decode) of all four
-LMs.
+"""Decoder-only LM of the port: training (``forward_train``,
+``loss_fn``) and serving (prefill and decode) of all four LMs.
 
 Counterpart of ``repro/models/lm.py``: RoPE, GQA with optional qk-norm
 (qwen3-8b, phi4-mini), SwiGLU dense FFN, the MoE FFN of
 :mod:`repro_torch.models.moe` (qwen2-moe, deepseek), MLA attention with
 its compressed cache and both decode paths (deepseek), a KV cache. The
-backward is not ported: ``forward_train`` is the forward alone.
+training forward rematerializes each block as the reference's
+``jax.checkpoint`` does (``cfg.remat``); its gradient is autograd's, the
+attention's that of the ``flash_attention`` backward kernels on a card
+(causal, GQA, D <= 128: the dense LMs; MLA's q/k heads of 192 are the
+MoE and MLA training slice's).
 
 Layouts are the reference's at the public functions, so the tests
 compare like with like: parameters are a dict of tensors with dense
@@ -14,7 +18,8 @@ weights (d_in, d_out) used as ``x @ w``; ``first_dense_layers`` layers
 ``blocks_dense``, then the MoE layers under ``blocks_moe``; each stack's
 cache is ``{"k", "v"}: (L, B, S, Hkv, D)``, or for MLA
 ``{"c_kv": (L, B, S, rank), "k_rope": (L, B, S, rope_dim)}``. The layers
-run in a Python loop. Prefill attention goes through ``ops.attention``
+run in a Python loop over each stack unbound once (views of its layers).
+Training and prefill attention go through ``ops.attention``
 (on CUDA the ``flash_attention`` kernel's tensor-core entry in bf16:
 head dim 128 for GQA, 192 for MLA's q/k heads of 128 + 64 with v
 zero-padded to 192), decode attention through
@@ -27,9 +32,11 @@ where ``forward_train``, ``prefill`` and ``decode_step`` run.
 """
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import LMConfig
 from repro_torch.device import resolve_device
@@ -250,19 +257,34 @@ def _block(p, cfg: LMConfig, x, positions, mode, use_moe, cache=None, pos=None,
     return x + f, aux
 
 
+def _remat(fn, cfg: LMConfig, mode: str):
+    """``fn`` as the reference's ``_scan_blocks`` wraps a block in train
+    mode: ``cfg.remat`` "full" saves nothing (a plain non-reentrant
+    checkpoint: ``_remat_policy``'s None), "dots_saveable" keeps the
+    outputs of matrix products (``layers.remat``), "none" (and every
+    other mode) runs ``fn`` itself. The recompute runs the same ops on the
+    same inputs, so the gradients are those without it."""
+    if mode != "train" or cfg.remat == "none":
+        return fn
+    if cfg.remat == "full":
+        return functools.partial(checkpoint, fn, use_reentrant=False)
+    return L.remat(fn, cfg, True)
+
+
 def _trunk(params, cfg: LMConfig, x, positions, mode, caches=None, pos=None,
            absorb=True):
     """The dense stack, then the MoE stack; layer i of a stack reads slice
     i of its leaves -> (x, the layers' aux losses summed)."""
     aux_total = torch.zeros((), device=x.device)
     for name, n, use_moe in _stacks(cfg):
-        blocks = params[name]
-        layer_caches = None if caches is None else caches[name]
+        layer_caches = [None] * n if caches is None else L.unstack(caches[name])
+
+        def block(p, xb, c, use_moe=use_moe):
+            return _block(p, cfg, xb, positions, mode, use_moe, c, pos, absorb)
+        block = _remat(block, cfg, mode)
         aux_stack = torch.zeros((), device=x.device)
-        for i in range(n):
-            p = _map(lambda a: a[i], blocks)
-            c = None if layer_caches is None else _map(lambda a: a[i], layer_caches)
-            x, aux = _block(p, cfg, x, positions, mode, use_moe, c, pos, absorb)
+        for p, c in zip(L.unstack(params[name]), layer_caches):
+            x, aux = block(p, x, c)
             aux_stack = aux_stack + aux
         aux_total = aux_total + aux_stack
     return x, aux_total
@@ -283,12 +305,30 @@ def _logits(params, cfg: LMConfig, x):
 def forward_train(params, cfg: LMConfig, tokens):
     """tokens (B, S) -> (logits (B, S, V), aux loss scalar: the MoE
     layers' load-balance and z-losses, 0.0 without MoE): the training
-    forward (the backward is not ported)."""
+    forward, each block rematerialized as ``cfg.remat`` asks; autograd
+    gives its gradient (:func:`loss_fn`)."""
     s = tokens.shape[1]
     x = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
     x, aux = _trunk(params, cfg, x, positions, "train")
     return _logits(params, cfg, x), aux
+
+
+def loss_fn(params, cfg: LMConfig, tokens, labels):
+    """tokens, labels (B, S) -> (loss, {"ce", "aux"}): the mean
+    cross-entropy of the labels under float32 logits, ``logsumexp`` less
+    the label's logit, plus 0.01 x the MoE aux loss, as the reference's
+    ``loss_fn``. The label's logit is a gather where the reference
+    contracts a one-hot (for a vocab-sharded mesh): in float32 the
+    contraction adds exact zeros to the one term, so the two are equal bit
+    for bit, and a (B, S, V) one-hot would hold 3.3 GB a 4096-token row of
+    phi4-mini's 200064-token vocabulary on the card."""
+    logits, aux = forward_train(params, cfg, tokens)
+    logits = logits.float()
+    lse = torch.logsumexp(logits, dim=-1)
+    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    ce = torch.mean(lse - ll)
+    return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
 
 def prefill(params, cfg: LMConfig, tokens):

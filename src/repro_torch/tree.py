@@ -28,19 +28,25 @@ def _children(tree):
     return None
 
 
+# The walks below are module-level functions with explicit accumulators:
+# a nested function that calls itself through its own closure cell is a
+# reference cycle, and the leaves it reaches (a model's weights, its
+# optimizer moments) would outlive the call until the cyclic collector ran.
+
+def _walk(node, prefix, paths, leaves):
+    kids = _children(node)
+    if kids is None:
+        paths.append("/".join(prefix))
+        leaves.append(node)
+        return
+    for k, child in kids:
+        _walk(child, prefix + [str(k)], paths, leaves)
+
+
 def flatten_with_paths(tree):
     """-> (paths, leaves), both in JAX's leaf order."""
     paths, leaves = [], []
-
-    def walk(node, prefix):
-        kids = _children(node)
-        if kids is None:
-            paths.append("/".join(prefix))
-            leaves.append(node)
-            return
-        for k, child in kids:
-            walk(child, prefix + [str(k)])
-    walk(tree, [])
+    _walk(tree, [], paths, leaves)
     return paths, leaves
 
 
@@ -48,22 +54,22 @@ def leaves(tree) -> list:
     return flatten_with_paths(tree)[1]
 
 
+def _build(node, it):
+    kids = _children(node)
+    if kids is None:
+        return next(it)
+    if isinstance(node, dict):
+        return {k: _build(child, it) for k, child in kids}
+    built = [_build(child, it) for _, child in kids]
+    if hasattr(node, "_fields"):
+        return type(node)(*built)
+    return type(node)(built)
+
+
 def unflatten(template, values):
     """A tree shaped like ``template`` holding ``values`` (in JAX's leaf
     order) at its leaves; dicts come out with sorted keys, as JAX's do."""
-    it = iter(values)
-
-    def build(node):
-        kids = _children(node)
-        if kids is None:
-            return next(it)
-        if isinstance(node, dict):
-            return {k: build(child) for k, child in kids}
-        built = [build(child) for _, child in kids]
-        if hasattr(node, "_fields"):
-            return type(node)(*built)
-        return type(node)(built)
-    return build(template)
+    return _build(template, iter(values))
 
 
 def map_leaves(fn, tree):

@@ -11,9 +11,10 @@ sums, one rounding to the inputs' type) held against ``ref.attention_bwd``
 (``torch.autograd.grad`` of the plain version) and against ``jax.grad``
 of ``repro.kernels.ref.attention``, at ViT-L/16's 197 tokens (D 64),
 ViT-H/14's 257 (D 80, read as 80 columns), the UNet's 77 context keys
-and 64-query mid block, and one query, in float32 and bf16. The tile
-sizes are read from the source. Also: the limits the wrapper raises
-for (causal, GQA, D > 128) before any launch, the wrapper's refusal of
+and 64-query mid block, and one query, in float32 and bf16 (the causal
+GQA shapes of the LMs are tests/test_torch_flash_bwd_causal.py's, through
+the same emulation). The tile sizes are read from the source. Also: the
+limit the wrapper raises for (D > 128) before any launch, the wrapper's refusal of
 CPU tensors, the entries and their counts, and a CPU ``ops.attention``
 under autograd (the plain version's gradient). Inputs are made from a
 seed with numpy.
@@ -51,13 +52,16 @@ BQ, BK = _constant("kBQ"), _constant("kBK")
 F32_TOL, BF16_RNORM = 2e-5, 3e-2
 
 
-def emulate(q, k, v, o, do):
-    """The three entries' arithmetic on q, o, do (B, Sq, H, D) and k, v
-    (B, Skv, H, D) -> (dq, dk, dv) in q's dtype. Tiles of BQ queries and
+def emulate(q, k, v, o, do, causal=False):
+    """The three entries' arithmetic on q, o, do (B, Sq, Hq, D) and k, v
+    (B, Skv, Hkv, D) -> (dq, dk, dv) in q's dtype. Tiles of BQ queries and
     BK keys padded with zeros as the kernel's shared memory is; keys past
-    Skv and queries past Sq get P = 0."""
+    Skv, queries past Sq and, with ``causal``, keys past the query's index
+    get P = 0; query head h reads kv head h // (Hq / Hkv), and a kv head's
+    dK and dV sum its query heads' shares head by head."""
     b, sq, h, d = q.shape
-    skv = k.shape[1]
+    skv, hkv = k.shape[1], k.shape[2]
+    rep = h // hkv
     scale = torch.tensor(1 / math.sqrt(d), dtype=torch.float32)
     nq, nk = -(-sq // BQ) * BQ, -(-skv // BK) * BK
 
@@ -65,9 +69,11 @@ def emulate(q, k, v, o, do):
         t = t.float().transpose(1, 2)
         return torch.nn.functional.pad(t, (0, 0, 0, n - t.shape[2]))
     qs, dof, of = heads(q, nq) * scale, heads(do, nq), heads(o, nq)
-    kf, vf = heads(k, nk), heads(v, nk)
+    kf, vf = (heads(t, nk).repeat_interleave(rep, 1) for t in (k, v))   # a query head's
     q_in = (torch.arange(nq) < sq)[:, None]   # (queries, 1)
     k_in = (torch.arange(nk) < skv)[None, :]  # (1, keys)
+    if causal:
+        k_in = k_in & (torch.arange(nk)[None, :] <= torch.arange(nq)[:, None])
 
     # prep: lse over key tiles (running max and sum), Delta
     delta = (dof * of).sum(-1)
@@ -77,7 +83,7 @@ def emulate(q, k, v, o, do):
         l = torch.zeros((b, h, BQ))
         for k0 in range(0, nk, BK):
             s = qs[:, :, q0:q0 + BQ] @ kf[:, :, k0:k0 + BK].transpose(-1, -2)
-            valid = k_in[:, k0:k0 + BK]
+            valid = k_in[q0:q0 + BQ, k0:k0 + BK] if causal else k_in[:, k0:k0 + BK]
             mx = torch.maximum(m, s.masked_fill(~valid, -torch.inf).amax(-1))
             l = l * torch.exp(m - mx) + torch.where(valid, torch.exp(s - mx[..., None]),
                                                     0.0).sum(-1)
@@ -89,19 +95,22 @@ def emulate(q, k, v, o, do):
     def p_ds(q0, k0):
         qt, kt = slice(q0, q0 + BQ), slice(k0, k0 + BK)
         s = qs[:, :, qt] @ kf[:, :, kt].transpose(-1, -2)
-        p = torch.where(q_in[qt] & k_in[:, kt], torch.exp(s - lse[:, :, qt, None]), 0.0)
+        keys = k_in[qt, kt] if causal else k_in[:, kt]
+        p = torch.where(q_in[qt] & keys, torch.exp(s - lse[:, :, qt, None]), 0.0)
         dp = dof[:, :, qt] @ vf[:, :, kt].transpose(-1, -2)
         return p, p * (dp - delta[:, :, qt, None])
 
-    # dkdv: a key tile over every query tile
-    dk, dv = torch.empty_like(kf), torch.empty_like(vf)
+    # dkdv: a key tile over every query tile of each of its kv head's
+    # query heads j (heads j, rep + j, ... of the query side), head by head
+    dk, dv = torch.empty((b, hkv, nk, d)), torch.empty((b, hkv, nk, d))
     for k0 in range(0, nk, BK):
-        dka = torch.zeros((b, h, BK, d))
-        dva = torch.zeros((b, h, BK, d))
-        for q0 in range(0, nq, BQ):
-            p, ds = p_ds(q0, k0)
-            dva += p.transpose(-1, -2) @ dof[:, :, q0:q0 + BQ]
-            dka += ds.transpose(-1, -2) @ qs[:, :, q0:q0 + BQ]
+        dka = torch.zeros((b, hkv, BK, d))
+        dva = torch.zeros((b, hkv, BK, d))
+        for j in range(rep):
+            for q0 in range(0, nq, BQ):
+                p, ds = (t[:, j::rep] for t in p_ds(q0, k0))
+                dva += p.transpose(-1, -2) @ dof[:, j::rep, q0:q0 + BQ]
+                dka += ds.transpose(-1, -2) @ qs[:, j::rep, q0:q0 + BQ]
         dk[:, :, k0:k0 + BK], dv[:, :, k0:k0 + BK] = dka, dva
     # dq: a query tile over every key tile, scaled once
     dq = torch.empty_like(qs)
@@ -191,19 +200,24 @@ def _requiring_grad(shape_q, shape_k):
 
 
 @pytest.mark.parametrize("causal,shape_k,match", [
-    (True, (1, 8, 2, 16), "non-causal"),
-    (False, (1, 8, 1, 16), "Hq == Hkv"),
+    (True, (1, 8, 2, 192), "D <= 128"),
+    (False, (1, 8, 1, 192), "D <= 128"),
 ])
 def test_backward_limits_raise_before_any_launch(causal, shape_k, match):
-    """A causal mask and GQA raise a ValueError naming the limit where an
-    input requires a gradient (the check comes before the device's), and
-    no library is loaded."""
-    q, k, v = _requiring_grad((1, 8, 2, 16), shape_k)
+    """D > 128 (MLA's 192), causal or not, GQA or not, raises a ValueError
+    naming the limit where an input requires a gradient (the check comes
+    before the device's), and no library is loaded; at D 128 the causal
+    mask and GQA pass it and reach the device check."""
+    q, k, v = _requiring_grad((1, 8, 2, 192), shape_k)
     with pytest.raises(ValueError, match=match):
         flash.flash_attention(q, k, v, causal=causal)
-    if not causal:   # the backward wrapper takes no mask: non-causal by its name
-        with pytest.raises(ValueError, match=match):
-            flash.flash_attention_bwd(q, k, v, q, q)
+    with pytest.raises(ValueError, match=match):
+        flash.flash_attention_bwd(q, k, v, q, q, causal=causal)
+    q, k, v = _requiring_grad((1, 8, 2, 128), shape_k[:3] + (128,))
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention(q, k, v, causal=causal)
+    with pytest.raises(ValueError, match="CUDA"):
+        flash.flash_attention_bwd(q, k, v, q.detach(), q.detach(), causal=causal)
     assert flash.KERNEL._lib is None and flash.BWD_KERNEL._lib is None
     assert flash.KERNEL.launches == 0 and flash.BWD_KERNEL.launches == 0
 
@@ -212,7 +226,8 @@ def test_backward_limits_head_dim():
     q, k, v = _requiring_grad((1, 8, 2, 192), (1, 8, 2, 192))
     with pytest.raises(ValueError, match="D <= 128"):
         flash.flash_attention(q, k, v)
-    flash.check_backward((1, 8, 2, 128), (1, 8, 2, 128), False)
+    flash.check_backward((1, 8, 2, 128), (1, 8, 2, 128))
+    flash.check_backward((1, 8, 4, 128), (1, 8, 2, 128))   # GQA
 
 
 @pytest.mark.parametrize("grad", [False, True])
@@ -247,8 +262,8 @@ def test_the_autograd_function_saves_and_calls_the_backward(monkeypatch):
     the CUDA-core route, which reads no log-sum-exp of the forward."""
     seen = {}
 
-    def fake_bwd(q, k, v, o, dout, lse=None, route=None):
-        seen.update(q=q, k=k, v=v, o=o, dout=dout, lse=lse, route=route)
+    def fake_bwd(q, k, v, o, dout, lse=None, causal=False, route=None):
+        seen.update(q=q, k=k, v=v, o=o, dout=dout, lse=lse, causal=causal, route=route)
         return 2 * q, 3 * k, 4 * v
     monkeypatch.setattr(flash, "_forward", lambda q, k, v, causal, route: q + v)
     monkeypatch.setattr(flash, "flash_attention_bwd", fake_bwd)
@@ -257,7 +272,7 @@ def test_the_autograd_function_saves_and_calls_the_backward(monkeypatch):
     assert torch.equal(out, q.detach() + v.detach())
     dq, dk, dv = torch.autograd.grad(out.sum(), (q, k, v))
     assert torch.equal(seen["o"], out.detach()) and torch.equal(seen["dout"], torch.ones_like(q))
-    assert seen["lse"] is None and seen["route"] == "cuda_core"
+    assert seen["lse"] is None and seen["route"] == "cuda_core" and seen["causal"] is False
     assert torch.equal(dq, 2 * q) and torch.equal(dk, 3 * k) and torch.equal(dv, 4 * v)
 
 
@@ -269,7 +284,8 @@ def test_backward_entries_and_counts():
     for (entry, _), sym in flash.BWD_SYMBOLS.items():
         assert f'extern "C" int {sym}(' in SOURCE
         n_ptr = {"prep": 6, "dkdv": 8, "dq": 7}[entry]
-        assert len(flash.BWD_KERNEL.symbols[sym]) == n_ptr + 5 + 2
+        # b, sq, skv, hq, hkv, d, causal; sm_scale and the stream
+        assert len(flash.BWD_KERNEL.symbols[sym]) == n_ptr + 7 + 2
 
 
 def test_backward_launches_three_entries_in_order(monkeypatch):
@@ -292,7 +308,7 @@ def test_backward_launches_three_entries_in_order(monkeypatch):
         flash.flash_attention_bwd(q, k, v, o, do, route="cuda_core")
         assert [s for s, _ in order] == [f"flash_attention_bwd_{e}_bf16"
                                          for e in ("prep", "dkdv", "dq")]
-        assert all(a[-7:-2] == (2, 5, 5, 3, 80) and a[-2] == 1 / math.sqrt(80)
+        assert all(a[-9:-2] == (2, 5, 5, 3, 3, 80, 0) and a[-2] == 1 / math.sqrt(80)
                    for _, a in order)
         assert kernel.launches == 3
         assert {s: n for s, n in kernel.symbol_launches.items() if n} == {
@@ -327,9 +343,9 @@ def test_the_autograd_function_under_remat(monkeypatch):
         calls["forward"] += 1
         return ref.attention(q, k, v, causal=causal)
 
-    def bwd(q, k, v, o, dout, lse=None, route=None):
+    def bwd(q, k, v, o, dout, lse=None, causal=False, route=None):
         calls["backward"] += 1
-        return ref.attention_bwd(q, k, v, o, dout)
+        return ref.attention_bwd(q, k, v, o, dout, causal=causal)
     monkeypatch.setattr(flash, "_forward", fwd)
     monkeypatch.setattr(flash, "flash_attention_bwd", bwd)
     rng = np.random.default_rng(4)

@@ -50,53 +50,72 @@ LOG2E = 1.4426950408889634
 UPCAST_RNORM, BF16_RNORM = 3.7e-3, 3e-2
 
 
-def forward_lse(q, k):
-    """The forward kernel's log-sum-exp of each query row, (B, H, Sq), in
-    log2 units: x = (q . k) * (sm_scale * log2(e)) in float32, the running
-    max m and sum l over key tiles of ``FWD_BK`` (l rescaled by
-    exp2(m_prev - m_new)), lse = m + log2(l)."""
+def forward_lse(q, k, causal=False):
+    """The forward kernel's log-sum-exp of each query row, (B, Hq, Sq), in
+    log2 units: x = (q . k) * (sm_scale * log2(e)) in float32 (-1e30 at a
+    key past the query's index with ``causal``; query head h reads kv head
+    h // (Hq / Hkv)), the running max m and sum l over key tiles of
+    ``FWD_BK`` (l rescaled by exp2(m_prev - m_new)), lse = m + log2(l)."""
     d = q.shape[-1]
-    qf, kf = (t.float().transpose(1, 2) for t in (q, k))
+    rep = q.shape[2] // k.shape[2]
+    qf, kf = q.float().transpose(1, 2), k.float().transpose(1, 2).repeat_interleave(rep, 1)
     c = torch.tensor(1 / math.sqrt(d), dtype=torch.float32) * torch.tensor(LOG2E)
     m = torch.full(qf.shape[:3], -1e30)
     l = torch.zeros(qf.shape[:3])
+    rows = torch.arange(qf.shape[2])[:, None]
     for k0 in range(0, kf.shape[2], FWD_BK):
         x = (qf @ kf[:, :, k0:k0 + FWD_BK].transpose(-1, -2)) * c
+        if causal:
+            keys = torch.arange(k0, min(k0 + FWD_BK, kf.shape[2]))[None, :]
+            x = torch.where(keys <= rows, x, -1e30)
         mx = torch.maximum(m, x.amax(-1))
         l = l * torch.exp2(m - mx) + torch.exp2(x - mx[..., None]).sum(-1)
         m = mx
     return m + torch.log2(l)
 
 
-def emulate(q, k, v, o, do):
-    """The three tensor-core entries' arithmetic on bf16 q, o, do (B, Sq, H,
-    D) and k, v (B, Skv, H, D) -> bf16 (dq, dk, dv)."""
+def emulate(q, k, v, o, do, causal=False):
+    """The three tensor-core entries' arithmetic on bf16 q, o, do (B, Sq,
+    Hq, D) and k, v (B, Skv, Hkv, D) -> bf16 (dq, dk, dv); with ``causal``
+    P = dS = 0 at a key past the query's index (the lse the forward's
+    masked one); a kv head's dK and dV sum its query heads' shares head by
+    head, each over the query tiles in order (dkdv's walk)."""
     d = q.shape[-1]
+    rep = q.shape[2] // k.shape[2]
     scale = torch.tensor(1 / math.sqrt(d), dtype=torch.float32)
     c = scale * torch.tensor(LOG2E)
-    lse = forward_lse(q, k)
-    qf, kf, vf, of, dof = (t.float().transpose(1, 2) for t in (q, k, v, o, do))
+    lse = forward_lse(q, k, causal)
+    qf, of, dof = (t.float().transpose(1, 2) for t in (q, o, do))
+    kf, vf = (t.float().transpose(1, 2) for t in (k, v))
     delta = (dof * of).sum(-1)
+    qpos, kpos = torch.arange(qf.shape[2]), torch.arange(kf.shape[2])
+    everything = torch.tensor(True)
 
-    def p_ds(s, dp, lse_, delta_):
-        p = torch.exp2(s * c - lse_)
+    def p_ds(s, dp, lse_, delta_, keep):
+        p = torch.where(keep, torch.exp2(s * c - lse_), 0.0)
         return p, p * (dp - delta_)
 
-    # dkdv: each block of ROWS keys over every query tile (the key rows are
-    # independent, so all blocks at once)
+    # dkdv: each block of ROWS keys over every query tile of each query head
+    # j of its kv head (heads j, rep + j, ...), head by head (the key rows
+    # are independent, so all blocks at once)
     dk, dv = torch.zeros_like(kf), torch.zeros_like(vf)
-    for q0 in range(0, qf.shape[2], TILE):
-        qt, dot = qf[:, :, q0:q0 + TILE], dof[:, :, q0:q0 + TILE]
-        p, ds = p_ds(kf @ qt.transpose(-1, -2), vf @ dot.transpose(-1, -2),
-                     lse[:, :, None, q0:q0 + TILE], delta[:, :, None, q0:q0 + TILE])
-        dv += p.bfloat16().float() @ dot
-        dk += ds.bfloat16().float() @ qt
-    # dq: each block of ROWS queries over every key tile
+    for j in range(rep):
+        for q0 in range(0, qf.shape[2], TILE):
+            qt, dot = qf[:, j::rep, q0:q0 + TILE], dof[:, j::rep, q0:q0 + TILE]
+            keep = kpos[:, None] <= qpos[None, q0:q0 + TILE] if causal else everything
+            p, ds = p_ds(kf @ qt.transpose(-1, -2), vf @ dot.transpose(-1, -2),
+                         lse[:, j::rep, None, q0:q0 + TILE], delta[:, j::rep, None, q0:q0 + TILE],
+                         keep)
+            dv += p.bfloat16().float() @ dot
+            dk += ds.bfloat16().float() @ qt
+    # dq: each block of ROWS queries over every key tile of its kv head
     dq = torch.zeros_like(qf)
+    ke, ve = kf.repeat_interleave(rep, 1), vf.repeat_interleave(rep, 1)
     for k0 in range(0, kf.shape[2], TILE):
-        kt, vt = kf[:, :, k0:k0 + TILE], vf[:, :, k0:k0 + TILE]
+        kt, vt = ke[:, :, k0:k0 + TILE], ve[:, :, k0:k0 + TILE]
+        keep = kpos[None, k0:k0 + TILE] <= qpos[:, None] if causal else everything
         _, ds = p_ds(qf @ kt.transpose(-1, -2), dof @ vt.transpose(-1, -2),
-                     lse[..., None], delta[..., None])
+                     lse[..., None], delta[..., None], keep)
         dq += ds.bfloat16().float() @ kt
     out = (dq * scale, dk * scale, dv)
     return tuple(t.bfloat16().transpose(1, 2).contiguous() for t in out)
@@ -228,7 +247,7 @@ def test_backward_launches_the_tensor_core_entries_in_order(stand_ins):
     for args in (dkdv, dq):
         assert args[:4] == (q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr())
         assert args[4:6] == (lse.data_ptr(), delta)
-        assert args[-8:-1] == (b, sq, skv, h, d, 64, 1 / math.sqrt(d))
+        assert args[-10:-1] == (b, sq, skv, h, h, d, 0, 64, 1 / math.sqrt(d))
     assert flash.BWD_TC_KERNEL.launches == 3 and flash.BWD_KERNEL.launches == 0
 
 
@@ -276,7 +295,7 @@ def test_the_autograd_function_saves_lse_and_passes_it(stand_ins, d):
     assert [s for s, _ in stand_ins[1:]] == list(flash.BWD_TC_SYMBOLS.values())
     for _, args in stand_ins[2:]:
         assert args[:3] == (q.data_ptr(), k.data_ptr(), v.data_ptr())
-        assert args[4] == lse.data_ptr() and args[-4] == d
+        assert args[4] == lse.data_ptr() and args[-5] == d
     assert flash.BWD_KERNEL.launches == 0
 
 

@@ -337,7 +337,8 @@ for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
           "repro_torch.models.convnext", "repro_torch.models.resnet",
           "repro_torch.configs.vit_h14", "repro_torch.configs.ssd_mobilenetv2",
           "repro_torch.models.dit", "repro_torch.models.unet", "repro_torch.models.diffusion",
-          "repro_torch.configs.dit_s2", "repro_torch.configs.unet_sd15"):
+          "repro_torch.configs.dit_s2", "repro_torch.configs.unet_sd15",
+          "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.optim.compress"):
     assert m in mods, m
 import torch
 assert not torch.cuda.is_available()
@@ -350,6 +351,7 @@ from repro_torch.core.mission import Mission
 from repro_torch.core.pipeline import PipelineConfig, run_pipeline
 from repro_torch.data.scenarios import FleetScenarioSpec, generate_scenario
 from repro_torch.models import convnext, detector, lm, resnet, vit
+from repro_torch.launch import train
 from repro_torch.orbits import default_sites, propagate, sun_direction, walker_delta
 from repro_torch.data.scenarios import GroundStation
 cfg = reduced(get_config("targetfuse-space"))
@@ -376,6 +378,8 @@ for call in (lambda: Mission((p, cfg), (p, cfg)),
                                  reduced(get_config("resnet-152"))),
              lambda: propagate(walker_delta(4, 2, 53.0, 550.0), [0.0, 60.0]),
              lambda: sun_direction([0.0]),
+             lambda: train.build_lm_trainer(lm_cfg),
+             lambda: train.main(["--steps", "1"]),
              lambda: generate_scenario(FleetScenarioSpec(
                  n_sats=2, n_rounds=1, geometry="orbital",
                  stations=(GroundStation("gs0", site=default_sites(1)[0]),)))):
