@@ -13,8 +13,8 @@ nothing of JAX or of the reference package ``repro``. Phases:
    ignored ``setmaxnreg`` in the tensor-core ``flash_attention``, a
    missing instantiation of it at D 64, 128 or 192, or a spill or a
    missing entry of either backward library (the CUDA-core one's 12, the
-   tensor-core one's prep and its dkdv and dq at D 64, 80 and 128), fails
-   the run);
+   tensor-core one's prep and its dkdv and dq at D 64, 80, 128 and 192,
+   the last dkdv on two warpgroups), fails the run);
 2. kernels: each kernel against its plain PyTorch version on the card,
    at the shapes its path gives it and at ragged ones (a bf16
    ``flash_attention`` also against the plain version on its inputs
@@ -45,7 +45,8 @@ nothing of JAX or of the reference package ``repro``. Phases:
    the same function, that call (``library_ms``, a yardstick the port
    never calls); ``flash_attention``'s backward (the ``prep``, ``dkdv``
    and ``dq`` entries of ``csrc/flash_attention_bwd_sm90.cu`` for bf16 at
-   D 64, 80 and 128, reading the forward's log-sum-exp, or of
+   D 64, 80 and 128, and its D 192 entries, reading the forward's
+   log-sum-exp, or of
    ``csrc/flash_attention_bwd.cu`` otherwise, one launch each a call,
    checked) against ``ref.attention_bwd`` at every attention shape of
    phase 15's steps (ViT-L/16's 197 tokens, ViT-H/14's 257 at D 80,
@@ -54,10 +55,13 @@ nothing of JAX or of the reference package ``repro``. Phases:
    and phase 16's causal GQA attention of phi4-mini-3.8b ((1, 4096, 24 /
    8, 128) bf16) and qwen3-8b ((1, 4096, 32 / 8, 128)) with ragged causal
    GQA cases (Sq = Skv, Sq < Skv, Sq > Skv; float32 and bf16, D 64, 80,
-   128), two calls bit-equal, each entry also timed alone, beside the
+   128), deepseek-v2-lite-16b's causal MLA attention ((1, 4096, 16, 192)
+   bf16, the D 192 entries) with a ragged causal and a ragged non-causal
+   D 192 case, two calls bit-equal, each entry also timed alone, beside the
    backward of ``scaled_dot_product_attention`` (``is_causal``,
-   ``enable_gqa`` where the case has them); every tensor-core case also forced
-   onto the CUDA-core entries (checked the same, and slower: checked); and
+   ``enable_gqa`` where the case has them); every tensor-core case at D <=
+   128 also forced onto the CUDA-core entries (checked the same, and
+   slower: checked); and
    ``int8_matmul``'s one path, ``ops.int8_matmul`` at the kernel bench's
    shape, on the tensor-core entry;
 3. the Mission at full width: the ``targetfuse-space`` and
@@ -214,9 +218,14 @@ nothing of JAX or of the reference package ``repro``. Phases:
    and gradients card against CPU (checked).
 16. LM training (``launch/steps.py`` ``lm_train``, ``models/lm.py``
    ``loss_fn``, ``launch/train.py``): phi4-mini-3.8b at full width and
-   depth (3.84 B parameters) on one 4096-token row, and qwen3-8b at full
+   depth (3.84 B parameters) on one 4096-token row, qwen3-8b at full
    width cut to LM_TRAIN_LAYERS layers on two rows as two micro-batches
-   (``grad_accum`` 2), train_4k's sequence (seeded bf16 weights drawn on
+   (``grad_accum`` 2), and the MoE LMs at full width on one row, depth
+   cut to LM_TRAIN_LAYERS: qwen2-moe-a2.7b (60 routed experts padded to
+   64, capacity factor 1.25) and deepseek-v2-lite-16b (its dense layer 0
+   and MoE layers, MLA: the flash backward's D 192 entries, one set a
+   layer; the drop share of a step's MoE layers printed), train_4k's
+   sequence (seeded bf16 weights drawn on
    the card, seeded tokens, labels the tokens rolled by one, ``remat``
    "dots_saveable", donated steps with AdamW in place): LM_TRAIN_STEPS
    steps on one batch, the loss falling (checked); ms a step (CUDA
@@ -224,7 +233,8 @@ nothing of JAX or of the reference package ``repro``. Phases:
    ``model_flops``: 3x the forward's), peak memory; flash launches by
    entry in a step (the forward twice a layer and micro-batch, with the
    remat recompute, on the tensor-core entry; ``prep``, ``dkdv``, ``dq``
-   once; checked); warm-up steps until the allocator settles, then
+   of the head dim's entries once; checked); peak memory under the card's
+   80 GB (checked); warm-up steps until the allocator settles, then
    ``LaunchGuard`` over a steady step (0 builds, 0 new segments;
    checked); step 1 run again from the seed, its loss and every leaf of
    the new state bit-equal (checked), after the embedding gather's
@@ -244,7 +254,7 @@ monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
 forwards of phase 13, the diffusion samples of phase 14a-b, the first
 training step of each model in phases 15 and 16 and ``int8_matmul``'s one
 path;
-``flash_attention``'s entries include its backward's nine, from
+``flash_attention``'s entries include its backward's twelve, from
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``),
 then the
 ``nvidia-smi`` name and power limit, and last ``{"ok": true, "device":
@@ -366,13 +376,28 @@ ZOO_STEPS = 10
 # gradients and float32 AdamW moments) takes one 4096-token row; qwen3-8b at
 # full width takes LM_TRAIN_LAYERS of its 36 layers (the state and a float32
 # accumulator, 16 bytes a parameter, reckon to ~8 layers) and two rows as
-# two micro-batches (grad_accum 2), the accumulation path of lm_train. Each
-# trains LM_TRAIN_STEPS donated steps on one batch, as phase 15 (warm-up
-# until the allocator settles, one step under LaunchGuard, the rest timed)
+# two micro-batches (grad_accum 2), the accumulation path of lm_train. The
+# MoE LMs take one row each and LM_TRAIN_LAYERS of their layers, as
+# LM_TRAIN_CUT reckons them. Each trains LM_TRAIN_STEPS donated steps on one
+# batch, as phase 15 (warm-up until the allocator settles, one step under
+# LaunchGuard, the rest timed)
 LM_TRAIN_SEQ = 4096
-LM_TRAIN_ARCHS = ("phi4-mini-3.8b", "qwen3-8b")
-LM_TRAIN_ACCUM = {"phi4-mini-3.8b": 1, "qwen3-8b": 2}
-LM_TRAIN_LAYERS = {"qwen3-8b": 8}
+LM_TRAIN_ARCHS = ("phi4-mini-3.8b", "qwen3-8b", "qwen2-moe-a2.7b", "deepseek-v2-lite-16b")
+LM_TRAIN_ACCUM = {"phi4-mini-3.8b": 1, "qwen3-8b": 2, "qwen2-moe-a2.7b": 1,
+                  "deepseek-v2-lite-16b": 1}
+LM_TRAIN_LAYERS = {"qwen3-8b": 8, "qwen2-moe-a2.7b": 6, "deepseek-v2-lite-16b": 7}
+# why each depth: the state is 12 bytes a parameter (bf16 weights and
+# gradients, float32 moments) beside the embedding and head and the loss's
+# float32 (4096, vocab) logits, ~4 copies of them in its backward
+LM_TRAIN_CUT = {
+    "qwen3-8b": "state and float32 accumulator 16 B a parameter: ~8 layers fit",
+    "qwen2-moe-a2.7b": "a layer ~605 M parameters (64 padded experts of 3 x 2048 x 1408, "
+                       "4 shared), 7.3 GB of state; embed and head 0.62 B parameters, "
+                       "7.5 GB; ~10 GB of logits at vocab 151936: 6 layers reckon to ~61 GB",
+    "deepseek-v2-lite-16b": "the dense layer 0 (~81 M parameters, 1 GB) and 6 MoE layers of "
+                            "~585 M parameters (64 experts, 2 shared, MLA), 7.0 GB of state "
+                            "each; embed and head 0.42 B parameters, 5 GB; ~7 GB of logits at "
+                            "vocab 102400: ~55 GB"}
 LM_TRAIN_STEPS = 10
 # phase 16: the reduced configs in float32, loss_fn's gradients card vs CPU,
 # each leaf within LM_F32_GRAD_TOL of its own largest magnitude (the
@@ -850,7 +875,8 @@ def ptxas_report(logs: dict):
     # flash_attention's backward libraries -> their kernel entries:
     # csrc/flash_attention_bwd.cu's 3 kernels x (float32, bf16) x (DP 64,
     # 128), csrc/flash_attention_bwd_sm90.cu's prep and its dkdv and dq at
-    # each head dim of TENSOR_CORE_BWD_D, causal and not; none may spill
+    # each head dim of TENSOR_CORE_BWD_D, causal and not (dkdv at D 192 the
+    # two-warpgroup kernel); none may spill
     bwd_libs = {"flash_attention_bwd": 3 * 2 * 2,
                 "flash_attention_bwd_sm90": 1 + 2 * 2 * len(TENSOR_CORE_BWD_D)}
     if "flash_attention" not in logs:
@@ -891,8 +917,9 @@ def ptxas_report(logs: dict):
               f"ptxas reported {len(entries)} entries of {name}, not {want}: {entries}")
     if "flash_attention_bwd_sm90" in logs:   # each tensor-core kernel at each head dim
         log = logs["flash_attention_bwd_sm90"]
-        for kern in ("bwd_dkdv_tc_kernel", "bwd_dq_tc_kernel"):
-            for d in TENSOR_CORE_BWD_D:
+        for d in TENSOR_CORE_BWD_D:
+            dkdv = "bwd_dkdv_wg2_tc_kernel" if d == 192 else "bwd_dkdv_tc_kernel"
+            for kern in (dkdv, "bwd_dq_tc_kernel"):
                 for causal in (0, 1):   # the mangled <D, kCausal>
                     check(f"{kern}ILi{d}ELb{causal}E" in log,
                           f"ptxas reported no {kern}<{d}, {bool(causal)}>")
@@ -1001,8 +1028,10 @@ def flash_bwd_cases():
     Hq, Hkv, D), dtype, causal): each attention of phase 15's steps at its
     batch (bf16, non-causal, Hq == Hkv), ragged float32 and bf16 cases,
     then phase 16's causal GQA attention of phi4-mini-3.8b (24 / 8 heads)
-    and qwen3-8b (32 / 8) at LM_TRAIN_SEQ tokens a row, and ragged causal
-    GQA cases (Sq = Skv, Sq < Skv, Sq > Skv; float32 and bf16)."""
+    and qwen3-8b (32 / 8) and deepseek-v2-lite-16b's causal MLA attention
+    (16 heads of 192) at LM_TRAIN_SEQ tokens a row, ragged causal GQA cases
+    (Sq = Skv, Sq < Skv, Sq > Skv; float32 and bf16, D 64 to 192), and last
+    a ragged non-causal D 192 case."""
     import torch
     bf16, f32 = torch.bfloat16, torch.float32
     bl = bh = bd = bu = ZOO_BATCH
@@ -1022,13 +1051,17 @@ def flash_bwd_cases():
              ("one query", (1, 1, 100, 2, 2, 64), bf16), ("D 96", (2, 130, 70, 2, 2, 96), bf16)]
     causal = [("phi4-mini-3.8b train_4k causal GQA", (1, s, s, 24, 8, 128), bf16),
               ("qwen3-8b train_4k causal GQA", (1, s, s, 32, 8, 128), bf16),
+              ("deepseek-v2-lite-16b train_4k causal MLA (D 192)", (1, s, s, 16, 16, 192), bf16),
               ("ragged causal GQA", (2, 200, 200, 6, 2, 64), f32),
               ("ragged causal GQA Sq < Skv", (2, 130, 260, 4, 2, 128), f32),
               ("ragged causal GQA", (2, 200, 200, 6, 2, 64), bf16),
               ("ragged causal GQA D 80", (2, 197, 197, 6, 2, 80), bf16),
               ("ragged causal GQA Sq < Skv", (2, 130, 260, 4, 2, 128), bf16),
-              ("ragged causal GQA Sq > Skv", (2, 260, 130, 4, 2, 128), bf16)]
-    return [(*c, False) for c in cases] + [(*c, True) for c in causal]
+              ("ragged causal GQA Sq > Skv", (2, 260, 130, 4, 2, 128), bf16),
+              ("ragged causal D 192", (2, 200, 200, 4, 4, 192), bf16)]
+    # after the causal ones, so that the D 192 entries' first case is deepseek's
+    last = [("ragged D 192", (2, 130, 70, 2, 2, 192), bf16, False)]
+    return [(*c, False) for c in cases] + [(*c, True) for c in causal] + last
 
 
 def causal_pairs(sq: int, skv: int, causal: bool) -> int:
@@ -1080,26 +1113,28 @@ def rnorm(got, want) -> float:
     return ((got.double() - want.double()).norm() / want.double().norm()).item()
 
 
-def bwd_symbols(route, dt) -> dict:
-    """flash_attention_bwd's entries on ``route`` -> {entry: symbol}."""
+def bwd_symbols(route, dt, d) -> dict:
+    """flash_attention_bwd's entries on ``route`` at head dim ``d`` ->
+    {entry: symbol}."""
     from repro_torch.kernels import flash_attention as fa
     if route == fa.TENSOR_CORE:
-        return dict(fa.BWD_TC_SYMBOLS)
+        return dict(fa.bwd_tc_symbols(d))
     return {e: fa.BWD_SYMBOLS[e, dt] for e in fa.BWD_ENTRIES}
 
 
 def phase_flash_bwd(dev, rows, cases=None):
     """Phase 2, flash_attention's backward: each case (``cases``, default
     :func:`flash_bwd_cases`) on its route
-    (``choose_bwd_route``: bf16 at D 64, 80 and 128 on the tensor-core
+    (``choose_bwd_route``: bf16 at D 64, 80, 128 and 192 on the tensor-core
     entries, reading the forward's log-sum-exp; the rest on the CUDA-core
     ones) against ``ref.attention_bwd`` (one launch of each of its three
     entries, checked; two calls bit-equal, checked; the tolerances above),
     timed with CUDA events beside its bound, the plain version and the
     backward of ``scaled_dot_product_attention`` on the same inputs
     (autograd through it, the forward outside the timing), each entry also
-    alone. A tensor-core case also runs forced onto the CUDA-core entries
-    (the same checks), timed the same way. The bound counts the five
+    alone. A tensor-core case at D <= 128 also runs forced onto the
+    CUDA-core entries (the same checks), timed the same way; D 192 has no
+    CUDA-core kernel. The bound counts the five
     products the gradient needs (s, dP, dV, dK, dQ: 10 B Hq D operations a
     (query, key) pair the mask leaves, ``causal_pairs``, at the inputs'
     type's peak) and each input and output once; an entry's, the products
@@ -1107,8 +1142,9 @@ def phase_flash_bwd(dev, rows, cases=None):
     0, dkdv 4, dq 3, 7 in all) and its bytes. The entries of the first case
     of each route add to ``rows["flash_attention"]``; each entry's
     ``causal_gqa`` holds its rows of the causal ``train_4k`` cases
-    (phi4-mini-3.8b's and qwen3-8b's), or of its first causal case where it
-    runs none of those. -> {label: {route:
+    (phi4-mini-3.8b's and qwen3-8b's; deepseek-v2-lite-16b's for the D 192
+    entries, whose bound counts the padded D 192), or of its first causal
+    case where it runs none of those. -> {label: {route:
     ms, "sdpa": ms, "bound": ms}} of each case."""
     import torch
     import torch.nn.functional as F
@@ -1128,7 +1164,8 @@ def phase_flash_bwd(dev, rows, cases=None):
                 o, lse = fa.flash_attention(q, k, v, causal=causal).contiguous(), None
         shape = (f"{label}: q{(b, sq, h, d)} kv{(b, skv, hkv, d)} {str(dt)[6:]}"
                  f"{' causal' if causal else ''}")
-        routes = [route] + ([fa.CUDA_CORE] if route == fa.TENSOR_CORE else [])
+        routes = [route] + ([fa.CUDA_CORE] if route == fa.TENSOR_CORE
+                            and d <= fa.CUDA_CORE_MAX_BWD_D else [])
         t_plain = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
         t_plain[0].record()
         want = ref.attention_bwd(q, k, v, o, do, causal=causal)
@@ -1154,7 +1191,7 @@ def phase_flash_bwd(dev, rows, cases=None):
         route_ms = {}
         for r in routes:
             lib = fa.BWD_TC_KERNEL if r == fa.TENSOR_CORE else fa.BWD_KERNEL
-            syms = bwd_symbols(r, dt)
+            syms = bwd_symbols(r, dt, d)
 
             def call():
                 return fa.flash_attention_bwd(q, k, v, o, do, lse, causal=causal, route=r)
@@ -1232,8 +1269,8 @@ def phase_flash_bwd(dev, rows, cases=None):
         torch.cuda.empty_cache()
     for sym, row in entry_rows.items():
         rows["flash_attention"]["entries"].setdefault(sym, row)
-    for sym, kept in causal_rows.items():
-        rows["flash_attention"]["entries"][sym]["causal_gqa"] = kept
+    for sym, kept in causal_rows.items():   # copies: an entry's own row may be among them
+        rows["flash_attention"]["entries"][sym]["causal_gqa"] = [dict(r) for r in kept]
     return times
 
 
@@ -2450,7 +2487,7 @@ def moe_layer_card_vs_cpu(dev, params, cfg, prompt):
         p = lm._map(lambda a: a.to(device), layer["moe"])
         with MoeProbe(keep=True) as probe:
             out, aux = moe.moe_block(p, cfg, x.to(device))
-        _, slot, valid, _, tok = (t.cpu() for t in probe.metas[0])
+        _, slot, valid, _, tok = (t.cpu() for t in probe.metas[0][:5])
         topi = probe.topi[0].cpu()
         v = valid.reshape(-1)
         runs.append(dict(
@@ -3412,17 +3449,25 @@ def phase_zoo_training(dev, kernels):
 # ---------------------------------------------------------------------------
 
 def lm_train_config(arch):
-    """Phase 16's config of ``arch`` and its cut: full width, qwen3-8b's
-    depth cut to LM_TRAIN_LAYERS -> (config, the cuts as text)."""
+    """Phase 16's config of ``arch`` and its cut: full width, the depth
+    of qwen3-8b and the MoE LMs cut to LM_TRAIN_LAYERS (why: LM_TRAIN_CUT)
+    -> (config, the cuts as text)."""
     import dataclasses
     from repro_torch.configs import get_config
     cfg = get_config(arch)
     cuts = [f"batch {LM_TRAIN_ACCUM[arch]} rows of 256 (train_4k's)"]
     layers = LM_TRAIN_LAYERS.get(arch)
     if layers is not None:
-        cuts.append(f"{layers} of {cfg.n_layers} layers")
+        cuts.append(f"{layers} of {cfg.n_layers} layers ({LM_TRAIN_CUT[arch]})")
         cfg = dataclasses.replace(cfg, n_layers=layers)
     return cfg, "; ".join(cuts)
+
+
+def attention_head_dim(cfg) -> int:
+    """The head dim an LM's training attention runs at: MLA's q/k heads
+    (nope + rope, v zero-padded to it), else ``head_dim``."""
+    return (cfg.head_dim if cfg.mla is None
+            else cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim)
 
 
 def state_digest(trees) -> list:
@@ -3463,10 +3508,12 @@ def lm_train_cell(dev, kernels, arch):
     """One LM's training at full width: LM_TRAIN_STEPS donated steps on one
     batch (step 1 counts the flash launches by entry: each layer's forward
     twice, once in the remat recompute, and each backward entry once, a
-    micro-batch; then warm-up steps until the allocator settles, a step
-    under LaunchGuard, the rest timed by CUDA events), the loss falling,
-    and step 1 run again from the same seed, its loss and every leaf of
-    the new state bit-equal (``state_digest``); one more step under
+    micro-batch, the entries of the attention's head dim, D 192 for MLA;
+    an MoE model's drop share in it, through ``MoeProbe``; then warm-up
+    steps until the allocator settles, a step under LaunchGuard, the rest
+    timed by CUDA events), the loss falling, the peak under the card's 80
+    GB, and step 1 run again from the same seed, its loss and every leaf
+    of the new state bit-equal (``state_digest``); one more step under
     torch.profiler (after a warm-up step) -> launches by entry in step 1
     (the main path's)."""
     import torch
@@ -3484,14 +3531,23 @@ def lm_train_cell(dev, kernels, arch):
                 + 2 * 4 * sum(t.numel() for t in _leaves(state[0]))) / 1e9
     for k in kernels:
         k.reset()
-    state, loss = step(state)
+    with MoeProbe() as probe:   # a few small launches a MoE layer, no sync
+        state, loss = step(state)
     losses = [loss]
     torch.cuda.synchronize()
     first_digest = state_digest((state[0], state[1].mu, state[1].nu))
     took = {s_: n for k in kernels for s_, n in k.symbol_launches.items() if n}
     n = cfg.n_layers * accum
-    want = {TC_SYMBOL: 2 * n, **{sym: n for sym in fa.BWD_TC_SYMBOLS.values()}}
+    want = {TC_SYMBOL: 2 * n,
+            **{sym: n for sym in fa.bwd_tc_symbols(attention_head_dim(cfg)).values()}}
     check(took == want, f"{arch}: flash launches by entry in a step {took}, not {want}")
+    drops = ""
+    if cfg.moe is not None:   # the forward's calls, a MoE layer each, then the recompute's
+        n_moe = cfg.n_layers - cfg.moe.first_dense_layers
+        per_call = probe.copies / len(probe.dropped)
+        layer_share = [float(x) / per_call for x in probe.dropped[:n_moe]]
+        drops = (f"; dropped at capacity {probe.drop_share():.4f} of the routed copies (by MoE "
+                 f"layer {', '.join(f'{x:.4f}' for x in layer_share)})")
     first_peak = torch.cuda.max_memory_allocated() / 1e9
     torch.cuda.empty_cache()
     warm_segments = []
@@ -3536,8 +3592,10 @@ def lm_train_cell(dev, kernels, arch):
           f"(steps {', '.join(f'{t:.4f}' for t in ms)}), {1e3 * tokens / mean_ms:.1f} tokens/s; "
           f"{gflop / 1e3:.4f} TFLOP a step (the reference's model_flops), bf16 bound "
           f"{bound:.4f} ms, share {bound / mean_ms:.3f}; peak memory {peak_gb:.2f} GB (step 1 "
-          f"{first_peak:.2f}); flash launches by entry in a step {took}; losses "
+          f"{first_peak:.2f}); flash launches by entry in a step {took}{drops}; losses "
           f"{', '.join(f'{x:.6f}' for x in losses)}", flush=True)
+    check(max(peak_gb, first_peak) < 80, f"{arch}: peak memory {peak_gb:.2f} GB a step, "
+          f"{first_peak:.2f} in step 1")
     print(f"guard {guard.label}: builds {guard.builds} new segments {guard.new_segments} syncs "
           f"{guard.syncs}; launches by entry {json.dumps(guard.launches)}", flush=True)
     check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],

@@ -8,11 +8,12 @@ Needs one CUDA card and ``nvcc``. Builds every kernel library of the port
 ptxas's registers and spills of each entry, a spill failing the run), then
 runs ``chip_smoke.phase_flash_bwd`` on the causal cases of
 ``chip_smoke.flash_bwd_cases``: the attention of phi4-mini-3.8b (24 / 8
-heads) and qwen3-8b (32 / 8) at 4096 tokens a row in bf16, and ragged
-causal GQA cases in float32 and bf16, Sq = Skv, Sq < Skv and Sq > Skv.
+heads), qwen3-8b (32 / 8) and deepseek-v2-lite-16b (16 heads of 192, the
+D 192 entries) at 4096 tokens a row in bf16, and ragged causal cases in
+float32 and bf16, Sq = Skv, Sq < Skv and Sq > Skv, D 64 to 192.
 ``--all`` runs every case of phase 2's backward list (phase 15's
 non-causal shapes too). Each case on its route (and a tensor-core case
-forced onto the CUDA-core entries), against ``ref.attention_bwd`` (bf16:
+at D <= 128 forced onto the CUDA-core entries), against ``ref.attention_bwd`` (bf16:
 relative norm 3.7e-3 of the float32-upcast gradient; float32: 2e-5), two
 calls bit-equal, timed with CUDA events beside the bound and SDPA's
 backward (``is_causal`` and ``enable_gqa`` where the case has them).

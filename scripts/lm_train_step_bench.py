@@ -6,7 +6,7 @@
 
 Needs one CUDA card and ``nvcc`` (the flash kernels build on their first
 launch). Phase 16's cell of ``--arch`` (``chip_smoke.lm_train_config``:
-full width, qwen3-8b's depth cut; bf16 weights from a seeded generator,
+full width, the depths of ``LM_TRAIN_LAYERS`` cut; bf16 weights from a seeded generator,
 one fixed batch of seeded tokens of 4096, labels the tokens rolled by
 one, ``chip_smoke.lm_train_setup``): ``lm_train``'s donated step,
 ``--warmup`` steps, then ``--steps`` steps timed by CUDA events. Then the

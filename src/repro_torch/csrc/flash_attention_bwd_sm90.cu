@@ -1,7 +1,9 @@
 // The gradient of GQA attention, with an optional causal mask, in bf16 on
 // Hopper's tensor cores (sm_90a): FlashAttention-2/3's backward on wgmma
 // and TMA, with no atomics, in three entries (flash_attention_bwd_{prep,
-// dkdv,dq}_bf16_sm90), for D 64, 80 and 128.
+// dkdv,dq}_bf16_sm90) for D 64, 80 and 128, and three more at D 192
+// (flash_attention_bwd_{prep,dkdv,dq}_bf16_d192_sm90: deepseek-v2-lite's
+// MLA, q/k heads of 128 + 64 and v zero-padded to 192).
 //
 // Replaces no TPU kernel: the reference has no backward kernel (XLA
 // differentiates repro/kernels/ref.py:attention on the CPU). It is the
@@ -86,8 +88,23 @@
 // 2 at D 80 and 128 (up to 255 registers a thread), 3 at D 64 (168).
 // Shared memory at D 128 (and 80): K and V 2 x 64 x 256 B, two stages of
 // Q and dO 2 x 2 x 64 x 256 B, 97 KB a block (dq: Q and dO, stages of K
-// and V, the same). Later work: the softmax of one tile under the next
-// tile's products, a persistent grid, 128-row blocks at D 64.
+// and V, the same).
+//
+// D 192: dK and dV would take 192 floats a thread beside S^T and dP^T (64),
+// past the 255 registers a thread can hold. So dkdv runs a block of two
+// warpgroups on one ring of Q / dO tiles (bwd_dkdv_wg2_tc_kernel), each
+// owning one accumulator of 96 floats and two of the tile's four products:
+// warpgroup 0 S^T = K Q^T, P^T (which it also writes to shared memory as
+// float32, 16 KB), dV += P^T dO; warpgroup 1 dP^T = V dO^T, then, after a
+// named barrier, dS^T = P^T * (dP^T - Delta) from that P^T, dK += dS^T Q.
+// No product is run twice and the arithmetic is the one-warpgroup kernel's.
+// dq keeps its one-warpgroup layout (dQ 96 floats beside S and dP). Shared
+// memory: K, V 2 x 64 x 384 B, two stages of Q and dO 2 x 2 x 64 x 384 B,
+// 146 KB (dkdv 162 KB with P^T), so one block an SM (255 registers a
+// thread). v's 64 zero columns are read and multiplied like the others.
+// Later work: the softmax of one tile under the next tile's products, a
+// persistent grid, 128-row blocks at D 64; at D 192, v at its true 128
+// columns in dP and dV, two warpgroups in dq.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -110,10 +127,11 @@ template <int D>
 __host__ __device__ constexpr int boxes() { return (D + 63) / 64; }
 
 // blocks an SM: 3 at D 64 (a thread's registers capped at 168, enough for
-// dK, dV, S^T and dP^T at D 64), 2 above (capped at 255: at D 128 they take
-// 192 floats), which the shared memory also allows
+// dK, dV, S^T and dP^T at D 64), 2 at D 80 and 128 (capped at 255: at D 128
+// they take 192 floats), which the shared memory also allows; 1 at D 192,
+// whose tiles leave room for one block
 template <int D>
-__host__ __device__ constexpr int min_blocks() { return D <= 64 ? 3 : 2; }
+__host__ __device__ constexpr int min_blocks() { return D <= 64 ? 3 : D <= 128 ? 2 : 1; }
 
 template <int D>
 constexpr int bwd_smem() {
@@ -123,6 +141,22 @@ constexpr int bwd_smem() {
   // 128-byte swizzle
   return 2 * boxes<D>() * kBwdRows * 128 + kBwdStages * 2 * boxes<D>() * kBwdTile * 128 +
          kBwdStages * 2 * kBwdTile * 4 + 8 * (1 + kBwdStages) + 1024;
+}
+
+// dkdv_wg2: the same and P^T of a tile, 32 floats a thread of warpgroup 0
+template <int D>
+constexpr int bwd_wg2_smem() {
+  return bwd_smem<D>() + kBwdRows * kBwdTile * 4;
+}
+
+// named barrier 1 over both warpgroups of a dkdv_wg2 block: warpgroup 0
+// arrives once its P^T is in shared memory, warpgroup 1 waits for it
+static_assert(2 * kBwdThreads == 256, "the named barrier counts two warpgroups");
+__device__ __forceinline__ void p_ready_arrive() {
+  asm volatile("bar.arrive 1, 256;\n" ::: "memory");
+}
+__device__ __forceinline__ void p_ready_wait() {
+  asm volatile("bar.sync 1, 256;\n" ::: "memory");
 }
 
 __device__ __forceinline__ float dot_bf16x8(uint4 a, uint4 b, float acc) {
@@ -339,6 +373,178 @@ bwd_dkdv_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_consta
   }
 }
 
+// dK and dV of kBwdRows keys where a thread cannot hold both (D 192): two
+// warpgroups, warpgroup 0 dV and warpgroup 1 dK, on one ring of the kv
+// head's query tiles walked as bwd_dkdv_tc_kernel walks them
+template <int D, bool kCausal>
+__global__ void __launch_bounds__(2 * kBwdThreads, 1)
+bwd_dkdv_wg2_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
+                       const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
+                       const float* __restrict__ lse, const float* __restrict__ delta,
+                       __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int sq,
+                       int skv, int hq, int hkv, int stride, float sm_scale, float scale_log2) {
+  constexpr uint32_t kBox = kBwdRows * 128;          // bytes of a 64-row box
+  constexpr uint32_t kBytes = boxes<D>() * kBox;     // of a 64-row tile of one tensor
+  constexpr uint32_t kRowBytes = kBwdTile * 4;       // of a tile's lse (or Delta)
+  extern __shared__ uint8_t smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+  const uint32_t s_k = base, s_v = s_k + kBytes;
+  const uint32_t s_ring = s_v + kBytes;                      // stage st: Q, then dO
+  const uint32_t s_rows = s_ring + kBwdStages * 2 * kBytes;  // stage st: lse, then Delta
+  const uint32_t s_p = s_rows + kBwdStages * 2 * kRowBytes;  // P^T: [i][thread] floats
+  const uint32_t bar_kv = s_p + kBwdRows * kBwdTile * 4, bar_full = bar_kv + 8;
+  const float* rows = reinterpret_cast<const float*>(smem_raw + (s_rows - raw));
+  float* pt = reinterpret_cast<float*>(smem_raw + (s_p - raw));
+
+  const int hk = kCausal ? blockIdx.x : blockIdx.y, b = kCausal ? blockIdx.y : blockIdx.z;
+  const int k0 = (kCausal ? blockIdx.z : blockIdx.x) * kBwdRows;
+  const int n_tiles = (sq + kBwdTile - 1) / kBwdTile;
+  const int rep = hq / hkv;
+  const int t_first = kCausal ? min(k0 / kBwdTile, n_tiles) : 0;
+  const int per_head = n_tiles - t_first, n_items = rep * per_head;
+  const int wg = threadIdx.x / kBwdThreads, tid = threadIdx.x % kBwdThreads;
+  const int warp = tid / 32, lane = tid % 32;
+
+  // thread 0 fills stage it % kBwdStages with item it, as in bwd_dkdv_tc_kernel
+  auto load_tile = [&](int it) {
+    const int st = it % kBwdStages, j = it / per_head;
+    const int hh = hk * rep + j, q0 = (t_first + it - j * per_head) * kBwdTile;
+    const long long row_off = ((long long)b * hq + hh) * stride;
+    const uint32_t q_dst = s_ring + st * 2 * kBytes, r_dst = s_rows + st * 2 * kRowBytes;
+    const uint32_t full = bar_full + 8 * st;
+    mbar_expect_tx(full, 2 * kBytes + 2 * kRowBytes);
+    for (int db = 0; db < boxes<D>(); ++db) {
+      tma_load(q_dst + db * kBox, &tm_q, full, db * 64, hh, q0, b);
+      tma_load(q_dst + kBytes + db * kBox, &tm_do, full, db * 64, hh, q0, b);
+    }
+    bulk_load(r_dst, lse + row_off + q0, kRowBytes, full);
+    bulk_load(r_dst + kRowBytes, delta + row_off + q0, kRowBytes, full);
+  };
+  if (threadIdx.x == 0) {
+    mbar_init(bar_kv, 1);
+    for (int st = 0; st < kBwdStages; ++st) mbar_init(bar_full + 8 * st, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(bar_kv, 2 * kBytes);
+    for (int db = 0; db < boxes<D>(); ++db) {
+      tma_load(s_k + db * kBox, &tm_k, bar_kv, db * 64, hk, k0, b);
+      tma_load(s_v + db * kBox, &tm_v, bar_kv, db * 64, hk, k0, b);
+    }
+    for (int it = 0; it < kBwdStages && it < n_items; ++it) load_tile(it);
+  }
+  __syncthreads();
+
+  // this thread holds keys key0 and key0 + 8 of every accumulator
+  const int key0 = k0 + 16 * warp + lane / 4;
+  const int col = 2 * (lane % 4);
+  // warpgroup 0: S^T (then P^T) and dV; warpgroup 1: dP^T (then dS^T) and dK
+  const uint32_t a_rows = wg ? s_v : s_k;
+  float acc[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+
+  mbar_wait(bar_kv, 0);
+  int t = t_first;  // item it's query tile
+  for (int it = 0; it < n_items; ++it) {
+    const int st = it % kBwdStages, q0 = t * kBwdTile;
+    t = t + 1 == n_tiles ? t_first : t + 1;
+    const uint32_t s_q = s_ring + st * 2 * kBytes, s_do = s_q + kBytes;
+    const float* lse_t = rows + st * 2 * kBwdTile;
+    const float* delta_t = lse_t + kBwdTile;
+    mbar_wait(bar_full + 8 * st, (it / kBwdStages) & 1);
+
+    // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (1)
+    const uint32_t b_rows = wg ? s_do : s_q;
+    float x[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) x[i] = 0.f;
+    fence_regs(x);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+      Wgmma<64>::ss(x, sw128_desc(a_rows + off, 16, 1024), sw128_desc(b_rows + off, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(x);
+
+    // x[4i + e] is (key0, query q0 + 8i + col + e), x[4i + 2 + e] (key0 + 8,
+    // the same query)
+    if (wg == 0) {
+      // P^T in place, 0 for queries past sq and, on the diagonal tile, for
+      // key > query; then into shared memory for warpgroup 1
+      const bool mask = q0 + kBwdTile > sq;
+      const bool diag = kCausal && q0 < k0 + kBwdRows;
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 l2 = *reinterpret_cast<const float2*>(lse_t + 8 * i + col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float li = e ? l2.y : l2.x;
+          const int qi = q0 + 8 * i + col + e;
+          bool out0 = mask && qi >= sq, out1 = out0;
+          if constexpr (kCausal) {
+            out0 = out0 || (diag && key0 > qi);
+            out1 = out1 || (diag && key0 + 8 > qi);
+          }
+          x[4 * i + e] = out0 ? 0.f : exp2f(x[4 * i + e] * scale_log2 - li);
+          x[4 * i + 2 + e] = out1 ? 0.f : exp2f(x[4 * i + 2 + e] * scale_log2 - li);
+        }
+      }
+#pragma unroll
+      for (int i = 0; i < 32; ++i) pt[i * kBwdThreads + tid] = x[i];
+      p_ready_arrive();
+    } else {
+      // dS^T = P^T * (dP^T - Delta) in place (0 wherever P^T is)
+      p_ready_wait();
+#pragma unroll
+      for (int i = 0; i < 8; ++i) {
+        const float2 d2 = *reinterpret_cast<const float2*>(delta_t + 8 * i + col);
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const float di = e ? d2.y : d2.x;
+          x[4 * i + e] = pt[(4 * i + e) * kBwdThreads + tid] * (x[4 * i + e] - di);
+          x[4 * i + 2 + e] = pt[(4 * i + 2 + e) * kBwdThreads + tid] * (x[4 * i + 2 + e] - di);
+        }
+      }
+    }
+    uint32_t xa[16];
+    to_bf16_operand(x, xa);
+
+    // dV += P^T dO (warpgroup 0) or dK += dS^T Q (1): 4 steps of 16 queries,
+    // dO and Q N-major, their D boxes kBox bytes apart
+    const uint32_t n_rows = wg ? s_q : s_do;
+    fence_regs(xa);
+    fence_regs(acc);
+    wgmma_fence();
+#pragma unroll
+    for (int j = 0; j < kBwdTile / 16; ++j)
+      Wgmma<D>::rs(acc, xa[4 * j], xa[4 * j + 1], xa[4 * j + 2], xa[4 * j + 3],
+                   sw128_desc(n_rows + j * 16 * 128, kBox, 1024));
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(acc);
+    __syncthreads();  // every thread is done with the stage and with P^T: refill
+    if (threadIdx.x == 0 && it + kBwdStages < n_items) load_tile(it + kBwdStages);
+  }
+
+  // acc[4i + e] is (key0, column 8i + col + e), acc[4i + 2 + e] key0 + 8;
+  // dK scaled once (dV by 1, exactly)
+  const float scale = wg ? sm_scale : 1.f;
+  const long long row_stride = (long long)hkv * D;
+  __nv_bfloat16* outb = (wg ? dk : dv) + (long long)b * skv * row_stride + (long long)hk * D;
+#pragma unroll
+  for (int i = 0; i < D / 8; ++i) {
+    if (key0 < skv)
+      *reinterpret_cast<__nv_bfloat162*>(outb + key0 * row_stride + 8 * i + col) =
+          __floats2bfloat162_rn(acc[4 * i] * scale, acc[4 * i + 1] * scale);
+    if (key0 + 8 < skv)
+      *reinterpret_cast<__nv_bfloat162*>(outb + (key0 + 8) * row_stride + 8 * i + col) =
+          __floats2bfloat162_rn(acc[4 * i + 2] * scale, acc[4 * i + 3] * scale);
+  }
+}
+
 // dQ of kBwdRows query rows: a loop over every key tile of its kv head
 template <int D, bool kCausal>
 __global__ void __launch_bounds__(kBwdThreads, min_blocks<D>())
@@ -472,10 +678,11 @@ bwd_dq_tc_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant
   }
 }
 
-// the entries' common checks: 0 to launch, else an error code
-int check_args(int b, int sq, int skv, int hq, int hkv, int d, int stride) {
+// the entries' common checks (d192: the D 192 entries, which take D 192
+// alone; the others D 64, 80 or 128): 0 to launch, else an error code
+int check_args(int b, int sq, int skv, int hq, int hkv, int d, int stride, bool d192) {
   if (b <= 0 || sq <= 0 || skv <= 0 || hq <= 0 || hkv <= 0 || hq % hkv != 0 ||
-      (d != 64 && d != 80 && d != 128) || b > 65535 || hq > 65535 ||
+      (d192 ? d != 192 : (d != 64 && d != 80 && d != 128)) || b > 65535 || hq > 65535 ||
       (sq + kBwdRows - 1) / kBwdRows > 65535 || (skv + kBwdRows - 1) / kBwdRows > 65535 ||
       stride < sq || stride % kBwdTile != 0)
     return (int)cudaErrorInvalidValue;
@@ -518,6 +725,26 @@ int launch_dkdv(const void* q, const void* k, const void* v, const void* dout, c
   return (int)cudaGetLastError();
 }
 
+// dkdv at D 192: two warpgroups a block, the grid as launch_dkdv's
+template <int D>
+int launch_dkdv_wg2(const void* q, const void* k, const void* v, const void* dout,
+                    const void* lse, const void* delta, void* dk, void* dv, int b, int sq, int skv,
+                    int hq, int hkv, int causal, int stride, float sm_scale,
+                    cudaStream_t stream) {
+  CUtensorMap m[4];
+  if (!encode_maps<D>(m, q, k, v, dout, b, sq, skv, hq, hkv, kBwdTile, kBwdRows))
+    return (int)cudaErrorInvalidValue;
+  auto kernel = causal ? bwd_dkdv_wg2_tc_kernel<D, true> : bwd_dkdv_wg2_tc_kernel<D, false>;
+  constexpr int bytes = bwd_wg2_smem<D>();
+  if (int err = set_smem(kernel, bytes)) return err;
+  const int tiles = (skv + kBwdRows - 1) / kBwdRows;
+  const dim3 grid = causal ? dim3(hkv, b, tiles) : dim3(tiles, hkv, b);
+  kernel<<<grid, 2 * kBwdThreads, bytes, stream>>>(
+      m[0], m[1], m[2], m[3], (const float*)lse, (const float*)delta, (__nv_bfloat16*)dk,
+      (__nv_bfloat16*)dv, sq, skv, hq, hkv, stride, sm_scale, sm_scale * kLog2e);
+  return (int)cudaGetLastError();
+}
+
 template <int D>
 int launch_dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dqo, int b, int sq, int skv, int hq, int hkv, int causal,
@@ -536,16 +763,8 @@ int launch_dq(const void* q, const void* k, const void* v, const void* dout, con
   return (int)cudaGetLastError();
 }
 
-}  // namespace
-
-// o, dout: (b, sq, h, d) contiguous bf16, 16-byte aligned (h the query
-// heads); delta: float32 (b, h, stride), stride >= sq a multiple of 64,
-// written for every row (0 past sq). d 64, 80 or 128. Returns
-// cudaGetLastError() (or cudaErrorInvalidValue for arguments it refuses).
-extern "C" int flash_attention_bwd_prep_bf16_sm90(const void* o, const void* dout, void* delta,
-                                                  int b, int sq, int h, int d, int stride,
-                                                  void* stream) {
-  if (int err = check_args(b, sq, 1, h, h, d, stride)) return err;
+int launch_prep(const void* o, const void* dout, void* delta, int b, int sq, int h, int d,
+                int stride, void* stream) {
   const long long n = (long long)b * h * stride;
   const long long blocks = (n + kDeltaThreads / 8 - 1) / (kDeltaThreads / 8);
   bwd_delta_kernel<<<(unsigned)blocks, kDeltaThreads, 0, (cudaStream_t)stream>>>(
@@ -553,10 +772,32 @@ extern "C" int flash_attention_bwd_prep_bf16_sm90(const void* o, const void* dou
   return (int)cudaGetLastError();
 }
 
+}  // namespace
+
+// o, dout: (b, sq, h, d) contiguous bf16, 16-byte aligned (h the query
+// heads); delta: float32 (b, h, stride), stride >= sq a multiple of 64,
+// written for every row (0 past sq). d 64, 80 or 128 (the _d192_ entry: d
+// 192). Returns cudaGetLastError() (or cudaErrorInvalidValue for arguments
+// it refuses).
+extern "C" int flash_attention_bwd_prep_bf16_sm90(const void* o, const void* dout, void* delta,
+                                                  int b, int sq, int h, int d, int stride,
+                                                  void* stream) {
+  if (int err = check_args(b, sq, 1, h, h, d, stride, false)) return err;
+  return launch_prep(o, dout, delta, b, sq, h, d, stride, stream);
+}
+
+extern "C" int flash_attention_bwd_prep_bf16_d192_sm90(const void* o, const void* dout,
+                                                       void* delta, int b, int sq, int h, int d,
+                                                       int stride, void* stream) {
+  if (int err = check_args(b, sq, 1, h, h, d, stride, true)) return err;
+  return launch_prep(o, dout, delta, b, sq, h, d, stride, stream);
+}
+
 // q, dout: (b, sq, hq, d); k, v: (b, skv, hkv, d), hq % hkv == 0,
 // contiguous bf16, 16-byte aligned; lse: the forward's (with the same
 // causal flag), delta: prep's, float32 (b, hq, stride); dk, dv like k, v;
-// dq like q. d 64, 80 or 128, sm_scale = 1/sqrt(d), causal 0 or 1 (top-left:
+// dq like q. d 64, 80 or 128 (the _d192_ entries: d 192, dkdv on two
+// warpgroups a block), sm_scale = 1/sqrt(d), causal 0 or 1 (top-left:
 // key > query index masked). Each returns cudaGetLastError() (or
 // cudaErrorInvalidValue for arguments it refuses or a tensor map that
 // cuTensorMapEncodeTiled refuses).
@@ -566,7 +807,7 @@ extern "C" int flash_attention_bwd_dkdv_bf16_sm90(const void* q, const void* k, 
                                                   int sq, int skv, int hq, int hkv, int d,
                                                   int causal, int stride, float sm_scale,
                                                   void* stream) {
-  if (int err = check_args(b, sq, skv, hq, hkv, d, stride)) return err;
+  if (int err = check_args(b, sq, skv, hq, hkv, d, stride, false)) return err;
   cudaStream_t s = (cudaStream_t)stream;
   const int c = causal != 0;
   if (d == 64)
@@ -584,7 +825,7 @@ extern "C" int flash_attention_bwd_dq_bf16_sm90(const void* q, const void* k, co
                                                 const void* delta, void* dqo, int b, int sq,
                                                 int skv, int hq, int hkv, int d, int causal,
                                                 int stride, float sm_scale, void* stream) {
-  if (int err = check_args(b, sq, skv, hq, hkv, d, stride)) return err;
+  if (int err = check_args(b, sq, skv, hq, hkv, d, stride, false)) return err;
   cudaStream_t s = (cudaStream_t)stream;
   const int c = causal != 0;
   if (d == 64)
@@ -595,4 +836,26 @@ extern "C" int flash_attention_bwd_dq_bf16_sm90(const void* q, const void* k, co
                          sm_scale, s);
   return launch_dq<128>(q, k, v, dout, lse, delta, dqo, b, sq, skv, hq, hkv, c, stride,
                         sm_scale, s);
+}
+
+extern "C" int flash_attention_bwd_dkdv_bf16_d192_sm90(const void* q, const void* k,
+                                                       const void* v, const void* dout,
+                                                       const void* lse, const void* delta,
+                                                       void* dk, void* dv, int b, int sq,
+                                                       int skv, int hq, int hkv, int d,
+                                                       int causal, int stride, float sm_scale,
+                                                       void* stream) {
+  if (int err = check_args(b, sq, skv, hq, hkv, d, stride, true)) return err;
+  return launch_dkdv_wg2<192>(q, k, v, dout, lse, delta, dk, dv, b, sq, skv, hq, hkv,
+                              causal != 0, stride, sm_scale, (cudaStream_t)stream);
+}
+
+extern "C" int flash_attention_bwd_dq_bf16_d192_sm90(const void* q, const void* k, const void* v,
+                                                     const void* dout, const void* lse,
+                                                     const void* delta, void* dqo, int b, int sq,
+                                                     int skv, int hq, int hkv, int d, int causal,
+                                                     int stride, float sm_scale, void* stream) {
+  if (int err = check_args(b, sq, skv, hq, hkv, d, stride, true)) return err;
+  return launch_dq<192>(q, k, v, dout, lse, delta, dqo, b, sq, skv, hq, hkv, causal != 0, stride,
+                        sm_scale, (cudaStream_t)stream);
 }

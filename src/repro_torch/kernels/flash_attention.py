@@ -47,25 +47,29 @@ differentiate its oracle), three launches on one of two routes, the rule
 :func:`choose_bwd_route`:
 
 - ``"tensor_core"`` (``csrc/flash_attention_bwd_sm90.cu``, entries
-  counted on ``BWD_TC_KERNEL``): bf16 with D 64, 80 or 128
-  (``TENSOR_CORE_BWD_D``; D 80 read in place, no padding). wgmma and
-  TMA, P and dS fed to their products as one bf16 each. It reads each
-  row's log-sum-exp from the forward: on this route the Function's
-  forward has ``flash_attention_bf16_sm90`` write it (float32 (B, H,
-  ``lse_stride(Sq)``), log2 units) and saves it. ``prep`` is then
-  rowsum(dO * O) alone.
+  counted on ``BWD_TC_KERNEL``): bf16 with D 64, 80, 128 or 192
+  (``TENSOR_CORE_BWD_D``; D 80 read in place, no padding; D 192, MLA's
+  q/k heads of 128 + 64 with v zero-padded, on entries of its own,
+  ``BWD_TC_D192_SYMBOLS``, whose ``dkdv`` block is two warpgroups, one
+  accumulator each). wgmma and TMA, P and dS fed to their products as
+  one bf16 each. It reads each row's log-sum-exp from the forward: on
+  this route the Function's forward has ``flash_attention_bf16_sm90``
+  write it (float32 (B, H, ``lse_stride(Sq)``), log2 units) and saves
+  it. ``prep`` is then rowsum(dO * O) alone.
 - ``"cuda_core"`` (``csrc/flash_attention_bwd.cu``, on ``BWD_KERNEL``):
-  float32 and bf16 of other head dims; float32 FMAs, ``prep`` recomputing
-  the log-sum-exp from q and k.
+  float32 and bf16 of other head dims up to ``CUDA_CORE_MAX_BWD_D``
+  (128); float32 FMAs, ``prep`` recomputing the log-sum-exp from q and k.
 
 A forced ``route`` applies to the Function's forward and backward alike.
 Both take the causal mask (the forward's, top-left: key > query index
 masked; the training forward writes the masked rows' log-sum-exp) and
 GQA (k, v of Hkv heads read in place, no repeat: ``dkdv`` walks each kv
 head's Hq / Hkv query heads and sums their shares before one store,
-``dq`` reads its query head's kv head), any Sq and Skv, D <=
-``MAX_BWD_D``; D > 128 (MLA's 192) raises a ``ValueError`` before the
-forward launches. Without a gradient nothing is saved, the forward writes
+``dq`` reads its query head's kv head), any Sq and Skv. What no route
+takes raises a ``ValueError`` before the forward launches
+(:func:`check_backward`): D > 192, and D > 128 on the CUDA-core route
+(float32 D 192, bf16 head dims above 128 but 192, D 192 forced onto the
+CUDA cores). Without a gradient nothing is saved, the forward writes
 no log-sum-exp (its lse pointer is null) and the launches are the
 forward's alone.
 """
@@ -104,19 +108,24 @@ _BWD_ARGS = {"prep": [P] * 6 + [I] * 7 + [ctypes.c_float, P],
              "dq": [P] * 7 + [I] * 7 + [ctypes.c_float, P]}
 BWD_KERNEL = CudaKernel("flash_attention_bwd",
                         {sym: _BWD_ARGS[e] for (e, _), sym in BWD_SYMBOLS.items()})
-MAX_BWD_D = 128
-# the tensor-core backward: bf16 head dims, entries (in launch order), and
-# the row padding of its float32 lse and Delta buffers (a multiple of its
-# query tile, kBwdTile, so every tile's rows are one aligned bulk copy)
-TENSOR_CORE_BWD_D = (64, 80, 128)
+# the largest head dim a backward takes: the tensor-core route's D 192, the
+# CUDA-core route's 128
+MAX_BWD_D, CUDA_CORE_MAX_BWD_D = 192, 128
+# the tensor-core backward: bf16 head dims, entries (in launch order; D 192
+# on entries of its own), and the row padding of its float32 lse and Delta
+# buffers (a multiple of its query tile, kBwdTile, so every tile's rows are
+# one aligned bulk copy)
+TENSOR_CORE_BWD_D = (64, 80, 128, 192)
 BWD_TC_SYMBOLS = {e: f"flash_attention_bwd_{e}_bf16_sm90" for e in BWD_ENTRIES}
+BWD_TC_D192_SYMBOLS = {e: f"flash_attention_bwd_{e}_bf16_d192_sm90" for e in BWD_ENTRIES}
 # prep: b, sq, hq, d, stride; dkdv and dq: b, sq, skv, hq, hkv, d, causal,
 # stride, then sm_scale and the stream
 _BWD_TC_ARGS = {"prep": [P] * 3 + [I] * 5 + [P],
                 "dkdv": [P] * 8 + [I] * 8 + [ctypes.c_float, P],
                 "dq": [P] * 7 + [I] * 8 + [ctypes.c_float, P]}
-BWD_TC_KERNEL = CudaKernel("flash_attention_bwd_sm90",
-                           {sym: _BWD_TC_ARGS[e] for e, sym in BWD_TC_SYMBOLS.items()})
+BWD_TC_KERNEL = CudaKernel("flash_attention_bwd_sm90", {
+    sym: _BWD_TC_ARGS[e] for table in (BWD_TC_SYMBOLS, BWD_TC_D192_SYMBOLS)
+    for e, sym in table.items()})
 LSE_ROW_PAD = 64
 
 
@@ -131,10 +140,16 @@ def choose_route(dtype: torch.dtype, head_dim: int) -> str:
 
 def choose_bwd_route(dtype: torch.dtype, head_dim: int) -> str:
     """The route of the gradient of a CUDA call: ``"tensor_core"`` for
-    bf16 with D 64, 80 or 128, ``"cuda_core"`` for everything else."""
+    bf16 with D 64, 80, 128 or 192, ``"cuda_core"`` for everything else."""
     if dtype == torch.bfloat16 and head_dim in TENSOR_CORE_BWD_D:
         return TENSOR_CORE
     return CUDA_CORE
+
+
+def bwd_tc_symbols(head_dim: int) -> dict:
+    """The tensor-core backward's entries at ``head_dim`` -> {entry:
+    symbol}: D 192's own, or those of D 64, 80 and 128."""
+    return BWD_TC_D192_SYMBOLS if head_dim == 192 else BWD_TC_SYMBOLS
 
 
 def lse_stride(sq: int) -> int:
@@ -143,16 +158,21 @@ def lse_stride(sq: int) -> int:
     return -(-sq // LSE_ROW_PAD) * LSE_ROW_PAD
 
 
-def check_backward(q_shape, k_shape) -> None:
+def check_backward(q_shape, k_shape, dtype: torch.dtype, route: Optional[str] = None) -> None:
     """Raise a ``ValueError`` for what the backward kernels do not take:
-    D > ``MAX_BWD_D`` (causal and GQA are taken; shapes other than 4-D are
-    left to the input checks)."""
+    D > ``MAX_BWD_D`` (192), and, on the CUDA-core route (``route``, or
+    :func:`choose_bwd_route` of ``dtype``: every D but bf16 64, 80, 128 and
+    192), D > ``CUDA_CORE_MAX_BWD_D`` (128). Causal and GQA are taken;
+    shapes other than 4-D are left to the input checks."""
     if len(q_shape) != 4 or len(k_shape) != 4:
         return
-    if q_shape[3] > MAX_BWD_D:
-        raise ValueError(f"flash_attention's backward takes D <= {MAX_BWD_D}, got "
-                         f"{q_shape[3]} (D 192, MLA's heads, is the MoE and MLA training "
-                         f"slice's)")
+    d = q_shape[3]
+    route = choose_bwd_route(dtype, d) if route is None else route
+    limit = CUDA_CORE_MAX_BWD_D if route == CUDA_CORE else MAX_BWD_D
+    if d > limit:
+        on = f" on its {route!r} route" if route == CUDA_CORE else ""
+        raise ValueError(f"flash_attention's backward takes D <= {limit}{on}, got {d} "
+                         f"({dtype}; D 192 only in bf16, on the tensor cores)")
 
 
 class _FlashAttention(torch.autograd.Function):
@@ -191,7 +211,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     :func:`flash_attention_bwd` as its backward (checked first by
     :func:`check_backward`), on the forced route if one is named."""
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
-        check_backward(q.shape, k.shape)
+        check_backward(q.shape, k.shape, q.dtype, route)
         return _FlashAttention.apply(q, k, v, causal, route)
     return _forward(q, k, v, causal, route)
 
@@ -259,8 +279,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
                         causal: bool = False, route: Optional[str] = None):
     """The gradient of :func:`flash_attention` -> (dq, dk, dv) in the
     inputs' dtype: q, o, dout (B, Sq, Hq, D), k, v (B, Skv, Hkv, D), Hq %
-    Hkv == 0, contiguous, float32 or bf16, on one CUDA device, D <=
-    ``MAX_BWD_D``, ``o`` the forward's output with the same ``causal``;
+    Hkv == 0, contiguous, float32 or bf16, on one CUDA device, D as
+    :func:`check_backward` takes it, ``o`` the forward's output with the
+    same ``causal``;
     ``sm_scale = 1/sqrt(D)``. dk and dv sum the shares of each kv head's
     Hq / Hkv query heads. ``route`` defaults to :func:`choose_bwd_route`.
     Three launches each, ``causal``, Hq and Hkv passed to each but the
@@ -269,11 +290,12 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
     - ``"tensor_core"``: ``lse`` is the forward's log-sum-exp (``_forward(...,
       with_lse=True)`` with the same ``causal``), float32 (B, Hq,
       ``lse_stride(Sq)``); ``prep`` (rowsum(dout * o) into float32 scratch
-      of that shape), ``dkdv``, ``dq`` on wgmma.
+      of that shape), ``dkdv``, ``dq`` on wgmma (at D 192 the entries of
+      ``BWD_TC_D192_SYMBOLS``).
     - ``"cuda_core"``: ``lse`` is not read; ``prep`` (each row's
       log-sum-exp, recomputed from q and k under the mask, and rowsum(dout
       * o)), ``dkdv``, ``dq`` on float32 FMAs."""
-    check_backward(q.shape, k.shape)
+    check_backward(q.shape, k.shape, q.dtype, route)
     _check_inputs(q, k, v)
     if o.shape != q.shape or dout.shape != q.shape or o.dtype != q.dtype or \
             dout.dtype != q.dtype or o.device != q.device or dout.device != q.device:
@@ -299,7 +321,7 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, o: to
         ptr = {n: t.data_ptr() for n, t in dict(q=q, k=k, v=v, o=o, do=dout, lse=lse,
                                                 delta=delta, dq=dq, dk=dk, dv=dv).items()}
         sizes = (b, sq, skv, h, hkv, d, int(causal), stride, 1.0 / math.sqrt(d), stream)
-        sym = BWD_TC_SYMBOLS
+        sym = bwd_tc_symbols(d)
         BWD_TC_KERNEL.launch(sym["prep"], ptr["o"], ptr["do"], ptr["delta"], b, sq, h, d,
                              stride, stream)
         BWD_TC_KERNEL.launch(sym["dkdv"], ptr["q"], ptr["k"], ptr["v"], ptr["do"], ptr["lse"],

@@ -25,11 +25,12 @@ have more than one entry in their one source:
   128 there; float32 and bf16 of other head dims
   on the CUDA cores (the rule is
   :func:`repro_torch.kernels.flash_attention.choose_route`). Under
-  autograd its gradient (``prep``, ``dkdv``, ``dq``; causal or not, GQA,
-  D <= 128) is the seventh library, ``csrc/flash_attention_bwd_sm90.cu``
-  (tensor cores, bf16 with D 64, 80, 128; ``flash_attention.BWD_TC_KERNEL``),
-  or the sixth, ``csrc/flash_attention_bwd.cu`` (CUDA cores, everything
-  else; ``flash_attention.BWD_KERNEL``); the rule is
+  autograd its gradient (``prep``, ``dkdv``, ``dq``; causal or not, GQA)
+  is the seventh library, ``csrc/flash_attention_bwd_sm90.cu`` (tensor
+  cores, bf16 with D 64, 80, 128, and 192 on entries of its own, MLA's;
+  ``flash_attention.BWD_TC_KERNEL``), or the sixth,
+  ``csrc/flash_attention_bwd.cu`` (CUDA cores, everything else up to D
+  128; ``flash_attention.BWD_KERNEL``); the rule is
   :func:`repro_torch.kernels.flash_attention.choose_bwd_route`. A CPU
   tensor's gradient is autograd's of ``ref.attention``.
 - ``int8_matmul`` (``csrc/int8_matmul.cu``): the s8 tensor cores where

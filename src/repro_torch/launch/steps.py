@@ -12,7 +12,9 @@ steps' loss functions, and ``value_and_grad`` their gradient:
 JAX's leaf order (:mod:`repro_torch.tree`), through the models' training
 forwards (``cfg.remat`` rematerializes their blocks as the reference's).
 On a card every attention's gradient is the ``flash_attention`` backward
-kernel's (the LMs' causal and GQA).
+kernel's (the LMs' causal and GQA; MLA's q/k heads of 192 on its D 192
+entries), and the MoE layers' dispatch and combine add no gradient with
+atomics (``models/moe.py``), so a step reruns bit for bit.
 
 The diffusion steps take the timesteps ``t`` and the noise as arguments,
 where the reference's draw them from a key inside the step:

@@ -8,8 +8,11 @@ its compressed cache and both decode paths (deepseek), a KV cache. The
 training forward rematerializes each block as the reference's
 ``jax.checkpoint`` does (``cfg.remat``); its gradient is autograd's, the
 attention's that of the ``flash_attention`` backward kernels on a card
-(causal, GQA, D <= 128: the dense LMs; MLA's q/k heads of 192 are the
-MoE and MLA training slice's).
+(causal; GQA at D 128 for the dense LMs and qwen2-moe, MLA's q/k heads of
+192 with v zero-padded on the D 192 entries, whose padded columns get the
+zero gradient of ``_pad_to``'s slice), the MoE layers' that of
+:mod:`repro_torch.models.moe`'s gathers, which add no gradient with
+atomics.
 
 Layouts are the reference's at the public functions, so the tests
 compare like with like: parameters are a dict of tensors with dense

@@ -17,6 +17,19 @@ shape, so the block makes no host sync and no data-dependent shape. The
 combine gathers each token's k outputs and adds them one by one in
 ascending expert order, the order of the reference's scatter-add, so it
 uses no atomics and a run on the card is bit-reproducible.
+
+The gradient needs no atomics either. Both moves of rows, tokens into
+the buffer and expert outputs back to the tokens' copies, are
+:class:`_Gather`: a gather whose backward is again a gather, through the
+transposed map, and never a scatter-add over repeated indices (an
+``index_select``'s backward, an ``index_add_`` on the card, adds in an
+order that changes from run to run). A token's gradient gathers its k
+slots' rows and adds them in ascending expert order; a slot's gathers
+the one copy that fills it; a dropped copy reads and receives nothing
+(the reference's dropped copies land on a dump row that is cut off).
+Each map is a partial permutation, so each is the other's transpose.
+The router, the top-k weights and the aux losses keep autograd's
+gradients.
 """
 from __future__ import annotations
 
@@ -68,10 +81,49 @@ def capacity(e, group: int) -> int:
     return max(1, math.ceil(e.top_k * group * e.capacity_factor / e.n_routed))
 
 
+def _gather_sum(x, idx, keep):
+    """x (G, N, D), idx and keep (G, M, J) -> (G, M, D): row m the sum of
+    x's rows ``idx[m, j]`` where ``keep[m, j]``, added in j order (0 where
+    no j is kept)."""
+    g, n, d = x.shape
+    m, j = idx.shape[1:]
+    base = torch.arange(g, device=x.device)[:, None, None] * n
+    rows = x.reshape(g * n, d).index_select(0, (base + idx).reshape(-1)).view(g, m, j, d)
+    rows = torch.where(keep[..., None], rows, 0)
+    out = rows[:, :, 0]
+    for i in range(1, j):
+        out = out + rows[:, :, i]
+    return out
+
+
+class _Gather(torch.autograd.Function):
+    """:func:`_gather_sum` of ``x`` through (``idx``, ``keep``), whose
+    gradient is :func:`_gather_sum` of the output's gradient through
+    (``back_idx``, ``back_keep``), the transposed map: row n of x reaches
+    row m of the output through some kept j exactly when row m of the
+    output's gradient reaches row n of x's through some kept j of the
+    backward map, and never twice."""
+
+    @staticmethod
+    def forward(ctx, x, idx, keep, back_idx, back_keep):
+        ctx.save_for_backward(idx, keep, back_idx, back_keep)
+        return _gather_sum(x, idx, keep)
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, keep, back_idx, back_keep = ctx.saved_tensors
+        return _Gather.apply(grad, back_idx, back_keep, idx, keep), None, None, None, None
+
+
 def _dispatch(xg, probs, k, n_exp, cap):
     """xg (G, S, D), probs (G, S, E) -> (buf (G, E*C, D), meta). ``meta``
     is the reference's ``(order, slot, valid, topw, tok)``, each (G, S*k)
-    but ``topw`` (G, S, k)."""
+    but ``topw`` (G, S, k), then the routes of each token's copies in
+    ascending expert order, ``(tslot, tkeep, tpick, fill, filled)``: a
+    copy's slot and whether it is kept (G, S, k; ``tslot`` 0 where it is
+    dropped), its index into the (S, k) top-k picks (G, S*k), and each
+    slot's copy, t * k + j for token t's j-th in that order, and whether
+    one fills it (G, E*C; ``fill`` 0 where none does)."""
     g, s, d = xg.shape
     topw, topi = torch.topk(probs, k, dim=-1)
     topw = topw / (torch.sum(topw, -1, keepdim=True) + 1e-9)
@@ -80,33 +132,37 @@ def _dispatch(xg, probs, k, n_exp, cap):
     seg_start = torch.searchsorted(sorted_e, sorted_e, side="left")
     rank = torch.arange(s * k, device=xg.device) - seg_start
     valid = rank < cap
-    slot = torch.where(valid, sorted_e * cap + rank, n_exp * cap)
+    n = n_exp * cap
+    slot = torch.where(valid, sorted_e * cap + rank, n)
     tok = order // k
-    rows = n_exp * cap + 1
-    base = torch.arange(g, device=xg.device)[:, None]
-    src = xg.reshape(g * s, d).index_select(0, (base * s + tok).reshape(-1))
-    # every kept copy has a slot of its own; the dropped ones all land on
-    # the dump row, which is cut off
-    buf = xg.new_zeros(g * rows, d).index_copy_(0, (base * rows + slot).reshape(-1), src)
-    return buf.view(g, rows, d)[:, : n_exp * cap], (order, slot, valid, topw, tok)
+    # each token's copies by their position in the sorted list, which
+    # orders them by expert (a token's k experts are distinct)
+    pos = torch.sort(torch.argsort(order, dim=-1).view(g, s, k), dim=-1).values
+    pos = pos.reshape(g, s * k)
+    tkeep = valid.gather(1, pos)
+    tslot = torch.where(tkeep, slot.gather(1, pos), 0)
+    # each kept copy's index in that order, put at its slot (every kept
+    # copy has a slot of its own; the dropped ones all land on the dump
+    # column n, which is cut off)
+    fill = torch.zeros((g, n + 1), dtype=torch.long, device=xg.device).scatter_(
+        1, slot, torch.argsort(pos, dim=-1))[:, :n]
+    filled = torch.zeros((g, n + 1), dtype=torch.bool, device=xg.device).scatter_(
+        1, slot, valid)[:, :n]
+    tslot, tkeep = tslot.view(g, s, k), tkeep.view(g, s, k)
+    buf = _Gather.apply(xg, (fill // k)[..., None], filled[..., None], tslot, tkeep)
+    routes = (tslot, tkeep, order.gather(1, pos), fill, filled)
+    return buf, (order, slot, valid, topw, tok, routes)
 
 
 def _combine(y_flat, meta, s, k):
     """y_flat (G, E*C, D) expert outputs -> (G, S, D): each token's kept
     outputs times its weights (cast to the activation dtype), summed in
     ascending expert order."""
-    order, slot, valid, topw, tok = meta
+    topw, (tslot, tkeep, tpick, fill, filled) = meta[3], meta[5]
     g, n, d = y_flat.shape
-    # each token's copies by their position in the sorted list, which
-    # orders them by expert (a token's k experts are distinct)
-    inv = torch.argsort(order, dim=-1)
-    pos = torch.sort(inv.view(g, s, k), dim=-1).values.reshape(g, s * k)
-    keep = valid.gather(1, pos)
-    safe = torch.where(keep, slot.gather(1, pos), 0)
-    base = torch.arange(g, device=y_flat.device)[:, None] * n
-    y = y_flat.reshape(g * n, d).index_select(0, (base + safe).reshape(-1)).view(g, s, k, d)
-    y = y * keep.view(g, s, k, 1).to(y.dtype)
-    w = topw.reshape(g, s * k).gather(1, order.gather(1, pos)).to(y.dtype).view(g, s, k, 1)
+    y = _Gather.apply(y_flat, tslot.view(g, s * k, 1), tkeep.view(g, s * k, 1),
+                      fill[..., None], filled[..., None]).view(g, s, k, d)
+    w = topw.reshape(g, s * k).gather(1, tpick).to(y.dtype).view(g, s, k, 1)
     y = y * w
     out = y[:, :, 0]
     for j in range(1, k):

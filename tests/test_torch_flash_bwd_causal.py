@@ -19,8 +19,9 @@ seed with numpy:
   and at Sq != Skv;
 - the wrapper on stand-in libraries: the causal forward writes and saves
   the lse, each entry gets ``causal``, Hq and Hkv, the gradients take
-  k's and v's shapes; ``check_backward`` refuses D 192 only; the sources
-  launch the longest causal blocks first.
+  k's and v's shapes; ``check_backward`` refuses what no route takes
+  (D 192 but in bf16, and D > 192); the sources launch the longest causal
+  blocks first.
 """
 import math
 import re
@@ -247,16 +248,27 @@ def test_forced_route_keeps_the_mask(stand_ins):
     assert all(a[-9:-2] == (1, 8, 8, 4, 1, 128, 1) for _, a in stand_ins)
 
 
-@pytest.mark.parametrize("d", [16, 64, 80, 96, 128, 192])
+@pytest.mark.parametrize("d", [16, 64, 80, 96, 128, 192, 256])
 def test_check_backward_refuses_d192_only(d):
-    """Causal and GQA pass at every head dim up to 128; D 192 (MLA's
-    q/k heads) raises, naming the MoE and MLA slice."""
+    """Causal and GQA pass at every head dim up to 128 in float32 and
+    bf16; D 192 (MLA's q/k heads) passes in bf16 only (the tensor-core
+    entries of D 192) and is refused in float32 and on the CUDA-core route
+    forced; above 192 every dtype is refused."""
     for hq, hkv in ((4, 4), (8, 2)):
+        q_shape, k_shape = (1, 16, hq, d), (1, 16, hkv, d)
+        for dtype in (torch.float32, torch.bfloat16):
+            takes = d <= 128 or (d == 192 and dtype == torch.bfloat16)
+            if takes:
+                flash.check_backward(q_shape, k_shape, dtype)
+            else:
+                with pytest.raises(ValueError, match="D <= (128|192)"):
+                    flash.check_backward(q_shape, k_shape, dtype)
+        if d > 128:
+            with pytest.raises(ValueError, match="D <= 128"):
+                flash.check_backward(q_shape, k_shape, torch.bfloat16, route=flash.CUDA_CORE)
         if d > flash.MAX_BWD_D:
-            with pytest.raises(ValueError, match="D <= 128.*MLA"):
-                flash.check_backward((1, 16, hq, d), (1, 16, hkv, d))
-        else:
-            flash.check_backward((1, 16, hq, d), (1, 16, hkv, d))
+            with pytest.raises(ValueError, match="D <= 192"):
+                flash.check_backward(q_shape, k_shape, torch.bfloat16, route=flash.TENSOR_CORE)
 
 
 def test_sources_launch_the_longest_causal_blocks_first():

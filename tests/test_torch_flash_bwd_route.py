@@ -226,8 +226,8 @@ def test_backward_limits_head_dim():
     q, k, v = _requiring_grad((1, 8, 2, 192), (1, 8, 2, 192))
     with pytest.raises(ValueError, match="D <= 128"):
         flash.flash_attention(q, k, v)
-    flash.check_backward((1, 8, 2, 128), (1, 8, 2, 128))
-    flash.check_backward((1, 8, 4, 128), (1, 8, 2, 128))   # GQA
+    flash.check_backward((1, 8, 2, 128), (1, 8, 2, 128), torch.float32)
+    flash.check_backward((1, 8, 4, 128), (1, 8, 2, 128), torch.float32)   # GQA
 
 
 @pytest.mark.parametrize("grad", [False, True])

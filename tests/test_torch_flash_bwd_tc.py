@@ -188,21 +188,24 @@ def test_tiles_come_from_the_sources():
 @pytest.mark.parametrize("dtype,d,route", [
     (torch.bfloat16, 64, "tensor_core"), (torch.bfloat16, 80, "tensor_core"),
     (torch.bfloat16, 128, "tensor_core"), (torch.bfloat16, 96, "cuda_core"),
-    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 192, "cuda_core"),
+    (torch.bfloat16, 16, "cuda_core"), (torch.bfloat16, 192, "tensor_core"),
+    (torch.bfloat16, 256, "cuda_core"), (torch.float32, 192, "cuda_core"),
     (torch.float32, 64, "cuda_core"), (torch.float32, 80, "cuda_core"),
     (torch.float32, 128, "cuda_core"),
 ])
 def test_choose_bwd_route(dtype, d, route):
     assert flash.choose_bwd_route(dtype, d) == route
-    assert flash.TENSOR_CORE_BWD_D == (64, 80, 128)
+    assert flash.TENSOR_CORE_BWD_D == (64, 80, 128, 192)
 
 
 def test_tensor_core_entries():
     assert flash.BWD_TC_KERNEL.source.name == "flash_attention_bwd_sm90.cu"
     assert list(flash.BWD_TC_SYMBOLS) == list(flash.BWD_ENTRIES)
-    for sym in flash.BWD_TC_SYMBOLS.values():
+    assert list(flash.BWD_TC_D192_SYMBOLS) == list(flash.BWD_ENTRIES)
+    for sym in (*flash.BWD_TC_SYMBOLS.values(), *flash.BWD_TC_D192_SYMBOLS.values()):
         assert f'extern "C" int {sym}(' in SOURCE
-    assert set(flash.BWD_TC_KERNEL.symbols) == set(flash.BWD_TC_SYMBOLS.values())
+    assert set(flash.BWD_TC_KERNEL.symbols) == (set(flash.BWD_TC_SYMBOLS.values())
+                                               | set(flash.BWD_TC_D192_SYMBOLS.values()))
     # the forward's tensor-core entry takes the lse pointer and its stride
     assert len(flash.KERNEL.symbols["flash_attention_bf16_sm90"]) == 15
     assert "void* lse, int b" in FWD_SOURCE and "int causal, int lse_stride" in FWD_SOURCE

@@ -10,7 +10,8 @@ against the reference's ``_lm_train`` step body rebuilt from ``repro``'s
 modules (the scan over micro-batches included); donated steps equal to
 the plain steps bit for bit; gradients with ``remat`` "dots_saveable" and
 "full" equal to those without it bit for bit. ``loss_fn``'s value for
-the reduced MoE and MLA configs (forward only). The codecs of
+the reduced MoE and MLA configs (forward only; their gradients against
+the reference are tests/test_torch_moe_train.py's). The codecs of
 ``optim/compress.py`` against ``repro.optim.compress``: the int8 codec
 bit for bit when handed ``jax.random.uniform``'s own draws, top-k on
 distinct magnitudes. ``launch/train.py``: ``build_lm_trainer`` under
@@ -146,8 +147,8 @@ def test_loss_and_gradients_match_reference(arch):
 def test_loss_fn_of_moe_and_mla_matches_reference(arch):
     """The reduced qwen2-moe and deepseek (MLA) configs' loss, ``ce``
     within LOSS_RTOL and ``aux`` within AUX_ATOL: the loss adds 0.01 x
-    the MoE layers' aux loss (forward only; their training is the next
-    slice's)."""
+    the MoE layers' aux loss (forward only; their gradients are
+    tests/test_torch_moe_train.py's)."""
     jcfg, jp, cfg, p = _bridged(arch)
     tokens, labels = _tokens(cfg, 11)
     with torch.no_grad():
@@ -290,9 +291,9 @@ def test_remat_gives_the_same_lm_gradients_bit_for_bit(arch, remat, monkeypatch)
 
 @pytest.mark.parametrize("arch", MOE)
 def test_moe_and_mla_blocks_under_remat_give_the_same_loss_and_gradients(arch):
-    """The full configs' ``remat`` wraps the MoE and MLA blocks too (their
-    training on the card is the next slice's): on the CPU the loss, its
-    parts and every gradient leaf equal those without it bit for bit."""
+    """The full configs' ``remat`` wraps the MoE and MLA blocks too: on
+    the CPU the loss, its parts and every gradient leaf equal those
+    without it bit for bit."""
     _, _, cfg, p = _bridged(arch, seed=7)
     tokens, labels = _tokens(cfg, 17)
     off = _port_grads(cfg, p, tokens, labels)

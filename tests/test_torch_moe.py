@@ -104,7 +104,7 @@ def _port_dispatch(p, cfg, x):
     et = moe.n_experts_padded(e)
     probs = torch.softmax(xf @ p["router"], dim=-1)
     probs = torch.nn.functional.pad(probs, (0, et - e.n_routed))
-    _, (_, slot, valid, _, _) = moe._dispatch(xf, probs, e.top_k, et, moe.capacity(e, group))
+    _, (_, slot, valid, *_) = moe._dispatch(xf, probs, e.top_k, et, moe.capacity(e, group))
     return valid.numpy(), slot.numpy(), torch.topk(probs, e.top_k, dim=-1).indices.numpy()
 
 
