@@ -190,7 +190,7 @@ nothing of JAX or of the reference package ``repro``. Phases:
    drawn nonzero) (a) on ``gen_fast`` uncut (16 latents of 512 px, 4 DDIM
    steps; class ids, or a seeded (16, 77, 768) text context): ms a step
    (CUDA events), ms a sample and images/s, the share of the bf16 FLOP
-   bound (``diffusion_gflop``), peak memory, ``flash_attention`` launches
+   bound (``steps.model_flops``), peak memory, ``flash_attention`` launches
    by entry (12 a DiT forward, 32 a UNet forward: 16 self, 16 cross; all
    on the tensor-core entry; checked), a second sample from the same
    noise bit-equal and ``LaunchGuard`` over a steady step (0 builds, 0
@@ -242,7 +242,37 @@ nothing of JAX or of the reference package ``repro``. Phases:
    config in float32, ``loss_fn``'s gradients card (the CUDA-core causal
    GQA kernels) against CPU (checked); ``python -m
    repro_torch.launch.train --steps 20`` twice over one checkpoint folder,
-   the second (``--compress``) resuming from step 10 (checked).
+   the second (``--compress``) resuming from step 10 (checked). Phases
+   13-16 take their bounds from ``steps.model_flops`` (``cell_flops`` of
+   a cell cut in depth or batch), and phases 15-16 their steps from the
+   cells' plans (``steps.build_plan(...).fn``).
+17. the cell layer (``launch/steps.py``): (a) the plans of the 40 cells
+   of ``all_cells()`` and the counters' three built under LaunchGuard:
+   ``memory_allocated`` unchanged, no kernel library loaded, no launch,
+   no allocator segment, every input leaf on ``meta`` (checked), each
+   cell's leaf count and ``model_flops`` printed; (b) the paper's onboard
+   serve step ``_targetfuse_serve`` of both counters (phase 3's seeded
+   weights) at ``tiles_416_b256`` uncut, 256 seeded xview-like tiles of
+   416 px and 64 centroids drawn among their moments: one launch each of
+   ``tile_moments_f32``, ``kmeans_assign_f32`` and ``nms_keep_f32`` a step
+   (checked), the moments, assignments and NMS keep counts at the step's
+   inputs against the plain versions (checked), a second step bit-equal
+   and ``LaunchGuard`` over a steady step (0 builds, 0 new segments, 0
+   syncs; checked), ms a step, tiles/s, the share of the float32 bound,
+   peak memory; (c) ``_detector_train`` at ``train_416_b64`` uncut: 10
+   donated steps on one seeded batch, the loss falling (checked), ms a
+   step and the float32 bound's share, whether a second seeded run's
+   losses are bit-equal (printed, not checked: cuDNN's backward); (d)
+   qwen3-8b's ``prefill_32k`` with its batch cut to PREFILL_ROWS (S
+   32768 uncut: 36 flash launches, all on the tensor-core entry, layer
+   0's attention on its last PREFILL_CHECK_ROWS query rows against the
+   plain version on float32 upcasts, a second prefill bit-equal;
+   checked) and ``decode_32k`` with its batch cut to DECODE_ROWS (the
+   32768-position cache uncut, seeded, ``pos`` 32767 a host scalar; the
+   step against its byte bound, the cache written at ``pos`` only,
+   checked), and ViT-L/16's ``serve_b128`` and one DDIM step of DiT-S/2's
+   ``gen_fast``, uncut, through their plans, each bit-equal to the direct
+   model call (checked).
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
@@ -252,8 +282,8 @@ runs of phase 3, the fleet's of phase 6, the depth and orbital runs of
 phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
 monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
 forwards of phase 13, the diffusion samples of phase 14a-b, the first
-training step of each model in phases 15 and 16 and ``int8_matmul``'s one
-path;
+training step of each model in phases 15 and 16, phase 17's counted
+serve steps, prefill and plan calls and ``int8_matmul``'s one path;
 ``flash_attention``'s entries include its backward's twelve, from
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``),
 then the
@@ -1299,11 +1329,12 @@ def int8_path(dev, kernel):
 POLICIES = ("space_only", "ground_only", "tiansuan", "kodan", "targetfuse")
 
 
-def counters(cfg_pair, dev, head_scale=1.0):
-    """Seeded random counters with the head's objectness and class-0
-    biases raised (to 2), so every tile has boxes for NMS to keep and
-    suppress and confidences fall between the throttle's thresholds.
-    ``head_scale`` widens the head's weights, so confidences spread."""
+def counters(cfg_pair, dev, head_scale=1.0, obj_bias=2.0):
+    """Seeded random counters with the head's objectness bias set to
+    ``obj_bias`` and class 0's raised to 2: by default every tile has
+    boxes for NMS to keep and suppress and confidences fall between the
+    throttle's thresholds. ``head_scale`` widens the head's weights, so
+    confidences spread."""
     import torch
     from repro_torch.models import detector
     out = []
@@ -1311,7 +1342,7 @@ def counters(cfg_pair, dev, head_scale=1.0):
         p = detector.init(torch.Generator().manual_seed(SEED + seed), cfg, device=dev)
         p["head_w"] = p["head_w"] * head_scale
         hb = p["head_b"].view(cfg.n_anchors, 5 + cfg.n_classes)
-        hb[:, 4] = 2.0
+        hb[:, 4] = obj_bias
         hb[:, 5] = 2.0
         out.append((p, cfg))
     return out
@@ -2641,42 +2672,6 @@ def phase_moe_serving(dev, flash):
 # phase 13: vision serving
 # ---------------------------------------------------------------------------
 
-def vision_gflop(cfg, img_res: int) -> float:
-    """Matmul and conv GFLOP of one image's forward, the reference's
-    formulas (repro/launch/steps.py ``_vit_fwd_flops``,
-    ``_convnext_fwd_flops``, ``_resnet_fwd_flops``)."""
-    if cfg.kind == "vit":
-        t = (img_res // cfg.patch) ** 2 + 1
-        d, f = cfg.d_model, cfg.d_ff
-        patch = 2.0 * (img_res // cfg.patch) ** 2 * cfg.patch ** 2 * 3 * d
-        blk = 2.0 * t * (4 * d * d + 2 * d * f) + 4.0 * t * t * d
-        return (patch + cfg.n_layers * blk + 2.0 * d * cfg.n_classes) / 1e9
-    if cfg.kind == "convnext":
-        r = img_res // 4
-        total = 2.0 * r * r * 4 * 4 * 3 * cfg.dims[0]
-        for i, (dep, dim) in enumerate(zip(cfg.depths, cfg.dims)):
-            total += dep * 2.0 * r * r * (49 * dim + 8 * dim * dim)
-            if i + 1 < len(cfg.dims):
-                total += 2.0 * (r // 2) ** 2 * 4 * dim * cfg.dims[i + 1]
-                r //= 2
-        return (total + 2.0 * cfg.dims[-1] * cfg.n_classes) / 1e9
-    w, r = cfg.width, img_res // 2
-    total = 2.0 * r * r * 49 * 3 * w
-    r //= 2  # maxpool
-    c_in = w
-    for i, dep in enumerate(cfg.depths):
-        mid = w * (2 ** i)
-        out = mid * 4
-        if i > 0:
-            r //= 2
-        for b in range(dep):
-            total += 2.0 * r * r * (c_in * mid + 9 * mid * mid + mid * out)
-            if b == 0:
-                total += 2.0 * r * r * c_in * out  # projection
-            c_in = out
-    return (total + 2.0 * c_in * cfg.n_classes) / 1e9
-
-
 def vision_model(cfg):
     from repro_torch.models import convnext, resnet, vit
     return {"vit": vit, "convnext": convnext, "resnet": resnet}[cfg.kind]
@@ -2736,6 +2731,7 @@ def vision_serve(dev, flash, arch):
     from repro_torch import tree
     from repro_torch.analysis import LaunchGuard
     from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import steps
 
     cfg = get_config(arch)
     shape = get_shape(arch, "serve_b128")
@@ -2764,7 +2760,7 @@ def vision_serve(dev, flash, arch):
     torch.cuda.synchronize()
     ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
     mean_ms = sum(ms) / len(ms)
-    gflop = vision_gflop(cfg, res) * b
+    gflop = steps.model_flops(arch, "serve_b128") / 1e9
     bound = 1e3 * gflop * 1e9 / BF16_FLOPS
     again, _ = vision_forward(mod, cfg, params, images)
     same = bit_equal(again, logits)
@@ -2894,59 +2890,6 @@ def phase_vision_serving(dev, flash):
 # phase 14: diffusion serving
 # ---------------------------------------------------------------------------
 
-def diffusion_gflop(cfg, img_res: int) -> float:
-    """Matmul, conv and attention GFLOP of one latent's forward, the
-    reference's formulas (repro/launch/steps.py ``_dit_fwd_flops``,
-    ``_unet_fwd_flops``). The UNet's is the reference's own
-    approximation: it prices the transformer blocks' projections as 8
-    c x c products a token, counts the cross-attention's k and v
-    products a block, and leaves out norms and elementwise work."""
-    lr = img_res // cfg.latent_factor
-    if cfg.kind == "dit":
-        t = (lr // cfg.patch) ** 2
-        d = cfg.d_model
-        # adaLN conditioning is per image (B, 6d), not per token
-        blk = 2.0 * t * (4 * d * d + 8 * d * d) + 4.0 * t * t * d + 2.0 * 6 * d * d
-        io = 2.0 * t * (cfg.patch ** 2 * cfg.latent_ch * d * 3)
-        return (cfg.n_layers * blk + io) / 1e9
-    ch = cfg.ch
-    chans = [ch * m for m in cfg.ch_mult]
-
-    def res_block(hw, cin, cout):
-        f = 2.0 * hw * 9 * (cin * cout + cout * cout) + 2.0 * hw * 4 * ch * cout
-        return f + (2.0 * hw * cin * cout if cin != cout else 0.0)
-
-    def attn_block(hw, c):
-        proj = 2.0 * hw * c * c * (3 + 1 + 1 + 1 + 2)
-        sa = 4.0 * hw * hw * c
-        ca = 4.0 * hw * cfg.ctx_len * c + 2.0 * cfg.ctx_len * cfg.ctx_dim * c * 2
-        return proj + sa + ca + 2.0 * hw * (8 * c * c + 4 * c * c)
-
-    total = 2.0 * lr * lr * 9 * cfg.latent_ch * ch
-    r, prev = lr, ch
-    for lvl, c in enumerate(chans):
-        for _ in range(cfg.n_res_blocks):
-            total += res_block(r * r, prev, c)
-            if lvl in cfg.attn_levels:
-                total += attn_block(r * r, c)
-            prev = c
-        if lvl + 1 < len(chans):
-            r //= 2
-            total += 2.0 * r * r * 9 * c * c
-    total += 2 * res_block(r * r, chans[-1], chans[-1]) + attn_block(r * r, chans[-1])
-    for lvl in reversed(range(len(chans))):
-        c = chans[lvl]
-        for _ in range(cfg.n_res_blocks + 1):
-            total += res_block(r * r, c + prev, c)
-            if lvl in cfg.attn_levels:
-                total += attn_block(r * r, c)
-            prev = c
-        if lvl > 0:
-            r *= 2
-            total += 2.0 * r * r * 9 * c * c
-    return (total + 2.0 * lr * lr * 9 * ch * cfg.latent_ch) / 1e9
-
-
 def diffusion_model(cfg):
     from repro_torch.models import dit, unet
     return dit if cfg.kind == "dit" else unet
@@ -3022,6 +2965,7 @@ def diffusion_gen(dev, flash, arch, shape_name, n_steps=None):
     each step, peak GB, params, noise, eps_fn)."""
     import torch
     from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import steps
     from repro_torch.models import diffusion
     cfg = get_config(arch)
     shape = get_shape(arch, shape_name)
@@ -3049,7 +2993,7 @@ def diffusion_gen(dev, flash, arch, shape_name, n_steps=None):
           and (x - noise).abs().max().item() > 0.1, f"{arch} {shape_name}: bad sample")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     mean_ms = sum(ms) / len(ms)
-    gflop = diffusion_gflop(cfg, res) * b
+    gflop = steps.model_flops(arch, shape_name) / 1e9
     bound = 1e3 * gflop * 1e9 / BF16_FLOPS
     cut = "" if n == shape.steps else f" (the first {n} of its {shape.steps} steps)"
     print(f"{arch} {shape_name} (B {b}, {res} px, {(res // cfg.latent_factor) ** 2} latent "
@@ -3221,19 +3165,6 @@ def phase_diffusion_serving(dev, flash):
 # phase 15: vision and diffusion training
 # ---------------------------------------------------------------------------
 
-def lm_train_gflop(cfg, b: int, s: int) -> float:
-    """A training step's GFLOP by the reference's ``model_flops``
-    (repro/launch/steps.py): 3x the forward's, 2 FLOPs an active
-    parameter a token plus causal attention's used half, L B S^2 H
-    (qk + v head dims)."""
-    if cfg.mla is None:
-        qk = v = cfg.head_dim
-    else:
-        qk, v = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim, cfg.mla.v_head_dim
-    fwd = 2.0 * cfg.n_active_params * b * s + cfg.n_layers * b * s * s * cfg.n_heads * (qk + v)
-    return 3.0 * fwd / 1e9
-
-
 def zoo_attentions(cfg):
     """-> (flash_attention calls a training forward makes, those the
     remat recompute makes again): one a ViT or DiT layer, the UNet's
@@ -3248,27 +3179,25 @@ def zoo_attentions(cfg):
     return n, n - 2 if cfg.kind == "unet" else n
 
 
-def zoo_gflop(cfg, res: int) -> float:
-    """The forward's matmul, conv and attention GFLOP of one image of
-    ``res`` px (``vision_gflop``, ``diffusion_gflop``)."""
-    return (vision_gflop if cfg.family == "vision" else diffusion_gflop)(cfg, res)
-
-
-def zoo_setup(dev, cfg, b, res, seed):
-    """Seeded weights on ``dev`` (ResNet's with its running statistics;
-    DiT's adaLN-Zero leaves drawn as ``diffusion_setup`` draws them), the
-    optimizer and one fixed batch of ``res`` px images -> (run(state) ->
-    (state, loss), state), ``state`` the trees a step updates."""
+def zoo_setup(dev, arch, shape, seed):
+    """The cell's plan (``steps.build_plan`` of ``arch``'s config at
+    ``shape``: its donated step), seeded weights on ``dev`` (ResNet's with
+    its running statistics; DiT's adaLN-Zero leaves drawn as
+    ``diffusion_setup`` draws them), the optimizer and one fixed batch of
+    the shape's images -> (run(state) -> (state, loss), state), ``state``
+    the trees a step updates."""
     import torch
+    from repro_torch.configs import get_config
     from repro_torch.launch import steps
     from repro_torch.models import diffusion
+    cfg = get_config(arch)
+    b, res = shape.global_batch, shape.img_res
+    step, opt_init = steps.build_plan(cfg, shape, arch).fn, steps.opt_init
     g = torch.Generator(device=dev).manual_seed(seed)
     if cfg.family == "diffusion":
-        opt_init, step = steps.diffusion_train(cfg, donate=True)
         params, latents, cond = diffusion_setup(dev, cfg, b, res, seed)
         batch = (latents, cond, *diffusion.draw_train_inputs(latents, g))
     else:
-        opt_init, step = steps.vision_train(cfg, donate=True)
         params = vision_model(cfg).init(g, cfg, device=dev)
         batch = (torch.randn((b, res, res, 3), generator=g, device=dev),
                  torch.randint(0, cfg.n_classes, (b,), generator=g, device=dev))
@@ -3296,13 +3225,14 @@ def zoo_train(dev, kernels, arch):
     from repro_torch.analysis import LaunchGuard
     from repro_torch.configs import get_config, get_shape
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
     cfg = get_config(arch)
     shape = get_shape(arch, ZOO_SHAPE[cfg.family])
     b = ZOO_BATCH
     check(shape.global_batch == b, f"{arch}: {shape.name} holds batch {shape.global_batch}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    (step, state), init_s = synced(lambda: zoo_setup(dev, cfg, b, shape.img_res, SEED))
+    (step, state), init_s = synced(lambda: zoo_setup(dev, arch, shape, SEED))
     n_params = sum(t.numel() for t in tree.leaves(state[0]))
     for k in kernels:
         k.reset()
@@ -3349,7 +3279,7 @@ def zoo_train(dev, kernels, arch):
     mean_ms = sum(ms) / len(ms)
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = torch.stack(losses).tolist()
-    gflop = 3 * zoo_gflop(cfg, shape.img_res) * b
+    gflop = steps.model_flops(arch, shape.name) / 1e9
     bound = 1e3 * gflop * 1e9 / BF16_FLOPS
     print(f"{arch} train {shape.name} (B {b}, {shape.img_res} px, remat {cfg.remat}, "
           f"no batch cut): "
@@ -3484,11 +3414,19 @@ def state_digest(trees) -> list:
     return out
 
 
-def lm_train_setup(dev, cfg, accum, seed):
-    """Seeded bf16 weights (``lm.init`` on the card), ``lm_train``'s donated
-    step with ``grad_accum``, one fixed batch of ``accum`` rows of
-    LM_TRAIN_SEQ seeded tokens, labels = roll(tokens, -1) -> (run(state) ->
-    (state, loss), state)."""
+def lm_train_shape(arch, accum):
+    """train_4k's ShapeSpec with its batch cut to ``accum`` rows."""
+    import dataclasses
+    from repro_torch.configs import get_shape
+    return dataclasses.replace(get_shape(arch, "train_4k"), global_batch=accum)
+
+
+def lm_train_setup(dev, arch, cfg, accum, seed):
+    """Seeded bf16 weights (``lm.init`` on the card), the train_4k cell's
+    donated step (``steps.build_plan`` of the cut config and batch, with
+    ``grad_accum``), one fixed batch of ``accum`` rows of LM_TRAIN_SEQ
+    seeded tokens, labels = roll(tokens, -1) -> (run(state) -> (state,
+    loss), state)."""
     import torch
     from repro_torch.launch import steps
     from repro_torch.models import lm
@@ -3496,7 +3434,8 @@ def lm_train_setup(dev, cfg, accum, seed):
     params = lm.init(g, cfg, device=dev)
     tokens = torch.randint(0, cfg.vocab_size, (accum, LM_TRAIN_SEQ), generator=g, device=dev)
     labels = torch.roll(tokens, -1, dims=1)
-    opt_init, step = steps.lm_train(cfg, grad_accum=accum, donate=True)
+    step = steps.build_plan(cfg, lm_train_shape(arch, accum), arch, grad_accum=accum).fn
+    opt_init = steps.opt_init
 
     def run(st):
         *st, loss = step(*st, tokens, labels)
@@ -3520,13 +3459,14 @@ def lm_train_cell(dev, kernels, arch):
     from repro_torch.analysis import LaunchGuard
     from repro_torch.configs import get_shape
     from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import steps
     cfg, cuts = lm_train_config(arch)
     accum = LM_TRAIN_ACCUM[arch]
     shape = get_shape(arch, "train_4k")
     check(shape.seq_len == LM_TRAIN_SEQ, f"{arch}: train_4k's sequence is {shape.seq_len}")
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
-    (step, state), init_s = synced(lambda: lm_train_setup(dev, cfg, accum, SEED))
+    (step, state), init_s = synced(lambda: lm_train_setup(dev, arch, cfg, accum, SEED))
     state_gb = (sum(t.numel() * t.element_size() for t in _leaves(state[0]))
                 + 2 * 4 * sum(t.numel() for t in _leaves(state[0]))) / 1e9
     for k in kernels:
@@ -3584,7 +3524,7 @@ def lm_train_cell(dev, kernels, arch):
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = torch.stack(losses).tolist()
     tokens = accum * LM_TRAIN_SEQ
-    gflop = lm_train_gflop(cfg, accum, LM_TRAIN_SEQ)
+    gflop = steps.cell_flops(cfg, lm_train_shape(arch, accum)) / 1e9
     bound = 1e3 * gflop * 1e9 / BF16_FLOPS
     print(f"{arch} train train_4k (S {LM_TRAIN_SEQ}, {accum} row(s), grad_accum {accum}, remat "
           f"{cfg.remat}; cut: {cuts}): {cfg.n_params / 1e9:.3f} B params drawn in {init_s:.2f} s, "
@@ -3610,7 +3550,7 @@ def lm_train_cell(dev, kernels, arch):
     gc.collect()   # nothing of the old state may outlive it: the rerun draws a new one
     torch.cuda.empty_cache()
     # step 1 again, from the same seed
-    step, state = lm_train_setup(dev, cfg, accum, SEED)
+    step, state = lm_train_setup(dev, arch, cfg, accum, SEED)
     state, loss = step(state)
     again = state_digest((state[0], state[1].mu, state[1].nu))
     same = loss.item() == losses[0] and again == first_digest
@@ -3731,6 +3671,504 @@ def phase_lm_training(dev, kernels):
     lm_train_cli()
     print(f"phase 16 card vs CPU and launch.train: {time.perf_counter() - t0:.1f} s", flush=True)
     return entries
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the cell layer
+# ---------------------------------------------------------------------------
+
+# phase 17a: every cell's plan, the 40 of all_cells() and the counters' three
+CELL_EXTRA = (("targetfuse-space", "tiles_416_b256"), ("targetfuse-ground", "tiles_416_b256"),
+              ("targetfuse-space", "train_416_b64"))
+# phase 17b: the onboard serve cell at tiles_416_b256, uncut: 256 xview-like
+# tiles (SERVE_SCENES scenes of SERVE_REVISITS frames, 64 tiles of 128 px a
+# frame, resized to 416 px), tile i's contrast scaled by the i-th of 256
+# steps from 0 to 1, and 64 centroids drawn among the tiles' moments plus
+# noise; phase 3's seeded counters with the head's weights scaled by
+# SERVE_HEAD_SCALE and its objectness bias SERVE_OBJ_BIAS, so that the
+# darkest tiles keep no box (discarded) and the confidences of the others
+# fall between the throttle's thresholds and above, with more middle tiles
+# than the budget takes (on an H100: 104, 106 and 46 tiles of the space
+# counter, 39, 100 and 117 of the ground one); SERVE_REPS steps timed by
+# CUDA events
+SERVE_SCENES, SERVE_REVISITS, SERVE_REPS = 2, 2, 10
+SERVE_HEAD_SCALE, SERVE_OBJ_BIAS = 8000.0, -2.0
+# phase 17c: the counter's training cell at train_416_b64, uncut: CELL_TRAIN_STEPS
+# donated steps on one seeded batch (CELL_TRAIN_POSITIVES objects a tile)
+CELL_TRAIN_STEPS, CELL_TRAIN_POSITIVES = 10, 3
+# phase 17d: qwen3-8b's prefill_32k with its batch of 32 cut to PREFILL_ROWS (S
+# 32768 uncut: 16.4 GB of weights and a 4.8 GB cache), layer 0's attention
+# held on its last PREFILL_CHECK_ROWS query rows against all keys (the whole
+# float32 score matrix would be 137 GB); decode_32k with its batch of 128 cut
+# to DECODE_ROWS (the 32768-position cache uncut: 19.3 GB), DECODE_REPS steps
+# at pos 32767 on seeded cache contents
+PREFILL_ROWS, PREFILL_CHECK_ROWS, DECODE_ROWS, DECODE_REPS = 1, 256, 4, 3
+CELL_LM = "qwen3-8b"
+
+
+def cells_plans():
+    """17a: every cell's plan built under LaunchGuard: no kernel library
+    loaded, no launch, no allocator segment, ``memory_allocated``
+    unchanged, every input leaf on ``meta`` (checked); each cell's kind,
+    leaf count and ``model_flops`` printed."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.analysis import LaunchGuard
+    from repro_torch.configs import all_cells
+    from repro_torch.launch import steps
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    rows = []
+    t0 = time.perf_counter()
+    with LaunchGuard("phase 17a: the plans of every cell") as guard:
+        for arch, shape in list(all_cells()) + list(CELL_EXTRA):
+            plan = steps.build_cell(arch, shape)
+            leaves = tree.leaves(plan.args)
+            check(all(x.is_meta for x in leaves), f"{arch} {shape}: an input leaf is not meta")
+            rows.append(dict(arch=arch, shape=shape, kind=plan.meta["kind"], leaves=len(leaves),
+                             model_flops=steps.model_flops(arch, shape)))
+    took = time.perf_counter() - t0
+    after = torch.cuda.memory_allocated()
+    for r in rows:
+        print(f"17a {r['arch']} {r['shape']} ({r['kind']}): {r['leaves']} input leaves, "
+              f"model_flops {r['model_flops']:.6e}", flush=True)
+    print(f"17a: {len(rows)} plans in {took:.2f} s; memory_allocated {before} -> {after} B; "
+          f"guard builds {guard.builds} launches {guard.launches} new segments "
+          f"{guard.new_segments}", flush=True)
+    check(len(rows) == 43 and after == before and guard.builds == 0 and not guard.launches
+          and guard.new_segments == 0, "17a: building the plans allocated or launched")
+
+
+def serve_tiles(dev):
+    """256 seeded xview-like tiles of 416 px, float32, on ``dev``, tile i's
+    contrast scaled by the i-th of 256 steps from 0 to 1."""
+    import numpy as np
+    import torch
+    from repro_torch.core import tiling
+    from repro_torch.data.synthetic import DATASETS
+    frames = scene_frames(DATASETS["xview"], SERVE_SCENES, SERVE_REVISITS, SEED + 17)
+    x = torch.from_numpy(np.stack([f[0] for f in frames])).to(dev)
+    tiles = tiling.resize_tiles(tiling.tile_image(x, 128), 416)
+    return tiles * torch.linspace(0.0, 1.0, len(tiles), device=dev)[:, None, None, None]
+
+
+def cell_serve(dev, kernels, arch, params, tiles, centroids):
+    """17b for one counter: a warm-up step, the counted step (one launch
+    each of ``tile_moments_f32``, ``kmeans_assign_f32`` and
+    ``nms_keep_f32``, checked), its moments, assignments and keep counts
+    against the plain versions at the cell's inputs (checked), the
+    throttle's bands all populated, more middle tiles than the budget
+    takes and NMS suppressing boxes (checked), the downlink mask and the
+    space tier's count equal to those of the throttle run on the host on
+    the step's confidences (checked), a second step bit-equal (checked),
+    ``LaunchGuard`` over a steady step (0 builds, 0 new segments, 0
+    syncs; checked), SERVE_REPS steps timed -> launches by entry in the
+    counted step."""
+    import torch
+    from repro_torch.analysis import LaunchGuard
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.core.throttle import throttle
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    from repro_torch.models import detector
+    cfg, shape = get_config(arch), get_shape(arch, "tiles_416_b256")
+    b, r = shape.global_batch, shape.img_res
+    check(tuple(tiles.shape) == (b, r, r, 3), f"17b: tiles {tuple(tiles.shape)}")
+    plan = steps.build_cell(arch, "tiles_416_b256")
+    plan.fn(params, tiles, centroids)   # warm-up: cuDNN
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.reset()
+    out = plan.fn(params, tiles, centroids)
+    torch.cuda.synchronize()
+    took = {s: n for k in kernels for s, n in k.symbol_launches.items() if n}
+    want = {"tile_moments_f32": 1, "kmeans_assign_f32": 1, "nms_keep_f32": 1}
+    check(took == want, f"17b {arch}: launches by entry {took}, not {want}")
+    counts, conf, assign, down, c_space = out
+    # the kernels at the cell's own inputs against their plain versions
+    feats = ops.tile_moments(tiles)
+    feats_plain = ref.tile_moments(tiles)
+    moments_err = (feats - feats_plain).abs().max().item()
+    check(torch.allclose(feats, feats_plain, atol=1e-4, rtol=1e-4),
+          f"17b {arch}: tile_moments off the plain version by {moments_err}")
+    got_a, want_a = ops.kmeans_assign(feats, centroids), ref.kmeans_assign(feats, centroids)
+    check(bit_equal(got_a[0], want_a[0]) and bit_equal(got_a[1], want_a[1])
+          and bit_equal(got_a[0], assign), f"17b {arch}: kmeans_assign differs from the plain version")
+    boxes, scores = detector.decode(detector.forward(params, cfg, tiles), cfg, r)
+    top_s, top_i = torch.sort(scores, dim=-1, descending=True, stable=True)
+    k = min(128, scores.shape[-1])
+    keep = ops.nms_keep(boxes, top_i[..., :k], top_s[..., :k], 0.5, 0.3)
+    keep_plain = ref.nms_keep(boxes, top_i[..., :k], top_s[..., :k], 0.5, 0.3)
+    check(bit_equal(keep, keep_plain) and bit_equal(counts, keep_plain.float().sum(-1)),
+          f"17b {arch}: the NMS keep masks or counts differ from the plain version")
+    # the throttle's bands, and its masks against the same throttle on the host
+    suppressed = int(((top_s[..., :k] > 0.3).sum(-1) > counts).sum())
+    low, high = conf < steps.SERVE_CONF_P, conf > steps.SERVE_CONF_Q
+    bands = [int(low.sum()), int((~low & ~high).sum()), int(high.sum())]
+    conf_h = conf.cpu()
+    host = throttle(conf_h, torch.full((b,), float(r * r * 3)),
+                    b * r * r * 3 * steps.SERVE_BUDGET_SHARE, steps.SERVE_CONF_P,
+                    steps.SERVE_CONF_Q, "dynamic_conf")
+    host_space = torch.where(host.space, counts.cpu(), 0.0).sum()
+    throttle_same = bit_equal(down.cpu(), host.downlink) and bit_equal(c_space.cpu(), host_space)
+    check(bands[0] > 0 and bands[1] > int(down.sum()) > 0 and bands[2] > 0 and suppressed > 0,
+          f"17b {arch}: tiles by band {bands}, {int(down.sum())} downlinked, NMS suppressed "
+          f"boxes on {suppressed}: the step's throttle is not exercised")
+    check(throttle_same, f"17b {arch}: the downlink mask or c_space differs from the throttle's "
+          f"on the host")
+    again = plan.fn(params, tiles, centroids)
+    same = all(bit_equal(a, x) for a, x in zip(again, out))
+    del again, feats_plain, got_a, want_a, keep, keep_plain, boxes, scores, top_s, top_i
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for _ in range(GUARD_WARMUP):
+        plan.fn(params, tiles, centroids)
+    torch.cuda.synchronize()
+    with LaunchGuard(f"17b {arch} tiles_416_b256 step") as guard:
+        plan.fn(params, tiles, centroids)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(SERVE_REPS + 1)]
+    events[0].record()
+    for e in events[1:]:
+        plan.fn(params, tiles, centroids)
+        e.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    mean_ms = sum(ms) / len(ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    flops = steps.model_flops(arch, "tiles_416_b256")
+    bound = 1e3 * flops / FP32_FLOPS
+    print(f"17b {arch} tiles_416_b256 (B {b}, {r} px, uncut): {mean_ms:.4f} ms a step (steps "
+          f"{', '.join(f'{t:.4f}' for t in ms)}), {1e3 * b / mean_ms:.1f} tiles/s; "
+          f"{flops / 1e12:.4f} TFLOP a step (model_flops), float32 bound {bound:.4f} ms, share "
+          f"{bound / mean_ms:.3f}; peak memory {peak_gb:.2f} GB; counts total "
+          f"{counts.sum().item():.0f} (max {counts.max().item():.0f}), conf "
+          f"{conf.min().item():.4f}-{conf.max().item():.4f}, tiles by band (discard, middle, high) "
+          f"{bands}, NMS suppressed boxes on {suppressed} tiles, {int(down.sum())} tiles "
+          f"downlinked, c_space {c_space.item():.0f}, downlink and c_space equal to the host's "
+          f"throttle {throttle_same}, {len(torch.unique(assign))} clusters used; tile_moments "
+          f"vs plain max_abs_err {moments_err:.3e}; kmeans_assign and NMS keep bit-equal; "
+          f"second step bit-equal {same}; launches by entry {took}", flush=True)
+    print(f"guard {guard.label}: builds {guard.builds} new segments {guard.new_segments} syncs "
+          f"{guard.syncs} {guard.sync_sites}; launches by entry {json.dumps(guard.launches)}",
+          flush=True)
+    check(same, f"17b {arch}: a second step differs")
+    check(bool(torch.isfinite(conf).all()) and counts.sum().item() > 0 and bool(down.any()),
+          f"17b {arch}: no counts or no downlink")
+    guard.assert_steady_state()
+    check(guard.syncs == 0, f"17b {arch}: the step synced with the host: {guard.sync_sites}")
+    return took
+
+
+def detector_targets(cfg, b, r, seed):
+    """Seeded (B, G, G, A, 5 + C) targets, CELL_TRAIN_POSITIVES objects a
+    tile: box in cell units within (0.2, 0.8), objectness 1, a one-hot
+    class."""
+    import numpy as np
+    import torch
+    from repro_torch.models import detector
+    rng = np.random.default_rng(seed)
+    g = detector.grid_size(cfg, r)
+    t = np.zeros((b, g, g, cfg.n_anchors, 5 + cfg.n_classes), np.float32)
+    for i in range(b):
+        for _ in range(CELL_TRAIN_POSITIVES):
+            y, x, a = rng.integers(0, g), rng.integers(0, g), rng.integers(0, cfg.n_anchors)
+            t[i, y, x, a, :4] = rng.uniform(0.2, 0.8, 4)
+            t[i, y, x, a, 4] = 1.0
+            t[i, y, x, a, 5 + rng.integers(0, cfg.n_classes)] = 1.0
+    return torch.from_numpy(t)
+
+
+def cell_detector_train(dev):
+    """17c: ``_detector_train`` at train_416_b64, uncut: CELL_TRAIN_STEPS
+    donated steps on one seeded batch, the loss falling (checked), steps
+    2-CELL_TRAIN_STEPS timed; a second seeded run's losses compared (not
+    checked: cuDNN's backward, as phase 9b)."""
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import steps
+    from repro_torch.models import detector
+    arch = "targetfuse-space"
+    cfg, shape = get_config(arch), get_shape(arch, "train_416_b64")
+    b, r = shape.global_batch, shape.img_res
+    plan = steps.build_cell(arch, "train_416_b64")
+    check(plan.donate_argnums == (0, 1), f"17c: donates {plan.donate_argnums}")
+
+    def run():
+        params = detector.init(torch.Generator().manual_seed(SEED + 17), cfg, device=dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 17)
+        images = torch.rand((b, r, r, 3), generator=g, device=dev)
+        targets = detector_targets(cfg, b, r, SEED + 17).to(dev)
+        state = (params, steps.opt_init(params))
+        losses, events = [], [torch.cuda.Event(enable_timing=True) for _ in range(CELL_TRAIN_STEPS)]
+        for i in range(CELL_TRAIN_STEPS):
+            *state, loss = plan.fn(*state, images, targets)
+            losses.append(loss)
+            events[i].record()
+        torch.cuda.synchronize()
+        ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+        return torch.stack(losses).tolist(), ms
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = run()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    losses2, _ = run()
+    mean_ms = sum(ms) / len(ms)
+    flops = steps.model_flops(arch, "train_416_b64")
+    bound = 1e3 * flops / FP32_FLOPS
+    print(f"17c {arch} train_416_b64 (B {b}, {r} px, uncut, donated): {mean_ms:.4f} ms a step "
+          f"(steps 2-{CELL_TRAIN_STEPS} {', '.join(f'{t:.4f}' for t in ms)}), "
+          f"{1e3 * b / mean_ms:.1f} tiles/s; {flops / 1e12:.4f} TFLOP a step (model_flops), "
+          f"float32 bound {bound:.4f} ms, share {bound / mean_ms:.3f}; peak memory {peak_gb:.2f} "
+          f"GB; losses {', '.join(f'{x:.6f}' for x in losses)}; a second seeded run's losses "
+          f"bit-equal {losses2 == losses} (not checked: cuDNN's backward)", flush=True)
+    check(all(math.isfinite(x) for x in losses) and losses[-1] < losses[0],
+          f"17c: the loss did not fall over {CELL_TRAIN_STEPS} steps: {losses}")
+
+
+def cell_prefill(dev, flash, params, cfg):
+    """17d: qwen3-8b's prefill_32k cut to PREFILL_ROWS rows through its
+    plan: the counted prefill (36 flash launches, all on the tensor-core
+    entry, checked; layer 0's ``ops.attention`` call recorded) and a
+    second one, each timed by CUDA events; logits finite and the second's
+    bit-equal (checked); layer 0's attention on its last
+    PREFILL_CHECK_ROWS query rows against the plain version on float32
+    upcasts (rtol FLASH_BF16_RTOL, atol FLASH_BF16_ATOL; checked) ->
+    launches by entry."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_shape
+    from repro_torch.kernels import ops, ref
+    from repro_torch.launch import steps
+    shape = dataclasses.replace(get_shape(CELL_LM, "prefill_32k"), global_batch=PREFILL_ROWS)
+    s = shape.seq_len
+    plan = steps.build_plan(cfg, shape, CELL_LM)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_ROWS, s), generator=g, device=dev)
+    calls, attention = [], ops.attention
+
+    def recorded(q, k, v, **kw):
+        out = attention(q, k, v, **kw)
+        if not calls:
+            calls.append((q, k, v, kw, out))
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    flash.reset()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    ops.attention = recorded
+    try:
+        ev[0].record()
+        logits, cache = plan.fn(params, tokens)
+        ev[1].record()
+    finally:
+        ops.attention = attention
+    torch.cuda.synchronize()
+    took = {k: n for k, n in flash.symbol_launches.items() if n}
+    del cache
+    again, cache = plan.fn(params, tokens)
+    ev[2].record()
+    torch.cuda.synchronize()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    ms = [ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2])]
+    same = bit_equal(again, logits)
+    cache_gb = sum(t.numel() * t.element_size() for t in _leaves(cache)) / 1e9
+    del again, cache
+    check(took == {TC_SYMBOL: cfg.n_layers},
+          f"17d prefill: flash launches by entry {took}, not {{{TC_SYMBOL}: {cfg.n_layers}}}")
+    check(logits.shape == (PREFILL_ROWS, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+          and same, "17d prefill: bad logits, or a second prefill differs")
+    q, k, v, kw, got = calls[0]
+    del calls
+    n = PREFILL_CHECK_ROWS
+    want = ref.attention(q[:, -n:].float(), k.float(), v.float(), causal=True, q_offset=s - n)
+    got = got[:, -n:].float()
+    diff = (got - want).abs()
+    ok = torch.allclose(got, want, atol=FLASH_BF16_ATOL, rtol=FLASH_BF16_RTOL)
+    err, rel = diff.max().item(), (diff.norm() / want.norm()).item()
+    del want, got, diff
+    torch.cuda.empty_cache()
+    # the flash forward alone at this shape (not counted), beside SDPA's
+    flash_ms = cuda_ms(lambda: ops.attention(q, k, v, causal=True), 3)
+    qt, kt, vt = (x.transpose(1, 2) for x in (q, k, v))
+    sdpa_ms = cuda_ms(lambda: torch.nn.functional.scaled_dot_product_attention(
+        qt, kt, vt, is_causal=True, enable_gqa=True), 3)
+    del q, k, v, qt, kt, vt
+    torch.cuda.empty_cache()
+    flops = steps.cell_flops(cfg, shape)
+    bound = 1e3 * flops / BF16_FLOPS
+    h, d = cfg.n_heads, cfg.head_dim
+    layer_attn = 2.0 * PREFILL_ROWS * s * s * h * d   # causal: half of 4 B S^2 H D
+    print(f"17d {CELL_LM} prefill_32k (S {s} uncut; cut: batch {PREFILL_ROWS} of "
+          f"{get_shape(CELL_LM, 'prefill_32k').global_batch} rows): {ms[0]:.4f} ms the counted "
+          f"prefill, {ms[1]:.4f} ms the second; {1e3 * PREFILL_ROWS * s / ms[1]:.1f} tokens/s; "
+          f"{flops / 1e12:.4f} TFLOP (model_flops at the cut batch), bf16 bound {bound:.4f} ms, "
+          f"share {bound / ms[1]:.3f}; a layer's causal attention {layer_attn / 1e12:.4f} TFLOP, "
+          f"bound {1e3 * layer_attn / BF16_FLOPS:.4f} ms, layer 0's flash_attention alone "
+          f"{flash_ms:.4f} ms (share {1e3 * layer_attn / BF16_FLOPS / flash_ms:.3f}; "
+          f"scaled_dot_product_attention {sdpa_ms:.4f} ms); cache {cache_gb:.2f} GB; peak memory "
+          f"{peak_gb:.2f} GB; flash launches by entry {took}; second prefill bit-equal {same}; "
+          f"layer 0's attention, last {n} of {s} query rows against all keys, vs float32 upcast "
+          f"inputs max_abs_err {err:.3e}, relative norm {rel:.3e} (rtol {FLASH_BF16_RTOL:.3e}, "
+          f"atol {FLASH_BF16_ATOL:.0e})", flush=True)
+    check(ok, f"17d prefill: layer 0's attention off the float32 version by {err}")
+    return took
+
+
+def cell_decode(dev, params, cfg):
+    """17d: qwen3-8b's decode_32k cut to DECODE_ROWS rows through its plan
+    at pos 32767 (a host scalar) on a seeded 32768-position cache: a
+    warm-up step, DECODE_REPS steps timed by CUDA events against the byte
+    bound (the weights and the whole cache read once); logits finite, the
+    cache written at pos only (checked)."""
+    import dataclasses
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_shape
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    shape = dataclasses.replace(get_shape(CELL_LM, "decode_32k"), global_batch=DECODE_ROWS)
+    s = shape.seq_len
+    plan = steps.build_plan(cfg, shape, CELL_LM)
+    check(plan.meta["host_scalars"] == (3,), f"17d decode: host scalars {plan.meta}")
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    caches = lm.init_cache(cfg, DECODE_ROWS, s, dev)
+    for c in tree.leaves(caches):
+        c.normal_(generator=g)
+    probe = [c[:, :, -2:].clone() for c in tree.leaves(caches)]
+    token = torch.randint(0, cfg.vocab_size, (DECODE_ROWS, 1), generator=g, device=dev)
+    pos = torch.tensor(s - 1, dtype=torch.int32)
+    torch.cuda.reset_peak_memory_stats()
+    logits, caches = plan.fn(params, token, caches, pos)   # warm-up
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(DECODE_REPS + 1)]
+    events[0].record()
+    for e in events[1:]:
+        logits, caches = plan.fn(params, token, caches, pos)
+        e.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    mean_ms = sum(ms) / len(ms)
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    weight_b = sum(t.numel() * t.element_size() for t in tree.leaves(params))
+    cache_b = sum(t.numel() * t.element_size() for t in tree.leaves(caches))
+    bound = 1e3 * (weight_b + cache_b) / HBM_BYTES_PER_S
+    kept = all(bit_equal(c[:, :, -2], p[:, :, 0]) for c, p in zip(tree.leaves(caches), probe))
+    written = all(not bit_equal(c[:, :, -1], p[:, :, 1]) for c, p in zip(tree.leaves(caches), probe))
+    print(f"17d {CELL_LM} decode_32k (cache {s} uncut, pos {s - 1}; cut: batch {DECODE_ROWS} of "
+          f"{get_shape(CELL_LM, 'decode_32k').global_batch} rows): {mean_ms:.4f} ms a step "
+          f"(steps {', '.join(f'{t:.4f}' for t in ms)}), {1e3 * DECODE_ROWS / mean_ms:.1f} "
+          f"tokens/s; weights {weight_b / 1e9:.2f} GB and cache {cache_b / 1e9:.2f} GB, byte "
+          f"bound {bound:.4f} ms, share {bound / mean_ms:.3f}; peak memory {peak_gb:.2f} GB; "
+          f"logits finite {bool(torch.isfinite(logits).all())}; cache kept at pos {s - 2} "
+          f"{kept}, written at {s - 1} {written}", flush=True)
+    check(logits.shape == (DECODE_ROWS, cfg.vocab_size) and bool(torch.isfinite(logits).all())
+          and kept and written, "17d decode: bad logits or cache")
+    del caches, logits, probe
+    torch.cuda.empty_cache()
+
+
+def cell_zoo_serve(dev, flash):
+    """17d: vit-l16's serve_b128 and one DDIM step of dit-s2's gen_fast,
+    uncut, through their plans: each bit-equal to the direct model call on
+    the same weights and inputs, its flash launches on the tensor-core
+    entry (one a layer; checked) -> launches by entry."""
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import steps
+    from repro_torch.models import diffusion, vit
+    entries = {}
+    cfg = get_config("vit-l16")
+    shape = get_shape("vit-l16", "serve_b128")
+    plan = steps.build_cell("vit-l16", "serve_b128")
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    params = vit.init(g, cfg, device=dev)
+    images = torch.randn((shape.global_batch, shape.img_res, shape.img_res, 3), generator=g,
+                         device=dev)
+    direct = vit.forward(params, cfg, images)   # also the warm-up
+    flash.reset()
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    logits = plan.fn(params, images)
+    ev[1].record()
+    torch.cuda.synchronize()
+    took = {k: n for k, n in flash.symbol_launches.items() if n}
+    same = bit_equal(logits, direct)
+    print(f"17d vit-l16 serve_b128 (B {shape.global_batch}, uncut) through its plan: "
+          f"{ev[0].elapsed_time(ev[1]):.4f} ms; bit-equal to vit.forward {same}; flash launches "
+          f"by entry {took}", flush=True)
+    check(same and took == {TC_SYMBOL: cfg.n_layers}, f"17d vit-l16: plan differs or launches {took}")
+    for sym, n in took.items():
+        entries[sym] = entries.get(sym, 0) + n
+    del params, images, direct, logits
+    cfg = get_config("dit-s2")
+    shape = get_shape("dit-s2", "gen_fast")
+    plan = steps.build_cell("dit-s2", "gen_fast")
+    params, noise, cond = diffusion_setup(dev, cfg, shape.global_batch, shape.img_res, SEED + 17)
+    ts = diffusion.timesteps(shape.steps)
+    direct = diffusion.ddim_step(diffusion_eps(cfg, params, cond), noise, ts[0], ts[1])
+    flash.reset()
+    ev[0].record()
+    x = plan.fn(params, noise, cond, torch.tensor(ts[0], dtype=torch.int32),
+                torch.tensor(ts[1], dtype=torch.int32))
+    ev[1].record()
+    torch.cuda.synchronize()
+    took = {k: n for k, n in flash.symbol_launches.items() if n}
+    same = bit_equal(x, direct)
+    print(f"17d dit-s2 gen_fast (B {shape.global_batch}, {shape.img_res} px, uncut) one DDIM "
+          f"step {ts[0]} -> {ts[1]} through its plan: {ev[0].elapsed_time(ev[1]):.4f} ms; "
+          f"bit-equal to diffusion.ddim_step {same}; flash launches by entry {took}", flush=True)
+    check(same and took == {TC_SYMBOL: cfg.n_layers}, f"17d dit-s2: plan differs or launches {took}")
+    for sym, n in took.items():
+        entries[sym] = entries.get(sym, 0) + n
+    del params, noise, cond, direct, x
+    torch.cuda.empty_cache()
+    return entries
+
+
+def phase_cells(dev, mission_kernels, flash):
+    """Phase 17 -> (launches by kernel in the counted steps of 17b and the
+    plans' flash calls of 17d, the same by entry)."""
+    import torch
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    from repro_torch.models import lm
+    t0 = time.perf_counter()
+    cells_plans()
+    print(f"phase 17a: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cfgs = (get_config("targetfuse-space"), get_config("targetfuse-ground"))
+    tiles = serve_tiles(dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 17)
+    feats = ref.tile_moments(tiles)
+    pick = torch.randperm(len(feats), generator=g, device=dev)[:64]
+    centroids = feats[pick] + 0.05 * torch.randn((64, feats.shape[1]), generator=g, device=dev)
+    entries = {}
+    for (params, cfg) in counters(cfgs, dev, SERVE_HEAD_SCALE, SERVE_OBJ_BIAS):
+        for sym, n in cell_serve(dev, mission_kernels, cfg.name, params, tiles,
+                                 centroids).items():
+            entries[sym] = entries.get(sym, 0) + n
+    del tiles, feats, centroids
+    torch.cuda.empty_cache()
+    print(f"phase 17b: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cell_detector_train(dev)
+    torch.cuda.empty_cache()
+    print(f"phase 17c: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cfg = get_config(CELL_LM)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    for sym, n in cell_prefill(dev, flash, params, cfg).items():
+        entries[sym] = entries.get(sym, 0) + n
+    torch.cuda.empty_cache()
+    cell_decode(dev, params, cfg)
+    del params
+    torch.cuda.empty_cache()
+    for sym, n in cell_zoo_serve(dev, flash).items():
+        entries[sym] = entries.get(sym, 0) + n
+    print(f"phase 17d: {time.perf_counter() - t0:.1f} s", flush=True)
+    by_kernel = {k.name: sum(entries.get(s, 0) for s in k.symbol_launches)
+                 for k in (*mission_kernels, flash)}
+    return by_kernel, entries
 
 
 # ---------------------------------------------------------------------------
@@ -4621,6 +5059,13 @@ def main():
     for sym, n in lm_entries.items():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase lm training: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    cell_launches, cell_entries = phase_cells(dev, mission_kernels, kernel["flash_attention"])
+    for name, n in cell_launches.items():
+        launches[name] += n
+    for sym, n in cell_entries.items():
+        entry_launches[sym] = entry_launches.get(sym, 0) + n
+    print(f"phase cells: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

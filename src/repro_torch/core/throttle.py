@@ -10,7 +10,9 @@ low_conf_first, fixed_conf, dynamic_conf.
 
 The reference runs in JAX without 64-bit types, so confidences, sizes,
 thresholds and the budget are float32 here too, and the sort is stable.
-The throttle is a few hundred elements of host data: it runs on the CPU.
+The throttle runs where ``conf`` lies: on the CPU for the Mission's few
+hundred host values, on the card inside ``launch.steps``' onboard serve
+cell, where it makes no host sync.
 """
 from __future__ import annotations
 
@@ -46,8 +48,9 @@ def throttle(conf, sizes, budget_bytes, conf_p: float, conf_q: float,
     conf, sizes = _f32(conf), _f32(sizes)
     budget, conf_p, conf_q = _f32(budget_bytes), _f32(conf_p), _f32(conf_q)
     n = conf.shape[0]
-    active = (torch.ones(n, dtype=torch.bool) if active is None
-              else torch.as_tensor(active, dtype=torch.bool))
+    dev = conf.device
+    active = (torch.ones(n, dtype=torch.bool, device=dev) if active is None
+              else torch.as_tensor(active, dtype=torch.bool, device=dev))
     conf = torch.where(active, conf, -1.0)
 
     discard = active & (conf < conf_p)
@@ -60,7 +63,7 @@ def throttle(conf, sizes, budget_bytes, conf_p: float, conf_q: float,
     order = torch.argsort(key, stable=True)              # middles first
     sz = torch.where(middle, sizes, 0.0)[order]
     fits = (torch.cumsum(sz, 0) <= budget) & middle[order]
-    downlink = torch.zeros(n, dtype=torch.bool)
+    downlink = torch.zeros(n, dtype=torch.bool, device=dev)
     downlink[order] = fits
     bytes_used = torch.where(downlink, sizes, 0.0).sum()
 
@@ -69,7 +72,7 @@ def throttle(conf, sizes, budget_bytes, conf_p: float, conf_q: float,
         dropped = leftover                               # conf <= conf_q by construction
         space = high
     else:
-        dropped = torch.zeros(n, dtype=torch.bool)
+        dropped = torch.zeros(n, dtype=torch.bool, device=dev)
         space = high | leftover
     return ThrottleResult(discard, space, downlink, dropped, bytes_used)
 

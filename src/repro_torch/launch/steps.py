@@ -1,24 +1,49 @@
-"""Training steps of the LMs and the model zoo's vision and diffusion
-families.
+"""The cell layer: (arch x input shape) -> a step and its inputs, and
+the training steps of every family.
 
-Counterpart of the step closures in ``repro/launch/steps.py``
-(``_lm_train``, ``_vision_train``, ``_diff_train``) without their
-shardings, meshes and ``CellPlan``: ``lm_train``, ``vision_train`` and
-``diffusion_train`` return ``(opt_init, step)`` for one config, ``step``
-one AdamW update of the port's ``optim/adamw.py`` on a batch.
-``models.lm.loss_fn``, ``vision_loss`` and ``diffusion_loss`` are the
-steps' loss functions, and ``value_and_grad`` their gradient:
-``torch.autograd.grad`` of the loss over the parameter tree's leaves in
-JAX's leaf order (:mod:`repro_torch.tree`), through the models' training
-forwards (``cfg.remat`` rematerializes their blocks as the reference's).
-On a card every attention's gradient is the ``flash_attention`` backward
-kernel's (the LMs' causal and GQA; MLA's q/k heads of 192 on its D 192
-entries), and the MoE layers' dispatch and combine add no gradient with
-atomics (``models/moe.py``), so a step reruns bit for bit.
+Counterpart of ``repro/launch/steps.py`` without its shardings and
+meshes. :func:`build_cell` returns a :class:`CellPlan`: the step of one
+cell of the model configurations' shape sets (``configs.all_cells()``
+and the counters' ``DETECTOR_SHAPES``), its input tree of ``meta``
+tensors (shapes and dtypes in JAX's leaf order, :mod:`repro_torch.tree`)
+and the reference's ``meta`` keys; :func:`input_specs` gives the inputs
+alone and :func:`model_flops` a cell's useful FLOPs by the reference's
+formulas. Nothing is allocated: the parameter, optimizer and cache trees
+come from the inits on the ``meta`` device (``layers.SHAPES_ONLY``),
+the counterpart of ``jax.eval_shape``. A plan's ``fn`` runs where its
+inputs are (a card or the CPU) and refuses ``meta`` inputs.
+
+The cells: an LM's ``train`` (:func:`lm_train`), ``prefill``
+(``lm.prefill``) and ``decode`` (``lm.decode_step``); a vision model's
+``cls`` (:func:`vision_train`) and ``serve`` (the forward); a diffusion
+model's ``train`` (:func:`diffusion_train`) and ``gen`` (one
+``diffusion.ddim_step``); a counter's ``serve``, the paper's onboard
+pipeline as one step (the counter's forward, count and confidence after
+NMS, ``tile_moments``, ``kmeans_assign``, the ``dynamic_conf`` throttle
+and the space tier's count: on a card three kernel launches,
+``nms_keep_f32``, ``tile_moments_f32`` and ``kmeans_assign_f32``, and
+no host sync) and ``train`` (``models.detector.loss_fn``'s AdamW step).
+
+``lm_train``, ``vision_train`` and ``diffusion_train`` return
+``(opt_init, step)`` for one config, ``step`` one AdamW update of the
+port's ``optim/adamw.py`` on a batch.
+``models.lm.loss_fn``, ``vision_loss``, ``diffusion_loss`` and
+``models.detector.loss_fn`` are the steps' loss functions, and
+``value_and_grad`` their gradient: ``torch.autograd.grad`` of the loss
+over the parameter tree's leaves in JAX's leaf order, through the
+models' training forwards (``cfg.remat`` rematerializes their blocks as
+the reference's). On a card every attention's gradient is the
+``flash_attention`` backward kernel's (the LMs' causal and GQA; MLA's
+q/k heads of 192 on its D 192 entries), and the MoE layers' dispatch and
+combine add no gradient with atomics (``models/moe.py``), so a step
+reruns bit for bit.
 
 The diffusion steps take the timesteps ``t`` and the noise as arguments,
 where the reference's draw them from a key inside the step:
-``models.diffusion.draw_train_inputs`` draws them from a generator.
+``models.diffusion.draw_train_inputs`` draws them from a generator. The
+plan of a diffusion ``train`` cell so holds ``t`` (B,) int32 and
+``noise`` (B, lr, lr, C) float32 where the reference's holds a (2,)
+uint32 key: the one way its inputs differ from the reference's.
 
 ``donate=True`` is the counterpart of the reference cells'
 ``donate_argnums``: the step writes the new parameters, moments (and
@@ -31,15 +56,26 @@ in the same order; without it each step allocates the new state beside
 the old, and the cache's layout may take many steps to repeat. A
 full-width LM's state leaves no room for that second copy
 (phi4-mini-3.8b: 46 GB of bf16 weights and gradients and float32
-moments). The numbers are the same either way.
+moments). The numbers are the same either way. Every training cell's
+step is built with ``donate=True``.
 """
 from __future__ import annotations
+
+import dataclasses
+import functools
+from dataclasses import dataclass, field
+from typing import Any, Callable, Dict, Tuple
 
 import torch
 import torch.nn.functional as F
 
 from repro_torch import tree as T
-from repro_torch.models import convnext, diffusion, dit, lm, resnet, unet, vit
+from repro_torch.configs.base import ShapeSpec, get_config, get_shape
+from repro_torch.core.energy import detector_gflops
+from repro_torch.core.throttle import throttle
+from repro_torch.kernels import ops as kops
+from repro_torch.models import convnext, detector, diffusion, dit, lm, resnet, unet, vit
+from repro_torch.models import layers as L
 from repro_torch.optim.adamw import adamw
 
 
@@ -187,3 +223,412 @@ def lm_train(cfg, lr: float = 1e-4, grad_accum: int = 1, donate: bool = False):
         params, opt_state = _update(opt_update, grads, opt_state, params, donate)
         return params, opt_state, loss
     return opt_init, step
+
+
+# ---------------------------------------------------------------------------
+# the cell layer
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class CellPlan:
+    """One cell's step and its inputs. ``fn(*args)`` runs where its
+    inputs are; ``args`` holds its input trees as ``meta`` tensors in
+    JAX's leaf order. ``donate_argnums``: the arguments the step may
+    overwrite (the reference's), which the caller must not read after
+    the call. ``meta``: the reference's keys (``tokens``, ``images``,
+    ``tiles``, ``kind``, ``steps``, ``cache_len``) and ``host_scalars``,
+    the positions of the 0-d int32 arguments that the step reads as host
+    ints (a decode's ``pos``, a DDIM step's ``t_cur`` and ``t_prev``):
+    pass them as CPU tensors or ints, so reading them waits on no card."""
+    arch: str
+    shape: str
+    fn: Callable
+    args: Tuple
+    donate_argnums: Tuple[int, ...] = ()
+    meta: Dict[str, Any] = field(default_factory=dict)
+
+
+# build_cell's options: the reference's, less its mesh options
+_OPTIONS = ("remat", "grad_accum", "mla_absorb", "unroll")
+_MESH_OPTIONS = ("zero1_axis", "no_pure_dp", "dp_serve")
+
+
+def opt_init(params):
+    """AdamW's first state for ``params`` (float32 zero moments, step 0),
+    the optimizer state of every training cell: the same at any rate."""
+    return adamw(0.0)[0](params)
+
+
+def _spec(shape, dtype=torch.float32) -> torch.Tensor:
+    return torch.empty(shape, dtype=dtype, device="meta")
+
+
+def _shapes(mod, cfg):
+    """``mod.init``'s parameter tree (ResNet's: with its running
+    statistics) as ``meta`` tensors."""
+    return mod.init(L.SHAPES_ONLY, cfg, device="meta")
+
+
+def _first_leaf(tree):
+    while isinstance(tree, (dict, list, tuple)) and len(tree):
+        tree = tree[sorted(tree)[0]] if isinstance(tree, dict) else tree[0]
+    return tree
+
+
+def _computes(step):
+    """``step`` refusing shape-only inputs: a plan's ``args`` describe its
+    inputs, they are not inputs."""
+    @functools.wraps(step)
+    def run(*args):
+        for a in args:
+            x = _first_leaf(a)
+            if isinstance(x, torch.Tensor) and x.is_meta:
+                raise ValueError("a cell's step computes on a card or the CPU; its plan's "
+                                 "args are meta tensors that give shapes only")
+        return step(*args)
+    return run
+
+
+def _host_int(x) -> int:
+    """A host scalar argument (an int, or a 0-d tensor on the CPU)."""
+    if isinstance(x, torch.Tensor) and x.device.type != "cpu":
+        raise ValueError(f"a host scalar lies on {x.device}: reading it would wait on the card")
+    return int(x)
+
+
+def _plan(arch, shape, step, args, donate=(), **meta):
+    return CellPlan(arch, shape.name, _computes(step), tuple(args), tuple(donate), meta)
+
+
+def _lm_train(arch, cfg, shape: ShapeSpec, opts):
+    b, s = shape.global_batch, shape.seq_len
+    step = lm_train(cfg, 1e-4, grad_accum=opts.get("grad_accum", 1), donate=True)[1]
+    params = _shapes(lm, cfg)
+    args = (params, opt_init(params), _spec((b, s), torch.int32), _spec((b, s), torch.int32))
+    return _plan(arch, shape, step, args, (0, 1), tokens=b * s, kind="train")
+
+
+def _lm_prefill(arch, cfg, shape: ShapeSpec, opts):
+    b, s = shape.global_batch, shape.seq_len
+
+    def step(params, tokens):
+        return lm.prefill(params, cfg, tokens)
+    args = (_shapes(lm, cfg), _spec((b, s), torch.int32))
+    return _plan(arch, shape, step, args, tokens=b * s, kind="prefill")
+
+
+def _lm_decode(arch, cfg, shape: ShapeSpec, opts):
+    b, s = shape.global_batch, shape.seq_len
+    absorb = opts.get("mla_absorb", True)
+
+    def step(params, token, caches, pos):
+        return lm.decode_step(params, cfg, token, caches, _host_int(pos), absorb=absorb)
+    args = (_shapes(lm, cfg), _spec((b, 1), torch.int32), lm.init_cache(cfg, b, s, "meta"),
+            _spec((), torch.int32))
+    return _plan(arch, shape, step, args, (2,), tokens=b, kind="decode", cache_len=s,
+                 host_scalars=(3,))
+
+
+def _vision_module(cfg):
+    return {"vit": vit, "convnext": convnext, "resnet": resnet}[cfg.kind]
+
+
+def _vision_train(arch, cfg, shape: ShapeSpec, opts):
+    b, r = shape.global_batch, shape.img_res
+    step = vision_train(cfg, 1e-3, donate=True)[1]
+    batch = (_spec((b, r, r, 3)), _spec((b,), torch.int32))
+    if cfg.kind == "resnet":
+        params, bn = _shapes(resnet, cfg)
+        return _plan(arch, shape, step, (params, bn, opt_init(params), *batch), (0, 1, 2),
+                     images=b, kind="train")
+    params = _shapes(_vision_module(cfg), cfg)
+    return _plan(arch, shape, step, (params, opt_init(params), *batch), (0, 1),
+                 images=b, kind="train")
+
+
+def _vision_serve(arch, cfg, shape: ShapeSpec, opts):
+    b, r = shape.global_batch, shape.img_res
+    images = _spec((b, r, r, 3))
+    if cfg.kind == "resnet":
+        def step(params, bn_state, images):
+            return resnet.forward(params, bn_state, cfg, images, train=False)[0]
+        args = (*_shapes(resnet, cfg), images)
+    else:
+        mod = _vision_module(cfg)
+
+        def step(params, images):
+            return mod.forward(params, cfg, images, train=False)
+        args = (_shapes(mod, cfg), images)
+    return _plan(arch, shape, step, args, images=b, kind="serve")
+
+
+def _cond_spec(cfg, b):
+    """DiT's class ids (B,) int32 or the UNet's text context (B, ctx_len,
+    ctx_dim) float32."""
+    if cfg.kind == "dit":
+        return _spec((b,), torch.int32)
+    return _spec((b, cfg.ctx_len, cfg.ctx_dim))
+
+
+def _diff_train(arch, cfg, shape: ShapeSpec, opts):
+    b, lr = shape.global_batch, shape.img_res // cfg.latent_factor
+    step = diffusion_train(cfg, 1e-4, donate=True)[1]
+    params = _shapes(dit if cfg.kind == "dit" else unet, cfg)
+    latents = _spec((b, lr, lr, cfg.latent_ch))
+    args = (params, opt_init(params), latents, _cond_spec(cfg, b), _spec((b,), torch.int32),
+            _spec(latents.shape))
+    return _plan(arch, shape, step, args, (0, 1), images=b, kind="train", steps=shape.steps)
+
+
+def _diff_gen(arch, cfg, shape: ShapeSpec, opts):
+    b, lr = shape.global_batch, shape.img_res // cfg.latent_factor
+    mod = dit if cfg.kind == "dit" else unet
+
+    def step(params, latents, cond, t_cur, t_prev):
+        def eps_fn(x, t):
+            out = mod.forward(params, cfg, x, t, cond, train=False)
+            return out[0] if cfg.kind == "dit" else out
+        return diffusion.ddim_step(eps_fn, latents, _host_int(t_cur), _host_int(t_prev))
+    args = (_shapes(mod, cfg), _spec((b, lr, lr, cfg.latent_ch)), _cond_spec(cfg, b),
+            _spec((), torch.int32), _spec((), torch.int32))
+    return _plan(arch, shape, step, args, (1,), images=b, kind="gen", steps=shape.steps,
+                 host_scalars=(3, 4))
+
+
+# the onboard serve cell: k-means clusters over the tiles' 3C moments,
+# and the throttle's thresholds and byte budget (a share of the batch's
+# raw bytes), the reference's
+SERVE_CLUSTERS = 64
+SERVE_CONF_P, SERVE_CONF_Q, SERVE_BUDGET_SHARE = 0.10, 0.55, 0.15
+
+
+def _targetfuse_serve(arch, cfg, shape: ShapeSpec, opts):
+    b, r = shape.global_batch, shape.img_res
+
+    def step(params, tiles, centroids):
+        """The full onboard pipeline of Fig. 3 as one step -> (counts (B,),
+        conf (B,), assign (B,) int32, downlink (B,) bool, c_space 0-d)."""
+        raw = detector.forward(params, cfg, tiles)
+        counts, conf = detector.count_and_confidence(raw, cfg, input_size=r)
+        feats = kops.tile_moments(tiles)
+        assign, _ = kops.kmeans_assign(feats, centroids)
+        sizes = torch.full((b,), float(r * r * 3), device=tiles.device)
+        tr = throttle(conf, sizes, b * r * r * 3 * SERVE_BUDGET_SHARE, SERVE_CONF_P,
+                      SERVE_CONF_Q, "dynamic_conf")
+        c_space = torch.sum(torch.where(tr.space, counts, 0.0))
+        return counts, conf, assign, tr.downlink, c_space
+    args = (_shapes(detector, cfg), _spec((b, r, r, 3)), _spec((SERVE_CLUSTERS, 9)))
+    return _plan(arch, shape, step, args, tiles=b, kind="serve")
+
+
+def _detector_train(arch, cfg, shape: ShapeSpec, opts):
+    """The counter's training step, donated: ``step(params, opt_state,
+    images, targets) -> (params, opt_state, loss)``, images (B, S, S, 3)
+    float32 and targets (B, G, G, A, 5 + C) float32;
+    ``detector.loss_fn`` under ``value_and_grad``, then AdamW at 1e-3."""
+    b, r = shape.global_batch, shape.img_res
+    g = detector.grid_size(cfg, r)
+    opt_update = adamw(1e-3)[1]
+
+    def step(params, opt_state, images, targets):
+        loss, grads, _ = value_and_grad(
+            lambda p: detector.loss_fn(p, cfg, images, targets), params)
+        params, opt_state = _update(opt_update, grads, opt_state, params, True)
+        return params, opt_state, loss
+    params = _shapes(detector, cfg)
+    args = (params, opt_init(params), _spec((b, r, r, 3)),
+            _spec((b, g, g, cfg.n_anchors, 5 + cfg.n_classes)))
+    return _plan(arch, shape, step, args, (0, 1), tiles=b, kind="train")
+
+
+_CELLS = {("lm", "train"): _lm_train, ("lm", "prefill"): _lm_prefill,
+          ("lm", "decode"): _lm_decode, ("vision", "cls"): _vision_train,
+          ("vision", "serve"): _vision_serve, ("diffusion", "train"): _diff_train,
+          ("diffusion", "gen"): _diff_gen, ("detector", "train"): _detector_train,
+          ("detector", "serve"): _targetfuse_serve}
+
+
+def build_cell(arch: str, shape_name: str, **opts) -> CellPlan:
+    """The plan of one cell, allocating nothing. Options, the reference's:
+    ``remat`` (the config's ``remat`` replaced), ``grad_accum`` (an LM
+    train cell's micro-batches), ``mla_absorb`` (an LM decode cell's MLA
+    path, True by default) and ``unroll``, taken and unused: the port runs
+    its layers in a loop, as the reference's ``scan_layers=False``, and
+    the reference's dry run passes ``unroll`` to every cell. The
+    reference's mesh options (``zero1_axis``, ``no_pure_dp``,
+    ``dp_serve``) raise ``TypeError``: the port has no mesh yet."""
+    return build_plan(get_config(arch), get_shape(arch, shape_name), arch, **opts)
+
+
+def build_plan(cfg, shape: ShapeSpec, arch: str, **opts) -> CellPlan:
+    """:func:`build_cell` of ``arch``'s config and shape, for a cell cut
+    in depth (``cfg.n_layers``) or batch (``shape.global_batch``)."""
+    for k in opts:
+        if k in _MESH_OPTIONS:
+            raise TypeError(f"build_cell: {k!r} is a mesh option, and the port has no mesh")
+        if k not in _OPTIONS:
+            raise TypeError(f"build_cell: unknown option {k!r}")
+    if opts.get("remat"):
+        cfg = dataclasses.replace(cfg, remat=opts["remat"])
+    return _CELLS[cfg.family, shape.kind](arch, cfg, shape, opts)
+
+
+def input_specs(arch: str, shape_name: str) -> Tuple:
+    """The cell's input trees as ``meta`` tensors (the reference's
+    ``ShapeDtypeStruct`` stand-ins); nothing is allocated."""
+    return build_cell(arch, shape_name).args
+
+
+# ---------------------------------------------------------------------------
+# useful FLOPs, the reference's formulas
+# ---------------------------------------------------------------------------
+
+
+def _vit_fwd_flops(cfg, img_res: int) -> float:
+    """Exact matmul FLOPs of one ViT forward image."""
+    t = (img_res // cfg.patch) ** 2 + 1
+    d, f = cfg.d_model, cfg.d_ff
+    patch = 2.0 * (img_res // cfg.patch) ** 2 * cfg.patch ** 2 * 3 * d
+    blk = 2.0 * t * (4 * d * d + 2 * d * f) + 4.0 * t * t * d
+    head = 2.0 * d * cfg.n_classes
+    return patch + cfg.n_layers * blk + head
+
+
+def _convnext_fwd_flops(cfg, img_res: int) -> float:
+    r = img_res // 4
+    total = 2.0 * r * r * 4 * 4 * 3 * cfg.dims[0]
+    for i, (dep, dim) in enumerate(zip(cfg.depths, cfg.dims)):
+        hw = r * r
+        blk = 2.0 * hw * (49 * dim + 8 * dim * dim)
+        total += dep * blk
+        if i + 1 < len(cfg.dims):
+            total += 2.0 * (r // 2) ** 2 * 4 * dim * cfg.dims[i + 1]
+            r //= 2
+    return total + 2.0 * cfg.dims[-1] * cfg.n_classes
+
+
+def _resnet_fwd_flops(cfg, img_res: int) -> float:
+    w = cfg.width
+    r = img_res // 2
+    total = 2.0 * r * r * 49 * 3 * w
+    r //= 2  # maxpool
+    c_in = w
+    for i, dep in enumerate(cfg.depths):
+        mid = w * (2 ** i)
+        out = mid * 4
+        if i > 0:
+            r //= 2
+        for b in range(dep):
+            total += 2.0 * r * r * (c_in * mid + 9 * mid * mid + mid * out)
+            if b == 0:
+                total += 2.0 * r * r * c_in * out  # projection
+            c_in = out
+    return total + 2.0 * c_in * cfg.n_classes
+
+
+def _dit_fwd_flops(cfg, img_res: int) -> float:
+    lr = img_res // cfg.latent_factor
+    t = (lr // cfg.patch) ** 2
+    d = cfg.d_model
+    # adaLN conditioning is per image (B, 6d), not per token
+    blk = 2.0 * t * (4 * d * d + 8 * d * d) + 4.0 * t * t * d + 2.0 * 6 * d * d
+    io = 2.0 * t * (cfg.patch ** 2 * cfg.latent_ch * d * 3)
+    return cfg.n_layers * blk + io
+
+
+def _unet_fwd_flops(cfg, img_res: int) -> float:
+    """Walks the same structure as ``models.unet`` (down, mid, up). The
+    reference's own approximation: it prices a transformer block's
+    projections as 8 c x c products a token, counts the cross-attention's
+    k and v products a block, and leaves out norms and elementwise work."""
+    lr = img_res // cfg.latent_factor
+    ch = cfg.ch
+    chans = [ch * m for m in cfg.ch_mult]
+
+    def res_block(hw, cin, cout):
+        f = 2.0 * hw * 9 * (cin * cout + cout * cout) + 2.0 * hw * 4 * ch * cout
+        if cin != cout:
+            f += 2.0 * hw * cin * cout
+        return f
+
+    def attn_block(hw, c):
+        heads_proj = 2.0 * hw * c * c * (3 + 1 + 1 + 1 + 2)
+        sa = 4.0 * hw * hw * c
+        ca = 4.0 * hw * cfg.ctx_len * c + 2.0 * cfg.ctx_len * cfg.ctx_dim * c * 2
+        ff = 2.0 * hw * (8 * c * c + 4 * c * c)
+        return heads_proj + sa + ca + ff
+
+    total = 2.0 * lr * lr * 9 * cfg.latent_ch * ch
+    r = lr
+    prev = ch
+    for lvl, c in enumerate(chans):   # down
+        hw = r * r
+        for _ in range(cfg.n_res_blocks):
+            total += res_block(hw, prev, c)
+            if lvl in cfg.attn_levels:
+                total += attn_block(hw, c)
+            prev = c
+        if lvl + 1 < len(chans):
+            r //= 2
+            total += 2.0 * r * r * 9 * c * c
+    hw = r * r   # mid
+    total += 2 * res_block(hw, chans[-1], chans[-1]) + attn_block(hw, chans[-1])
+    for lvl in reversed(range(len(chans))):   # up: the skip concats raise cin
+        c = chans[lvl]
+        hw = r * r
+        for _ in range(cfg.n_res_blocks + 1):
+            total += res_block(hw, c + prev, c)
+            if lvl in cfg.attn_levels:
+                total += attn_block(hw, c)
+            prev = c
+        if lvl > 0:
+            r *= 2
+            total += 2.0 * r * r * 9 * c * c
+    return total + 2.0 * lr * lr * 9 * ch * cfg.latent_ch
+
+
+def cell_flops(cfg, shape: ShapeSpec) -> float:
+    """:func:`model_flops` of a config and shape, for a cell cut in depth
+    (``cfg.n_layers``) or batch (``shape.global_batch``)."""
+    mult = 3.0 if shape.kind in ("train", "cls") else 1.0
+    if cfg.family == "lm":
+        b, s = shape.global_batch, shape.seq_len
+        n_active = cfg.n_active_params
+        if cfg.mla is None:
+            qk_dim = v_dim = cfg.head_dim
+        else:
+            qk_dim = cfg.mla.qk_nope_head_dim + cfg.mla.qk_rope_head_dim
+            v_dim = cfg.mla.v_head_dim
+        h = cfg.n_heads
+        if shape.kind in ("train", "prefill"):
+            base = 2.0 * n_active * b * s
+            # causal: half the S^2 pairs are useful
+            attn_fwd = cfg.n_layers * b * s * s * h * (qk_dim + v_dim)
+            return (base + attn_fwd) * mult
+        # decode: one token a sequence against an s-long cache
+        base = 2.0 * n_active * b
+        if cfg.mla is not None:   # the absorbed latent decode's scores and combine
+            attn = 2.0 * cfg.n_layers * b * s * h * (
+                cfg.mla.kv_lora_rank + cfg.mla.qk_rope_head_dim + cfg.mla.kv_lora_rank)
+        else:
+            attn = 2.0 * cfg.n_layers * b * s * h * (qk_dim + v_dim)
+        return base + attn
+    b, r = shape.global_batch, shape.img_res
+    if cfg.family == "vision":
+        per = {"vit": _vit_fwd_flops, "convnext": _convnext_fwd_flops,
+               "resnet": _resnet_fwd_flops}[cfg.kind](cfg, r)
+    elif cfg.family == "diffusion":
+        per = (_dit_fwd_flops if cfg.kind == "dit" else _unet_fwd_flops)(cfg, r)
+    else:
+        per = detector_gflops(cfg, r) * 1e9
+    return per * b * mult
+
+
+def model_flops(arch: str, shape_name: str) -> float:
+    """A cell's useful FLOPs (the reference's ``model_flops``): exact
+    matmul and conv counts by family; a training step 3x the forward
+    (remat's recompute is overhead, not useful work); an MoE's active
+    parameters only; causal attention's used half; a gen cell one DDIM
+    step; a decode cell one token a sequence."""
+    return cell_flops(get_config(arch), get_shape(arch, shape_name))

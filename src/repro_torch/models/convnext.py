@@ -36,7 +36,7 @@ def init(gen: torch.Generator, cfg: VisionConfig, device="cuda") -> dict:
     must live on ``device``: fan-in scaled truncated normals for the
     convs and dense weights, 0.02 for the head, norms at one, biases at
     zero, ``gamma`` at 1e-6, as the reference's."""
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     if gen.device.type != device.type:
         raise ValueError(f"the generator lives on {gen.device}, the weights go to {device}")
     dt = _dt(cfg)

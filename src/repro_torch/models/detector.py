@@ -24,19 +24,20 @@ from repro_torch.models import layers as L
 
 def init(gen: torch.Generator, cfg: DetectorConfig, device="cuda") -> dict:
     """Random weights from ``gen`` (drawn on the CPU, then moved to
-    ``device``: "cuda", the default, raises without a card, or "cpu")."""
-    device = resolve_device(device)
+    ``device``: "cuda", the default, raises without a card, or "cpu"; or
+    with ``layers.SHAPES_ONLY`` shapes alone on "meta")."""
+    device = resolve_device(device, meta=True)
     p = {"stem": L.conv_init(gen, 3, 3, 3, cfg.widths[0]), "stages": []}
     prev = cfg.widths[0]
     for w in cfg.widths[1:]:
-        stage = [{"w": L.conv_init(gen, 3, 3, prev, w), "b": torch.zeros(w)}]
+        stage = [{"w": L.conv_init(gen, 3, 3, prev, w), "b": torch.zeros(w, device=gen.device)}]
         for _ in range(cfg.n_blocks_per_stage - 1):
-            stage.append({"w": L.conv_init(gen, 3, 3, w, w), "b": torch.zeros(w)})
+            stage.append({"w": L.conv_init(gen, 3, 3, w, w), "b": torch.zeros(w, device=gen.device)})
         p["stages"].append(stage)
         prev = w
     n_out = cfg.n_anchors * (5 + cfg.n_classes)
     p["head_w"] = L.truncated_normal(gen, (1, 1, prev, n_out), 0.01)
-    p["head_b"] = torch.zeros(n_out)
+    p["head_b"] = torch.zeros(n_out, device=gen.device)
     return to_device(p, device)
 
 

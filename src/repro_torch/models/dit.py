@@ -49,7 +49,7 @@ def init(gen: torch.Generator, cfg: DiffusionConfig, device="cuda") -> dict:
     must live on ``device``: fan-in truncated normals for the dense
     weights, 0.02 for the class embedding (``n_classes + 1`` rows, the
     last the null class), biases and the adaLN-Zero leaves at zero."""
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     if gen.device.type != device.type:
         raise ValueError(f"the generator lives on {gen.device}, the weights go to {device}")
     dt, d, c, p, n = _dt(cfg), cfg.d_model, cfg.latent_ch, cfg.patch, cfg.n_layers

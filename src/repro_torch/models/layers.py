@@ -24,12 +24,27 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch import tree as T
 
 
+class _ShapesOnly:
+    """The generator an init takes on the ``meta`` device: a meta tensor
+    has no values, so nothing is drawn."""
+    device = torch.device("meta")
+
+
+# ``init(SHAPES_ONLY, cfg, device="meta")``: a model's parameter tree as
+# shapes and dtypes, allocating nothing (the counterpart of
+# ``jax.eval_shape`` over the reference's inits)
+SHAPES_ONLY = _ShapesOnly()
+
+
 def truncated_normal(gen: torch.Generator, shape, stddev: float,
                      dtype=torch.float32) -> torch.Tensor:
     """Normal on [-2, 2] times ``stddev``, drawn in float32 on the
     generator's device (a CPU generator gives the same weights whatever
-    device they are moved to), then cast to ``dtype``."""
+    device they are moved to), then cast to ``dtype``; on the ``meta``
+    device (``SHAPES_ONLY``) the shape alone."""
     t = torch.empty(shape, dtype=torch.float32, device=gen.device)
+    if t.is_meta:
+        return t.to(dtype)
     torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
     return t.mul_(stddev).to(dtype)
 

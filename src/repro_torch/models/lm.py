@@ -101,7 +101,7 @@ def init(gen: torch.Generator, cfg: LMConfig, device="cuda") -> dict:
     host). Truncated normals as the reference's: stddev 1/sqrt(d_in) for
     the dense and expert weights, 0.02 for the embedding and head; norms
     at one."""
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     if gen.device.type != device.type:
         raise ValueError(f"the generator lives on {gen.device}, the weights go to {device}")
     dt, d = _dt(cfg), cfg.d_model
@@ -136,7 +136,7 @@ def _cache_shapes(cfg: LMConfig, n: int, batch: int, max_len: int) -> dict:
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int, device="cuda") -> dict:
     """A zeroed cache of ``max_len`` positions, a dict per layer stack."""
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     return {name: {k: torch.zeros(shape, dtype=_dt(cfg), device=device)
                    for k, shape in _cache_shapes(cfg, n, batch, max_len).items()}
             for name, n, _ in _stacks(cfg)}

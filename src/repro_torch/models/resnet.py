@@ -44,7 +44,7 @@ def init(gen: torch.Generator, cfg: VisionConfig, device="cuda") -> Tuple[dict, 
     at mean 0 and var 1), drawn from ``gen``, which must live on
     ``device``: fan-in scaled truncated normals for the convs, 0.02 for
     the head, BatchNorm scales at one and biases at zero."""
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     if gen.device.type != device.type:
         raise ValueError(f"the generator lives on {gen.device}, the weights go to {device}")
     dt = _dt(cfg)

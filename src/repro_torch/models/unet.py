@@ -42,7 +42,7 @@ def init(gen: torch.Generator, cfg: DiffusionConfig, device="cuda") -> dict:
     must live on ``device``: fan-in truncated normals for the
     convolutions and dense weights, norms at one, biases at zero; the
     reference's tree of down stages, mid block and up stages."""
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     if gen.device.type != device.type:
         raise ValueError(f"the generator lives on {gen.device}, the weights go to {device}")
     dt, ch = _dt(cfg), cfg.ch

@@ -43,7 +43,7 @@ def init(gen: torch.Generator, cfg: VisionConfig, device="cuda") -> dict:
     scaling for the patch conv and the dense weights, 0.02 for the cls
     token, the position embeddings and the head; norms at one, biases
     at zero."""
-    device = resolve_device(device)
+    device = resolve_device(device, meta=True)
     if gen.device.type != device.type:
         raise ValueError(f"the generator lives on {gen.device}, the weights go to {device}")
     dt, d, f, n = _dt(cfg), cfg.d_model, cfg.d_ff, cfg.n_layers

@@ -89,7 +89,9 @@ def adamw(lr: Union[float, Callable], b1=0.9, b2=0.999, eps=1e-8,
 
     def init(params):
         zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
-        return AdamWState(step=torch.zeros((), dtype=torch.int32),
+        # the step on the CPU; beside shape-only (meta) parameters, a shape too
+        host = "meta" if any(p.is_meta for p in T.leaves(params)) else "cpu"
+        return AdamWState(step=torch.zeros((), dtype=torch.int32, device=host),
                           mu=T.map_leaves(zeros, params), nu=T.map_leaves(zeros, params))
 
     def update(grads, state, params, in_place=False):

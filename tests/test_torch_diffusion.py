@@ -384,15 +384,15 @@ def _chip_smoke():
 
 @pytest.mark.parametrize("arch", DIFFUSION_ARCHS)
 def test_chip_smoke_counts_the_references_flops(arch):
-    """``diffusion_gflop`` is the reference's ``_dit_fwd_flops`` /
-    ``_unet_fwd_flops`` (repro/launch/steps.py) at every gen and train
-    resolution."""
+    """chip_smoke's phase 14 bound, ``launch.steps``' ``_dit_fwd_flops`` /
+    ``_unet_fwd_flops``, is the reference's (repro/launch/steps.py) at
+    every gen and train resolution."""
     from repro.launch import steps as jsteps
-    cs = _chip_smoke()
+    from repro_torch.launch import steps
     jfn = jsteps._dit_fwd_flops if arch == "dit-s2" else jsteps._unet_fwd_flops
+    fn = steps._dit_fwd_flops if arch == "dit-s2" else steps._unet_fwd_flops
     for res in (256, 512, 1024):
-        assert cs.diffusion_gflop(get_config(arch), res) * 1e9 == pytest.approx(
-            jfn(jget(arch), res), rel=1e-12)
+        assert fn(get_config(arch), res) == pytest.approx(jfn(jget(arch), res), rel=1e-12)
 
 
 @pytest.mark.parametrize("arch", DIFFUSION_ARCHS)

@@ -539,18 +539,16 @@ def test_trainer_and_main_default_to_the_card(monkeypatch):
 
 
 def test_the_references_lm_flops_formula():
-    """chip_smoke's phase 16 bound: the reference's ``model_flops`` of
-    ``train_4k`` (3x the forward's matmul FLOPs over active parameters
-    plus causal attention's half), at any batch."""
-    import importlib.util
-    from pathlib import Path
-    spec = importlib.util.spec_from_file_location(
-        "chip_smoke", Path(__file__).resolve().parents[1] / "chip_smoke.py")
-    cs = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(cs)
+    """chip_smoke's phase 16 bound, ``steps.cell_flops`` of ``train_4k``
+    at a cut batch: the reference's ``model_flops`` (3x the forward's
+    matmul FLOPs over active parameters plus causal attention's half), at
+    any batch."""
+    import dataclasses
+    from repro_torch.configs import get_shape
     for arch in DENSE + MOE:
         want = jsteps.model_flops(arch, "train_4k")
-        assert cs.lm_train_gflop(get_config(arch), 256, 4096) * 1e9 == pytest.approx(
+        shape = get_shape(arch, "train_4k")
+        assert steps.cell_flops(get_config(arch), shape) == pytest.approx(want, rel=1e-12)
+        one_row = dataclasses.replace(shape, global_batch=1)
+        assert steps.cell_flops(get_config(arch), one_row) * 256 == pytest.approx(
             want, rel=1e-12)
-        assert cs.lm_train_gflop(get_config(arch), 1, 4096) * 256 == pytest.approx(
-            want / 1e9, rel=1e-12)

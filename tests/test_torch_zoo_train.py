@@ -434,16 +434,19 @@ def test_chip_smoke_expects_the_attentions_of_a_step(arch, monkeypatch):
 
 @pytest.mark.parametrize("arch", ARCHS)
 def test_chip_smoke_counts_the_training_flops(arch):
-    """Phase 15's bound: 3x the forward's FLOPs by the reference's
-    formulas (``_vit_fwd_flops`` and the rest) at the training shape."""
+    """Phase 15's bound, ``steps.model_flops`` of the training shape
+    (``cls_224`` or ``train_256``, batch 256): 3x the forward's FLOPs by
+    the reference's formulas (``_vit_fwd_flops`` and the rest)."""
     from repro.launch import steps as jsteps
     cs = _chip_smoke()
     cfg = get_config(arch)
+    shape = cs.ZOO_SHAPE[cfg.family]
     res = 224 if cfg.family == "vision" else 256
     jfn = {"vit": jsteps._vit_fwd_flops, "convnext": jsteps._convnext_fwd_flops,
            "resnet": jsteps._resnet_fwd_flops, "dit": jsteps._dit_fwd_flops,
            "unet": jsteps._unet_fwd_flops}[cfg.kind]
-    assert cs.zoo_gflop(cfg, res) * 1e9 == pytest.approx(jfn(jget(arch), res), rel=1e-12)
+    assert steps.model_flops(arch, shape) == pytest.approx(
+        3 * cs.ZOO_BATCH * jfn(jget(arch), res), rel=1e-12)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
