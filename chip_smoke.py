@@ -272,7 +272,26 @@ nothing of JAX or of the reference package ``repro``. Phases:
    step against its byte bound, the cache written at ``pos`` only,
    checked), and ViT-L/16's ``serve_b128`` and one DDIM step of DiT-S/2's
    ``gen_fast``, uncut, through their plans, each bit-equal to the direct
-   model call (checked).
+   model call (checked);
+18. the mesh layer on a one-rank mesh: a one-rank NCCL group from a
+   ``file://`` store in a temporary directory (no network), ``launch.mesh
+   .make_test_mesh(1)``, a (1, 1) ("data", "model") DeviceMesh on the
+   card; the serve cell of both counters at ``tiles_416_b256`` (phase
+   17b's tiles and weights), qwen3-8b's ``prefill_32k`` cut to
+   PREFILL_ROWS, and DiT-S/2's ``train_256`` (two donated steps: flash's
+   forward and backward, AdamW writing into DTensors) run through their
+   plans built on the mesh (``build_cell(..., mesh)``) on inputs placed by
+   the plan's ``in_shardings`` (``steps.place_inputs``), beside their
+   plain plans on the same inputs: outputs (``full_tensor``) bit-equal
+   to the plain plan's, ``LaunchGuard`` over a steady step of each with
+   the same launches by entry as the plain plan's, 0 builds, 0 new
+   segments, the serve step 0 syncs (checked); ms a step and the host's
+   ms to enqueue one, plain and sharded (DTensor's host cost); the dry
+   run of each cell on the ``one`` mesh (``launch.dryrun``, in CPU
+   subprocesses on a ``fake`` group: PyTorch's private
+   ``torch.testing._internal.distributed.fake_pg``, whose absence fails
+   the run) with its argument bytes against the placed inputs' (checked
+   equal) and its peak beside the card's ``max_memory_allocated``.
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
@@ -283,7 +302,8 @@ phase 8, serve's Missions of phase 9, phase 10's runs, phase 11's
 monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
 forwards of phase 13, the diffusion samples of phase 14a-b, the first
 training step of each model in phases 15 and 16, phase 17's counted
-serve steps, prefill and plan calls and ``int8_matmul``'s one path;
+serve steps, prefill and plan calls, phase 18's counted sharded serve
+steps, prefill and training steps, and ``int8_matmul``'s one path;
 ``flash_attention``'s entries include its backward's twelve, from
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``),
 then the
@@ -4172,6 +4192,336 @@ def phase_cells(dev, mission_kernels, flash):
 
 
 # ---------------------------------------------------------------------------
+# phase 18: the mesh layer on a one-rank mesh
+# ---------------------------------------------------------------------------
+
+# the cells run through their mesh plans: (arch, shape, batch cut or None)
+MESH_CELLS = (("targetfuse-space", "tiles_416_b256", None),
+              ("targetfuse-ground", "tiles_416_b256", None),
+              (CELL_LM, "prefill_32k", PREFILL_ROWS), ("dit-s2", "train_256", None))
+# steps timed by CUDA events, plain and sharded, for the serve and training
+# cells (the prefill: one each)
+MESH_REPS, MESH_TRAIN_STEPS = 5, 2
+
+
+def mesh_group():
+    """A one-rank NCCL default group from a ``file://`` store in a
+    temporary directory -> (the (1, 1) ("data", "model") DeviceMesh on the
+    card, the directory)."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_test_mesh
+    d = tempfile.mkdtemp(prefix="mesh_store_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return make_test_mesh(1), d
+
+
+def mesh_dryruns():
+    """The dry run of each MESH_CELLS cell on the ``one`` mesh, each in a
+    CPU subprocess (no card) at low priority -> the processes; the phase
+    waits for them before it times a step."""
+    import os
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), CUDA_VISIBLE_DEVICES="")
+    procs = []
+    for arch, shape, batch in MESH_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape",
+               shape, "--mesh", "one"] + ([] if batch is None else ["--batch", str(batch)])
+        procs.append(subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=subprocess.PIPE,
+                                      stderr=subprocess.STDOUT, text=True,
+                                      preexec_fn=lambda: os.nice(10)))
+    return procs
+
+
+def mesh_dryrun_records(procs):
+    """Wait for the dry runs -> {(arch, shape): record}; a failed one
+    fails the phase."""
+    out = {}
+    for (arch, shape, batch), p in zip(MESH_CELLS, procs):
+        text, _ = p.communicate(timeout=600)
+        check(p.returncode == 0 and f"[ok] {arch} x {shape} @ one" in text,
+              f"18: the dry run of {arch} {shape} failed: {text[-2000:]}")
+        tag = "__unroll-True" + ("" if batch is None else f"__b{batch}")
+        with open(ROOT / "artifacts" / "dryrun_torch" / "one" / f"{arch}__{shape}{tag}.json") as f:
+            out[arch, shape] = json.load(f)
+    return out
+
+
+def _full(tree):
+    from repro_torch import tree as T
+    from repro_torch.sharding.place import full
+    return T.leaves(full(tree))
+
+
+def _tl(tree):
+    from repro_torch import tree as T
+    return T.leaves(tree)
+
+
+def mesh_times(fn, reps):
+    """-> (device ms a step by CUDA events over ``reps`` steps, the host's
+    ms to enqueue one step: the mean wall time of the calls, the card kept
+    busy by the queue)."""
+    import torch
+    torch.cuda.synchronize()
+    events = [torch.cuda.Event(enable_timing=True) for _ in range(reps + 1)]
+    host = []
+    events[0].record()
+    for e in events[1:]:
+        t0 = time.perf_counter()
+        fn()
+        host.append(time.perf_counter() - t0)
+        e.record()
+    torch.cuda.synchronize()
+    ms = [a.elapsed_time(e) for a, e in zip(events, events[1:])]
+    return sum(ms) / len(ms), 1e3 * sum(host) / len(host)
+
+
+def mesh_guarded(label, fn, warmup):
+    """``fn`` once under LaunchGuard after ``warmup`` calls -> the guard."""
+    import torch
+    from repro_torch.analysis import LaunchGuard
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with LaunchGuard(label) as guard:
+        fn()
+    torch.cuda.synchronize()
+    return guard
+
+
+def mesh_report(key, plain_fn, mesh_fn, reps, args_bytes, rows, syncs_zero):
+    """Both plans' guarded steps (same launches by entry, 0 builds and 0
+    new segments on the mesh; the serve step 0 syncs: checked), their
+    timings and the mesh step's peak -> the row for the table."""
+    import torch
+    warmup = GUARD_WARMUP if reps > 1 else 1   # the prefill: one warm call after the cache is emptied
+    gp = mesh_guarded(f"18 {key} plain step", plain_fn, warmup)
+    gm = mesh_guarded(f"18 {key} mesh step", mesh_fn, warmup)
+    check(gm.launches == gp.launches, f"18 {key}: launches by entry on the mesh {gm.launches}, "
+          f"plain {gp.launches}")
+    gm.assert_steady_state()
+    if syncs_zero:
+        check(gm.syncs == 0, f"18 {key}: the mesh step synced: {gm.sync_sites}")
+    plain_ms, plain_host = mesh_times(plain_fn, reps)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    mesh_ms, mesh_host = mesh_times(mesh_fn, reps)
+    peak = torch.cuda.max_memory_allocated()
+    rows[key] = dict(plain_ms=plain_ms, mesh_ms=mesh_ms, plain_host_ms=plain_host,
+                     mesh_host_ms=mesh_host, peak=peak, args_bytes=args_bytes,
+                     syncs=(gp.syncs, gm.syncs), launches=gm.launches)
+    print(f"18 {key}: ms a step plain {plain_ms:.4f}, on the mesh {mesh_ms:.4f} "
+          f"({mesh_ms / plain_ms:.3f}x); host ms to enqueue a step plain {plain_host:.4f}, on "
+          f"the mesh {mesh_host:.4f}; peak {peak / 1e9:.2f} GB; guard on the mesh: builds "
+          f"{gm.builds} new segments {gm.new_segments} syncs {gm.syncs} (plain {gp.syncs}); "
+          f"launches by entry {json.dumps(gm.launches)}", flush=True)
+
+
+def _placed_bytes(args):
+    from repro_torch.sharding.local import is_dtensor
+    total = 0
+    for x in _tl(args):
+        if hasattr(x, "element_size"):
+            x = x.to_local() if is_dtensor(x) else x
+            total += x.numel() * x.element_size()
+        elif isinstance(x, int):
+            total += 4   # a host scalar: the reference's int32
+    return total
+
+
+def mesh_serve(mesh, kernels, params, tiles, centroids, arch, rows):
+    """The serve cell on the mesh -> launches by entry of its counted step."""
+    import torch
+    from repro_torch.launch import steps
+    plain = steps.build_cell(arch, "tiles_416_b256")
+    on = steps.build_cell(arch, "tiles_416_b256", mesh)
+    args = steps.place_inputs(on, params, tiles, centroids, src_data_rank=None)
+    want = plain.fn(params, tiles, centroids)
+    on.fn(*args)   # warm-up
+    torch.cuda.synchronize()
+    for k in kernels:
+        k.reset()
+    got = on.fn(*args)
+    torch.cuda.synchronize()
+    took = {s: n for k in kernels for s, n in k.symbol_launches.items() if n}
+    same = all(bit_equal(a, b) for a, b in zip(_full(got), _tl(want)))
+    print(f"18 {arch} tiles_416_b256 on the mesh: outputs bit-equal to the plain plan's "
+          f"{same}; launches by entry {took}", flush=True)
+    check(same, f"18 {arch}: the mesh plan's outputs differ from the plain plan's")
+    check(took == {"tile_moments_f32": 1, "kmeans_assign_f32": 1, "nms_keep_f32": 1},
+          f"18 {arch}: launches by entry {took}")
+    del got, want
+    mesh_report((arch, "tiles_416_b256"), lambda: plain.fn(params, tiles, centroids),
+                lambda: on.fn(*args), MESH_REPS, _placed_bytes(args), rows, True)
+    return took
+
+
+def mesh_prefill(dev, mesh, flash, rows):
+    """qwen3-8b's prefill_32k cut to PREFILL_ROWS on the mesh -> launches
+    by entry of its counted prefill."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import steps
+    from repro_torch.models import lm
+    cfg = get_config(CELL_LM)
+    shape = dataclasses.replace(get_shape(CELL_LM, "prefill_32k"), global_batch=PREFILL_ROWS)
+    params = lm.init(torch.Generator(device=dev).manual_seed(SEED), cfg, device=dev)
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    tokens = torch.randint(0, cfg.vocab_size, (PREFILL_ROWS, shape.seq_len), generator=g,
+                           device=dev, dtype=torch.int32)   # the plan's dtype
+    plain = steps.build_plan(cfg, shape, CELL_LM)
+    on = steps.build_plan(cfg, shape, CELL_LM, mesh)
+    args = steps.place_inputs(on, params, tokens, src_data_rank=None)
+    print(f"18 prefill: memory_allocated with the weights {torch.cuda.memory_allocated() / 1e9:.2f}"
+          f" GB", flush=True)
+    want = _tl(plain.fn(params, tokens))
+    torch.cuda.synchronize()
+    flash.reset()
+    got = _tl(on.fn(*args))
+    torch.cuda.synchronize()
+    took = {k: n for k, n in flash.symbol_launches.items() if n}
+    # on the one-rank mesh a DTensor's shard is the whole tensor; the
+    # 4.8 GB cache is compared in place (no gathered or masked copies)
+    from torch.distributed.tensor import Replicate
+    check(all(isinstance(p, Replicate) for x in got for p in x.placements),
+          "18 prefill: an output is not replicated on the one-rank mesh")
+    same = all(torch.equal(a.to_local(), b) for a, b in zip(got, want))
+    print(f"18 {CELL_LM} prefill_32k (batch {PREFILL_ROWS}) on the mesh: logits and cache "
+          f"bit-equal to the plain plan's {same}; flash launches by entry {took}", flush=True)
+    check(same and took == {TC_SYMBOL: cfg.n_layers},
+          f"18 prefill: outputs differ ({same}) or flash launches {took}")
+    del got, want
+    mesh_report((CELL_LM, "prefill_32k"), lambda: plain.fn(params, tokens),
+                lambda: on.fn(*args), 1, _placed_bytes(args), rows, False)
+    del params, args
+    torch.cuda.empty_cache()
+    return took
+
+
+def mesh_train(dev, mesh, libs, rows):
+    """DiT-S/2's train_256 on the mesh: MESH_TRAIN_STEPS donated steps
+    from the same state as the plain plan's, losses and state bit-equal
+    after each -> launches by entry of the mesh plan's first step."""
+    import torch
+    from repro_torch import tree
+    from repro_torch.configs import get_config, get_shape
+    from repro_torch.launch import steps
+    arch, shape = "dit-s2", get_shape("dit-s2", "train_256")
+    cfg = get_config(arch)
+    params, latents, cond = diffusion_setup(dev, cfg, shape.global_batch, shape.img_res,
+                                            SEED + 18)
+    cond = cond.int()   # the plan's dtype
+    from repro_torch.models import diffusion
+    g = torch.Generator(device=dev).manual_seed(SEED + 18)
+    batch = (latents, cond, *diffusion.draw_train_inputs(latents, g))
+    plain = steps.build_plan(cfg, shape, arch)
+    on = steps.build_plan(cfg, shape, arch, mesh)
+    copy = lambda t: tree.map_leaves(lambda x: x.clone(), t)
+    ps, os_ = copy(params), steps.opt_init(params)
+    ms, mo, *rest = steps.place_inputs(on, copy(params), steps.opt_init(params), *batch,
+                                       src_data_rank=None)
+    same, took = True, None
+    for i in range(MESH_TRAIN_STEPS):
+        ps, os_, lp = plain.fn(ps, os_, *batch)
+        torch.cuda.synchronize()
+        for k in libs:
+            k.reset()
+        ms, mo, lm_ = on.fn(ms, mo, *rest)
+        torch.cuda.synchronize()
+        if took is None:
+            took = {s: n for k in libs for s, n in k.symbol_launches.items() if n}
+        same = same and bit_equal(lm_.full_tensor(), lp) and all(
+            bit_equal(a, b) for a, b in zip(_full((ms, mo)), _tl((ps, os_))))
+    print(f"18 {arch} train_256 on the mesh: {MESH_TRAIN_STEPS} donated steps, losses and state "
+          f"bit-equal to the plain plan's after each {same}; launches by entry of the first "
+          f"{took}", flush=True)
+    check(same, "18 dit-s2: the mesh plan's steps differ from the plain plan's")
+    state_p, state_m = [ps, os_], [ms, mo]
+
+    def plain_step():
+        state_p[0], state_p[1], _ = plain.fn(*state_p, *batch)
+
+    def mesh_step():
+        state_m[0], state_m[1], _ = on.fn(*state_m, *rest)
+    mesh_report((arch, "train_256"), plain_step, mesh_step, MESH_REPS,
+                _placed_bytes((ms, mo, *rest)), rows, False)
+    del params, ps, os_, ms, mo, state_p, state_m
+    torch.cuda.empty_cache()
+    return took
+
+
+def phase_mesh(dev, mission_kernels, flash, bwd_libs):
+    """Phase 18 -> (launches by kernel in its counted sharded steps, the
+    same by entry)."""
+    import shutil
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import ref
+    import torch.testing._internal.distributed.fake_pg  # noqa: F401 (the dry run needs it)
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"18: memory_allocated at the start {torch.cuda.memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    rows, entries, store = {}, {}, None
+
+    def add(got):
+        for sym, n in got.items():
+            entries[sym] = entries.get(sym, 0) + n
+    procs = mesh_dryruns()
+    try:
+        mesh, store = mesh_group()
+        print(f"18: mesh {mesh}", flush=True)
+        # the dry runs end before any step is timed: they share the host's cores
+        t1 = time.perf_counter()
+        records = mesh_dryrun_records(procs)
+        print(f"18: waited {time.perf_counter() - t1:.1f} s for the dry runs", flush=True)
+        tiles = serve_tiles(dev)
+        g = torch.Generator(device=dev).manual_seed(SEED + 17)
+        feats = ref.tile_moments(tiles)
+        pick = torch.randperm(len(feats), generator=g, device=dev)[:64]
+        centroids = feats[pick] + 0.05 * torch.randn((64, feats.shape[1]), generator=g,
+                                                     device=dev)
+        cfgs = (get_config("targetfuse-space"), get_config("targetfuse-ground"))
+        for params, cfg in counters(cfgs, dev, SERVE_HEAD_SCALE, SERVE_OBJ_BIAS):
+            add(mesh_serve(mesh, mission_kernels, params, tiles, centroids, cfg.name, rows))
+        del tiles, feats, centroids
+        torch.cuda.empty_cache()
+        add(mesh_prefill(dev, mesh, flash, rows))
+        add(mesh_train(dev, mesh, [flash, *bwd_libs], rows))
+    finally:
+        for p in procs:   # a dry run left by a failure
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        if store is not None:
+            shutil.rmtree(store, ignore_errors=True)
+    for (arch, shape, _), rec in zip(MESH_CELLS, records.values()):
+        row, m = rows[arch, shape], rec["memory_analysis"]
+        print(f"18 {arch} {shape}: the dry run on the one mesh (CPU, fake group): argument bytes "
+              f"{m['argument_bytes']} (the placed inputs {row['args_bytes']}), peak "
+              f"{m['peak_bytes'] / 1e9:.2f} GB against the card's max_memory_allocated "
+              f"{row['peak'] / 1e9:.2f} GB (ratio {row['peak'] / m['peak_bytes']:.3f}); "
+              f"{rec['local_ops']} local ops traced in {rec['trace_s']:.1f} s", flush=True)
+        check(m["argument_bytes"] == row["args_bytes"],
+              f"18 {arch} {shape}: the dry run's argument bytes {m['argument_bytes']} != the "
+              f"placed inputs' {row['args_bytes']}")
+    print(f"phase 18: {time.perf_counter() - t0:.1f} s", flush=True)
+    by_kernel = {k.name: sum(entries.get(s, 0) for s in k.symbol_launches)
+                 for k in (*mission_kernels, flash)}
+    return by_kernel, entries
+
+
+# ---------------------------------------------------------------------------
 # phase 9: counter training
 # ---------------------------------------------------------------------------
 
@@ -5066,6 +5416,17 @@ def main():
     for sym, n in cell_entries.items():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase cells: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    mesh_launches, mesh_entries = phase_mesh(dev, mission_kernels, kernel["flash_attention"],
+                                             bwd_libs)
+    # the row's top-level count is csrc/flash_attention.cu's (the forward)
+    launches["flash_attention"] += sum(n for sym, n in mesh_entries.items()
+                                       if not any(sym in k.symbol_launches for k in bwd_libs))
+    for name in ("tile_moments", "kmeans_assign", "iou"):
+        launches[name] += mesh_launches[name]
+    for sym, n in mesh_entries.items():
+        entry_launches[sym] = entry_launches.get(sym, 0) + n
+    print(f"phase mesh: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

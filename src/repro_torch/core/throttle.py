@@ -21,6 +21,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.sharding.local import is_dtensor, local_op, refill, replicated
+
 POLICIES = ("low_conf_first", "fixed_conf", "dynamic_conf")
 
 
@@ -45,6 +47,16 @@ def throttle(conf, sizes, budget_bytes, conf_p: float, conf_q: float,
     """
     if policy not in POLICIES:
         raise ValueError(f"unknown policy {policy!r}")
+    if any(is_dtensor(t) for t in (conf, sizes, active)):
+        # the budget fill ranks every tile: it runs on the whole (N,) arrays
+        mesh = next(t for t in (conf, sizes, active) if is_dtensor(t)).device_mesh
+        r = replicated(mesh)
+        tensors = [t for t in (conf, sizes, active) if isinstance(t, torch.Tensor)]
+
+        def whole(*ts):
+            c, s, a = refill(ts, (conf, sizes, active))
+            return tuple(throttle(c, s, budget_bytes, conf_p, conf_q, policy, a))
+        return ThrottleResult(*local_op(whole, tensors, mesh, (r,) * len(tensors), (r,) * 5))
     conf, sizes = _f32(conf), _f32(sizes)
     budget, conf_p, conf_q = _f32(budget_bytes), _f32(conf_p), _f32(conf_q)
     n = conf.shape[0]

@@ -1,8 +1,8 @@
 """The cell layer: (arch x input shape) -> a step and its inputs, and
 the training steps of every family.
 
-Counterpart of ``repro/launch/steps.py`` without its shardings and
-meshes. :func:`build_cell` returns a :class:`CellPlan`: the step of one
+Counterpart of ``repro/launch/steps.py``. :func:`build_cell` returns
+a :class:`CellPlan`: the step of one
 cell of the model configurations' shape sets (``configs.all_cells()``
 and the counters' ``DETECTOR_SHAPES``), its input tree of ``meta``
 tensors (shapes and dtypes in JAX's leaf order, :mod:`repro_torch.tree`)
@@ -11,7 +11,10 @@ alone and :func:`model_flops` a cell's useful FLOPs by the reference's
 formulas. Nothing is allocated: the parameter, optimizer and cache trees
 come from the inits on the ``meta`` device (``layers.SHAPES_ONLY``),
 the counterpart of ``jax.eval_shape``. A plan's ``fn`` runs where its
-inputs are (a card or the CPU) and refuses ``meta`` inputs.
+inputs are (a card or the CPU) and refuses ``meta`` inputs. On a mesh
+(``build_cell(arch, shape, mesh)``) the plan also holds the reference's
+``in_shardings`` and ``out_shardings`` and its step runs on DTensors
+(:func:`place_inputs`).
 
 The cells: an LM's ``train`` (:func:`lm_train`), ``prefill``
 (``lm.prefill``) and ``decode`` (``lm.decode_step``); a vision model's
@@ -76,7 +79,12 @@ from repro_torch.core.throttle import throttle
 from repro_torch.kernels import ops as kops
 from repro_torch.models import convnext, detector, diffusion, dit, lm, resnet, unet, vit
 from repro_torch.models import layers as L
-from repro_torch.optim.adamw import adamw
+from repro_torch.optim.adamw import AdamWState, adamw
+from repro_torch.sharding import NamedSharding, P, axis_sizes
+from repro_torch.sharding import ctx
+from repro_torch.sharding import policy as pol
+from repro_torch.sharding.place import distribute
+from repro_torch.sharding.rules import param_specs
 
 
 def ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -89,8 +97,14 @@ def ce(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
 def _donate(old, new):
     """``new``'s leaves copied into ``old``'s tensors -> ``old`` (ResNet's
     running statistics)."""
+    from torch.distributed.tensor import DTensor
     with torch.no_grad():
-        torch._foreach_copy_(T.leaves(old), T.leaves(new))
+        olds, news = T.leaves(old), T.leaves(new)
+        if any(isinstance(x, DTensor) for x in olds):   # on a mesh: shard by shard
+            for o, n in zip(olds, news):
+                o.to_local().copy_(n.redistribute(o.device_mesh, o.placements).to_local())
+        else:
+            torch._foreach_copy_(olds, news)
     return old
 
 
@@ -240,16 +254,27 @@ class CellPlan:
     ``tiles``, ``kind``, ``steps``, ``cache_len``) and ``host_scalars``,
     the positions of the 0-d int32 arguments that the step reads as host
     ints (a decode's ``pos``, a DDIM step's ``t_cur`` and ``t_prev``):
-    pass them as CPU tensors or ints, so reading them waits on no card."""
+    pass them as CPU tensors or ints, so reading them waits on no card.
+
+    A plan built on a mesh also holds ``mesh`` and the reference's
+    ``in_shardings`` and ``out_shardings``: trees of
+    :class:`~repro_torch.sharding.NamedSharding` (a spec, :class:`P`, and
+    its DTensor placements on ``mesh``) shaped like ``args`` and like the
+    step's outputs, in JAX's leaf order. Its ``fn`` takes inputs placed by
+    :func:`place_inputs` and returns DTensors laid out by
+    ``out_shardings``."""
     arch: str
     shape: str
     fn: Callable
     args: Tuple
     donate_argnums: Tuple[int, ...] = ()
     meta: Dict[str, Any] = field(default_factory=dict)
+    mesh: Any = None
+    in_shardings: Tuple = None
+    out_shardings: Any = None
 
 
-# build_cell's options: the reference's, less its mesh options
+# build_cell's options: the reference's; the mesh options need a mesh
 _OPTIONS = ("remat", "grad_accum", "mla_absorb", "unroll")
 _MESH_OPTIONS = ("zero1_axis", "no_pure_dp", "dp_serve")
 
@@ -449,29 +474,254 @@ _CELLS = {("lm", "train"): _lm_train, ("lm", "prefill"): _lm_prefill,
           ("detector", "serve"): _targetfuse_serve}
 
 
-def build_cell(arch: str, shape_name: str, **opts) -> CellPlan:
+# ---------------------------------------------------------------------------
+# the cells' shardings on a mesh, the reference's
+# ---------------------------------------------------------------------------
+
+
+def _replicated_specs(tree):
+    return T.map_leaves(lambda x: P(*([None] * x.ndim)), tree)
+
+
+def _state_specs(params, cfg, mesh, zero1_axis=None):
+    """Spec trees of (params, AdamW state). ZeRO-1: the moments also
+    shard over ``zero1_axis`` on their first replicated dim of a size
+    divisible by 16 (on top of the parameter's own layout)."""
+    pspec = param_specs(params, cfg, mesh)
+
+    def moment_spec(ps, leaf):
+        if zero1_axis is None:
+            return ps
+        parts = list(ps)
+        for i, axis in enumerate(parts):
+            if axis is None and leaf.shape[i] % 16 == 0:
+                parts[i] = zero1_axis
+                break
+        return P(*parts)
+    mspec = T.unflatten(params, [moment_spec(ps, x) for ps, x in
+                                 zip(T.leaves(pspec), T.leaves(params))])
+    return pspec, AdamWState(step=P(), mu=mspec, nu=mspec)
+
+
+def _pure_dp_axes(mesh, batch: int, n_params: int, max_params: float = 1.5e9):
+    """Pure data parallelism for small models: when the global batch
+    divides the whole mesh and the replicated model and optimizer fit,
+    tensor parallelism buys nothing and costs an all-reduce a layer ->
+    the batch axes, or None when pure data parallelism does not apply."""
+    if n_params > max_params:
+        return None
+    sizes = axis_sizes(mesh)
+    for axes in (("pod", "data", "model"), ("data", "model")):
+        if all(a in sizes for a in axes):
+            n = 1
+            for a in axes:
+                n *= sizes[a]
+            if batch % n == 0:
+                return axes
+    return None
+
+
+def _train_state_specs(params, cfg, mesh, batch, opts):
+    """-> (param specs, AdamW state specs, batch axes, pure data
+    parallel): the vision and diffusion training cells' layout."""
+    dp = None if opts.get("no_pure_dp") else _pure_dp_axes(mesh, batch, cfg.n_params)
+    if dp is not None:
+        pspec = _replicated_specs(params)
+        return pspec, AdamWState(step=P(), mu=pspec, nu=pspec), dp, True
+    pspec, opt_spec = _state_specs(params, cfg, mesh, opts.get("zero1_axis"))
+    return pspec, opt_spec, pol.batch_axes(mesh, batch), False
+
+
+def _bspec(ba):
+    return ba if ba else None
+
+
+def _lm_train_specs(cfg, shape, mesh, args, opts):
+    b, s = shape.global_batch, shape.seq_len
+    pspec, opt_spec = _state_specs(args[0], cfg, mesh, opts.get("zero1_axis"))
+    tok = pol.lm_specs(mesh, "train", b, s)
+    return (pspec, opt_spec, tok["tokens"], tok["labels"]), (pspec, opt_spec, P())
+
+
+def _lm_prefill_specs(cfg, shape, mesh, args, opts):
+    b, s = shape.global_batch, shape.seq_len
+    pspec = param_specs(args[0], cfg, mesh)
+    one = pol.lm_cache_spec(mesh, cfg, b, pol.cache_len_axes(mesh, b, s))
+    caches = {k: one for k in lm.init_cache(cfg, b, s, "meta")}
+    logits = P(_bspec(pol.batch_axes(mesh, b)), "model")
+    return (pspec, pol.lm_specs(mesh, "prefill", b, s)["tokens"]), (logits, caches)
+
+
+def _lm_decode_specs(cfg, shape, mesh, args, opts):
+    b, s = shape.global_batch, shape.seq_len
+    pspec = param_specs(args[0], cfg, mesh)
+    one = pol.lm_cache_spec(mesh, cfg, b, pol.cache_len_axes(mesh, b, s))
+    caches = {k: one for k in args[2]}
+    logits = P(_bspec(pol.batch_axes(mesh, b)), "model")
+    return ((pspec, pol.lm_specs(mesh, "decode", b, s)["token"], caches, P()),
+            (logits, caches))
+
+
+def _vision_train_specs(cfg, shape, mesh, args, opts):
+    b = shape.global_batch
+    pspec, opt_spec, ba, dp = _train_state_specs(args[0], cfg, mesh, b, opts)
+    img = P(ba, None, None, None) if dp else pol.image_specs(mesh, b)
+    lab = P(_bspec(ba))
+    if cfg.kind == "resnet":
+        bn = T.map_leaves(lambda _: P(None), args[1])
+        return (pspec, bn, opt_spec, img, lab), (pspec, bn, opt_spec, P())
+    return (pspec, opt_spec, img, lab), (pspec, opt_spec, P())
+
+
+def _vision_serve_specs(cfg, shape, mesh, args, opts):
+    b = shape.global_batch
+    pspec = param_specs(args[0], cfg, mesh)
+    img = pol.image_specs(mesh, b)
+    out = P(_bspec(pol.batch_axes(mesh, b)), None)
+    if cfg.kind == "resnet":
+        return (pspec, T.map_leaves(lambda _: P(None), args[1]), img), out
+    return (pspec, img), out
+
+
+def _cond_specs(cfg, bspec):
+    return P(bspec) if cfg.kind == "dit" else P(bspec, None, None)
+
+
+def _diff_train_specs(cfg, shape, mesh, args, opts):
+    """The reference's key (P(None)) is the port's ``t`` and ``noise``:
+    ``t`` laid out as the class ids, ``noise`` as the latents."""
+    b = shape.global_batch
+    pspec, opt_spec, ba, dp = _train_state_specs(args[0], cfg, mesh, b, opts)
+    lat = P(ba, None, None, None) if dp else pol.image_specs(mesh, b)
+    bspec = _bspec(ba)
+    return ((pspec, opt_spec, lat, _cond_specs(cfg, bspec), P(bspec), lat),
+            (pspec, opt_spec, P()))
+
+
+def _diff_gen_specs(cfg, shape, mesh, args, opts):
+    b = shape.global_batch
+    pspec = param_specs(args[0], cfg, mesh)
+    lat = pol.image_specs(mesh, b)
+    bspec = _bspec(pol.batch_axes(mesh, b))
+    return (pspec, lat, _cond_specs(cfg, bspec), P(), P()), lat
+
+
+def _targetfuse_serve_specs(cfg, shape, mesh, args, opts):
+    """The counter is small (~5 M parameters): sharding its channels over
+    "model" buys nothing and costs an all-reduce a convolution. When the
+    tile batch divides the whole (non-pod) mesh it runs pure data
+    parallel: the batch over ("data", "model"), the weights replicated
+    (``dp_serve``, on by default)."""
+    b = shape.global_batch
+    sizes = axis_sizes(mesh)
+    dp_axes = tuple(a for a in ("data", "model") if a in sizes)
+    n_dp = 1
+    for a in dp_axes:
+        n_dp *= sizes[a]
+    if opts.get("dp_serve", True) and b % n_dp == 0:
+        pspec, ba = _replicated_specs(args[0]), dp_axes
+    else:
+        pspec, ba = param_specs(args[0], cfg, mesh), pol.batch_axes(mesh, b)
+    bspec = _bspec(ba)
+    return (pspec, P(bspec, None, None, None), P(None, None)), (P(bspec),) * 4 + (P(),)
+
+
+def _detector_train_specs(cfg, shape, mesh, args, opts):
+    b = shape.global_batch
+    pspec = param_specs(args[0], cfg, mesh)
+    ba = pol.batch_axes(mesh, b)
+    return ((pspec, AdamWState(step=P(), mu=pspec, nu=pspec), pol.image_specs(mesh, b),
+             P(_bspec(ba), None, None, None, None)),
+            (pspec, AdamWState(step=P(), mu=pspec, nu=pspec), P()))
+
+
+_SPECS = {_lm_train: _lm_train_specs, _lm_prefill: _lm_prefill_specs,
+          _lm_decode: _lm_decode_specs, _vision_train: _vision_train_specs,
+          _vision_serve: _vision_serve_specs, _diff_train: _diff_train_specs,
+          _diff_gen: _diff_gen_specs, _detector_train: _detector_train_specs,
+          _targetfuse_serve: _targetfuse_serve_specs}
+
+
+def _named(mesh, specs):
+    return T.map_leaves(lambda s: NamedSharding(mesh, s), specs)
+
+
+def _lay_out(out, shardings):
+    """The step's DTensor outputs redistributed to ``shardings`` where
+    their placements differ (the reference's ``out_shardings``)."""
+    from torch.distributed.tensor import DTensor
+    outs, want = T.leaves(out), T.leaves(shardings)
+    if len(outs) != len(want):
+        raise ValueError(f"{len(outs)} outputs for {len(want)} out_shardings")
+    laid = [x.redistribute(x.device_mesh, w.placements)
+            if isinstance(x, DTensor) and tuple(x.placements) != w.placements else x
+            for x, w in zip(outs, want)]
+    return T.unflatten(out, laid)
+
+
+def _on_mesh(plan: CellPlan, mesh, in_specs, out_specs) -> CellPlan:
+    """``plan`` laid out on ``mesh``: its step runs with ``mesh`` active
+    (the models' ``ctx.constrain`` points) under DTensor's implicit
+    replication (the plain tensors a model makes inside, positions,
+    masks, lengths, are the same on every rank), and returns its outputs
+    laid out by the out shardings."""
+    from torch.distributed.tensor.experimental import implicit_replication
+    step = plan.fn
+    out_sh = _named(mesh, out_specs)
+
+    @functools.wraps(step)
+    def run(*args):
+        with ctx.use_mesh(mesh), implicit_replication():
+            return _lay_out(step(*args), out_sh)
+    return dataclasses.replace(plan, fn=run, mesh=mesh, in_shardings=_named(mesh, in_specs),
+                               out_shardings=out_sh)
+
+
+def place_inputs(plan: CellPlan, *args, src_data_rank=0) -> tuple:
+    """Real inputs of a mesh plan's step, each tree laid out on its mesh
+    by its ``in_shardings`` (``distribute_tensor`` from ``src_data_rank``'s
+    copy; None: every rank's own, which must be the same). Host scalars
+    (0-d) stay on the host."""
+    if plan.mesh is None:
+        raise ValueError("place_inputs: the plan has no mesh")
+    return tuple(distribute(a, sh, plan.mesh, src_data_rank)
+                 for a, sh in zip(args, plan.in_shardings))
+
+
+def build_cell(arch: str, shape_name: str, mesh=None, **opts) -> CellPlan:
     """The plan of one cell, allocating nothing. Options, the reference's:
     ``remat`` (the config's ``remat`` replaced), ``grad_accum`` (an LM
     train cell's micro-batches), ``mla_absorb`` (an LM decode cell's MLA
     path, True by default) and ``unroll``, taken and unused: the port runs
     its layers in a loop, as the reference's ``scan_layers=False``, and
-    the reference's dry run passes ``unroll`` to every cell. The
-    reference's mesh options (``zero1_axis``, ``no_pure_dp``,
-    ``dp_serve``) raise ``TypeError``: the port has no mesh yet."""
-    return build_plan(get_config(arch), get_shape(arch, shape_name), arch, **opts)
+    the reference's dry run passes ``unroll`` to every cell. On a
+    ``mesh`` (a ``DeviceMesh`` with named dims, or an ``AbstractMesh``
+    for its specs alone) the plan holds the reference's shardings, and
+    the mesh options are taken: ``zero1_axis`` (the training cells'
+    moments also sharded over that axis), ``no_pure_dp`` (no pure data
+    parallelism for small vision and diffusion models) and ``dp_serve``
+    (the serve cell's pure data parallelism, on by default). Without a
+    mesh they raise ``TypeError``; ``mesh=None`` gives the plain plan."""
+    return build_plan(get_config(arch), get_shape(arch, shape_name), arch, mesh, **opts)
 
 
-def build_plan(cfg, shape: ShapeSpec, arch: str, **opts) -> CellPlan:
+def build_plan(cfg, shape: ShapeSpec, arch: str, mesh=None, **opts) -> CellPlan:
     """:func:`build_cell` of ``arch``'s config and shape, for a cell cut
     in depth (``cfg.n_layers``) or batch (``shape.global_batch``)."""
     for k in opts:
         if k in _MESH_OPTIONS:
-            raise TypeError(f"build_cell: {k!r} is a mesh option, and the port has no mesh")
-        if k not in _OPTIONS:
+            if mesh is None:
+                raise TypeError(f"build_cell: {k!r} is a mesh option, and no mesh was given")
+        elif k not in _OPTIONS:
             raise TypeError(f"build_cell: unknown option {k!r}")
     if opts.get("remat"):
         cfg = dataclasses.replace(cfg, remat=opts["remat"])
-    return _CELLS[cfg.family, shape.kind](arch, cfg, shape, opts)
+    cell = _CELLS[cfg.family, shape.kind]
+    plan = cell(arch, cfg, shape, opts)
+    if mesh is None:
+        return plan
+    in_specs, out_specs = _SPECS[cell](cfg, shape, mesh, plan.args, opts)
+    return _on_mesh(plan, mesh, in_specs, out_specs)
 
 
 def input_specs(arch: str, shape_name: str) -> Tuple:

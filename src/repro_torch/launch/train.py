@@ -12,8 +12,9 @@ every ``--ckpt-every`` steps into ``--ckpt-dir`` (by default
 that holds one resumes from its latest step; ``--compress`` sends each
 gradient through the int8 codec (``optim/compress.py``), what the wire
 would see under compressed data parallelism. Runs on the card unless
-``--device cpu``. The port runs on one card, so the reference's mesh and
-shardings have no counterpart.
+``--device cpu``. ``build_lm_trainer`` takes the reference's mesh: the
+state laid out by ``sharding.rules.param_shardings`` (:func:`place_state`),
+the batch over the data axes.
 """
 from __future__ import annotations
 
@@ -36,30 +37,62 @@ CKPT_DIR = os.path.join(os.path.dirname(__file__), "..", "..", "..",
                         "artifacts", "lm_train_torch")
 
 
-def build_lm_trainer(cfg, lr: float = 3e-4, total_steps: int = 100, compress: bool = False,
-                     device="cuda"):
-    """-> (step_fn, opt_init), the reference's ``build_lm_trainer`` without
-    its mesh: ``step_fn(state, batch) -> (state, loss)`` for
+def place_state(params, cfg, mesh):
+    """``params`` laid out on ``mesh`` by the rules
+    (``sharding.rules.param_shardings``): the state a mesh trainer takes.
+    Every rank passes the same values (each keeps its own shards)."""
+    from repro_torch.sharding.place import distribute
+    from repro_torch.sharding.rules import param_specs
+    return distribute(params, param_specs(params, cfg, mesh), mesh, src_data_rank=None)
+
+
+def build_lm_trainer(cfg, mesh=None, lr: float = 3e-4, total_steps: int = 100,
+                     compress: bool = False, device="cuda"):
+    """-> (step_fn, opt_init), the reference's ``build_lm_trainer``:
+    ``step_fn(state, batch) -> (state, loss)`` for
     ``run_training``, ``state = (params, opt_state, rng)`` with ``rng`` a
     ``torch.Generator``'s state (a uint8 tensor, so it is checkpointed
     with the rest; the compression's uniforms come from it, as the
     reference splits its key), ``batch = (tokens, labels)`` (B, S)
     integers (numpy or tensors), moved to ``device``. The update is
     functional: a step whose loss is not finite is dropped by the
-    supervisor and the old state kept."""
-    device = resolve_device(device)
+    supervisor and the old state kept.
+
+    On a ``mesh`` (a ``DeviceMesh`` with named dims) the parameters are
+    DTensors laid out by :func:`place_state`, ``opt_init`` lays the
+    moments out as the parameters, and each step puts its batch's rows
+    over the data axes (``sharding.policy.lm_specs``) and runs with the
+    mesh active, on the mesh's device type. ``compress`` draws one
+    uniform a gradient element, which a sharded gradient would draw
+    otherwise: with a mesh it raises."""
+    if mesh is not None and compress:
+        raise NotImplementedError("build_lm_trainer: compress on a mesh")
+    device = resolve_device(device if mesh is None else mesh.device_type)
     opt_init, opt_update = adamw(cosine_with_warmup(lr, 10, total_steps))
+
+    def grads_of(params, tokens, labels):
+        if mesh is None:
+            return value_and_grad(lambda p: lm.loss_fn(p, cfg, tokens, labels), params)[:2]
+        from torch.distributed.tensor.experimental import implicit_replication
+        from repro_torch.sharding import ctx, policy
+        from repro_torch.sharding.place import distribute
+        spec = policy.lm_specs(mesh, "train", *tokens.shape)["tokens"]
+        tokens, labels = distribute((tokens, labels), spec, mesh, src_data_rank=None)
+        with ctx.use_mesh(mesh), implicit_replication():
+            return value_and_grad(lambda p: lm.loss_fn(p, cfg, tokens, labels), params)[:2]
 
     def step_fn(state, batch):
         params, opt_state, rng = state
         tokens, labels = (torch.as_tensor(np.asarray(x)).to(device) for x in batch)
-        loss, grads, _ = value_and_grad(lambda p: lm.loss_fn(p, cfg, tokens, labels), params)
+        loss, grads = grads_of(params, tokens, labels)
         if compress:
             gen = torch.Generator(device=device)
             gen.set_state(rng)
             grads = int8_roundtrip_tree(grads, gen)
             rng = gen.get_state()
         params, opt_state, _ = opt_update(grads, opt_state, params)
+        if mesh is not None:
+            loss = loss.full_tensor()
         return (params, opt_state, rng), loss
 
     return step_fn, opt_init

@@ -85,11 +85,19 @@ def train_loss(eps_fn: Callable, latents: torch.Tensor, t: torch.Tensor,
     return torch.mean(torch.square(eps_fn(x_t, t) - noise))
 
 
+@functools.lru_cache(maxsize=None)
+def coef_table(n: int = N_TRAIN_STEPS) -> tuple:
+    """(sqrt(a_t), sqrt(1 - a_t)) for t in [0, n), float32 on the CPU, as
+    host floats: read on the host with no tensor op (a dry run's fake
+    tensors hold no values)."""
+    a = _alphas_cumprod_cpu(n)
+    return tuple(zip(torch.sqrt(a).tolist(), torch.sqrt(1 - a).tolist()))
+
+
 def _coefs(t: int):
     """(sqrt(a_t), sqrt(1 - a_t)) in float32, as host floats; a_t = 1
     for t < 0."""
-    a = _alphas_cumprod_cpu(N_TRAIN_STEPS)[t] if t >= 0 else torch.tensor(1.0)
-    return torch.sqrt(a).item(), torch.sqrt(1 - a).item()
+    return coef_table()[t] if t >= 0 else (1.0, 0.0)
 
 
 def ddim_step(eps_fn: Callable, x: torch.Tensor, t_cur: int, t_prev: int) -> torch.Tensor:

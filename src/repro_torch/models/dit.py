@@ -30,6 +30,7 @@ from repro_torch.configs.base import DiffusionConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding import ctx as mesh_ctx
 from repro_torch.tree import from_numpy  # noqa: F401  (the weight bridge)
 
 # the leaves init sets to zero (adaLN-Zero): (blocks' leaves, top-level leaves)
@@ -93,7 +94,7 @@ def attention_inputs(h: torch.Tensor, wqkv: torch.Tensor, n_heads: int):
     kernel reads contiguous tensors; the reference's split gives strided
     views)."""
     b, s, d = h.shape
-    qkv = (h @ wqkv).reshape(b, s, 3 * n_heads, d // n_heads)
+    qkv = mesh_ctx.split_heads(h @ wqkv, b, s, 3 * n_heads, d // n_heads)
     return [t.contiguous() for t in torch.split(qkv, n_heads, dim=2)]
 
 
@@ -103,10 +104,18 @@ def _block(p: dict, cfg: DiffusionConfig, x: torch.Tensor, cond: torch.Tensor) -
     sh1, sc1, g1, sh2, sc2, g2 = torch.chunk(ada, 6, dim=-1)
     q, k, v = attention_inputs(_modulate(_ln(x), sh1, sc1), p["wqkv"], cfg.n_heads)
     a = kops.attention(q, k, v, causal=False).reshape(b, s, d)
-    x = x + g1[:, None, :] * (a @ p["wo"])
+    x = x + g1[:, None, :] * _rows(a @ p["wo"])
     h = _modulate(_ln(x), sh2, sc2)
-    h = L.gelu(h @ p["w_in"]) @ p["w_out"]
+    h = _rows(L.gelu(h @ p["w_in"]) @ p["w_out"])
     return x + g2[:, None, :] * h
+
+
+def _rows(y: torch.Tensor) -> torch.Tensor:
+    """A row-parallel product's output (a partial sum on a mesh) reduced
+    whole on "model", the rows over the data axes; off a mesh, y. DTensor
+    would reduce-scatter it over the tokens, and a later product cannot
+    take the tokens split over two mesh dims."""
+    return mesh_ctx.constrain(y, ("pod", "data"), None, None)
 
 
 def embed(params: dict, cfg: DiffusionConfig, latents: torch.Tensor, t: torch.Tensor,

@@ -22,6 +22,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch import tree as T
+from repro_torch.sharding.local import is_dtensor, keep, local_op, partial_where_sharded, replicated
 
 
 class _ShapesOnly:
@@ -76,7 +77,18 @@ def conv2d_nchw(x: torch.Tensor, w_oihw: torch.Tensor, stride: int = 1,
                 padding: str = "SAME", groups: int = 1):
     """Convolution of an NCHW tensor with OIHW weights, no bias, with
     XLA's ``padding`` ("SAME" or "VALID") and ``feature_group_count``
-    (``groups``: w is (C_out, C_in / groups, kh, kw))."""
+    (``groups``: w is (C_out, C_in / groups, kh, kw)).
+
+    On DTensors it runs on each rank's batch rows with the whole weight
+    (any other sharding of x, and the weight's channel sharding, are
+    gathered first): DTensor's own convolution rule refuses a batch split
+    over two mesh dims, the serve cell's pure data parallel layout."""
+    if is_dtensor(x) or is_dtensor(w_oihw):
+        pl = keep(x, (0,)) if is_dtensor(x) else replicated(w_oihw.device_mesh)
+        mesh = (x if is_dtensor(x) else w_oihw).device_mesh
+        return local_op(lambda a, b: conv2d_nchw(a, b, stride, padding, groups), (x, w_oihw),
+                        mesh, (pl, replicated(mesh)), pl,
+                        grad_pl=(pl, partial_where_sharded(pl)))
     if padding == "VALID":
         return F.conv2d(x, w_oihw, stride=stride, groups=groups)
     if padding != "SAME":

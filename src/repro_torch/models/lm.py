@@ -46,6 +46,8 @@ from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
 from repro_torch.models.moe import init_moe, moe_block
+from repro_torch.sharding import ctx
+from repro_torch.sharding.local import local_op
 from repro_torch.tree import from_numpy  # noqa: F401  (the weight bridge)
 
 
@@ -164,6 +166,19 @@ def _gqa_attend(p, cfg: LMConfig, x, positions, mode, cache=None, pos=None):
     q = L.apply_rope(q, positions, cfg.rope_theta)
     k = L.apply_rope(k, positions, cfg.rope_theta)
     if mode in ("train", "prefill"):
+        # on a mesh, the reference's layout: heads over "model" when they
+        # divide it, else the queries' sequence (k and v whole); off the
+        # mesh both are no-ops
+        msize = ctx.axis_size("model")
+        batch_ax = ("pod", "data")
+        if msize and h % msize == 0 and hk % msize == 0:
+            q = ctx.constrain(q, batch_ax, None, "model", None)
+            k = ctx.constrain(k, batch_ax, None, "model", None)
+            v = ctx.constrain(v, batch_ax, None, "model", None)
+        elif msize:
+            q = ctx.constrain(q, batch_ax, "model", None, None)
+            k = ctx.constrain(k, batch_ax, None, None, None)
+            v = ctx.constrain(v, batch_ax, None, None, None)
         o = kops.attention(q, k, v, causal=True)
         if mode == "prefill":
             cache["k"].copy_(k)
@@ -256,7 +271,7 @@ def _block(p, cfg: LMConfig, x, positions, mode, use_moe, cache=None, pos=None,
         f, aux = moe_block(p["moe"], cfg, h)
     else:
         f = L.swiglu(h, p["mlp"]["w_gate"], p["mlp"]["w_up"], p["mlp"]["w_down"])
-        aux = torch.zeros((), device=x.device)
+        aux = ctx.zeros((), torch.float32, x)
     return x + f, aux
 
 
@@ -278,14 +293,14 @@ def _trunk(params, cfg: LMConfig, x, positions, mode, caches=None, pos=None,
            absorb=True):
     """The dense stack, then the MoE stack; layer i of a stack reads slice
     i of its leaves -> (x, the layers' aux losses summed)."""
-    aux_total = torch.zeros((), device=x.device)
+    aux_total = ctx.zeros((), torch.float32, x)
     for name, n, use_moe in _stacks(cfg):
         layer_caches = [None] * n if caches is None else L.unstack(caches[name])
 
         def block(p, xb, c, use_moe=use_moe):
             return _block(p, cfg, xb, positions, mode, use_moe, c, pos, absorb)
         block = _remat(block, cfg, mode)
-        aux_stack = torch.zeros((), device=x.device)
+        aux_stack = ctx.zeros((), torch.float32, x)
         for p, c in zip(L.unstack(params[name]), layer_caches):
             x, aux = block(p, x, c)
             aux_stack = aux_stack + aux
@@ -294,6 +309,10 @@ def _trunk(params, cfg: LMConfig, x, positions, mode, caches=None, pos=None,
 
 
 def _logits(params, cfg: LMConfig, x):
+    # on a mesh the rows over the data axes and whole on "model", so that
+    # the vocabulary stays sharded as the head's weight is (DTensor would
+    # otherwise split the rows over "model" too and gather the head)
+    x = ctx.constrain(x, ("pod", "data"), None, None)
     x = L.rmsnorm(x, params["final_norm"], cfg.norm_eps)
     if cfg.tie_embeddings:
         return x @ params["embed"].T
@@ -317,6 +336,55 @@ def forward_train(params, cfg: LMConfig, tokens):
     return _logits(params, cfg, x), aux
 
 
+def _logsumexp(x):
+    """``torch.logsumexp`` over the last dim. On a DTensor whose last dim
+    (the vocabulary) is sharded, the vocab-parallel form: each shard's
+    maximum and sum of exponentials reduced across the ranks, so the
+    logits are never gathered (the gradient, exp(x - m) / s, is the
+    softmax's: m is a constant of it)."""
+    if not _vocab_sharded(x):
+        return torch.logsumexp(x, dim=-1)
+    m = ctx.settle(x.detach().amax(dim=-1))
+    return m + torch.log(ctx.settle(torch.exp(x - m[..., None]).sum(dim=-1)))
+
+
+def _vocab_sharded(x) -> bool:
+    from torch.distributed.tensor import DTensor, Shard
+    return isinstance(x, DTensor) and any(isinstance(p, Shard) and p.dim == x.ndim - 1
+                                          for p in x.placements)
+
+
+def _label_logit(logits, labels):
+    """Each position's logit of its label. On a DTensor whose vocabulary
+    is sharded, each rank gathers from its own shard where the label
+    falls in it (0 elsewhere) and the ranks' values are summed, so
+    neither the logits nor their gradient is ever gathered whole."""
+    idx = labels.long()[..., None]
+    if not _vocab_sharded(logits):
+        return torch.gather(logits, -1, idx)[..., 0]
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh, last = logits.device_mesh, logits.ndim - 1
+    pl = tuple(p if isinstance(p, Shard) else Replicate() for p in logits.placements)
+    lab = tuple(p if isinstance(p, Shard) and p.dim < last else Replicate() for p in pl)
+    out = tuple(Partial() if isinstance(p, Shard) and p.dim == last else q
+                for p, q in zip(pl, lab))
+    # this rank's vocab columns: DTensor splits a dim over its mesh dims in
+    # order, each into chunks of ceil(size / n)
+    width, start, coord = logits.shape[last], 0, mesh.get_coordinate()
+    for i, p in enumerate(pl):
+        if isinstance(p, Shard) and p.dim == last:
+            chunk = -(-width // mesh.size(i))
+            start += chunk * coord[i]
+            width = max(0, min(chunk, width - chunk * coord[i]))
+
+    def local(x, i):
+        j = i - start
+        inside = (j >= 0) & (j < width)
+        return torch.where(inside, torch.gather(x, -1, j.clamp(0, width - 1)), 0.0)[..., 0]
+    return ctx.settle(local_op(local, (logits, idx), mesh, (pl, lab), out,
+                               grad_pl=(pl, lab)))
+
+
 def loss_fn(params, cfg: LMConfig, tokens, labels):
     """tokens, labels (B, S) -> (loss, {"ce", "aux"}): the mean
     cross-entropy of the labels under float32 logits, ``logsumexp`` less
@@ -328,8 +396,8 @@ def loss_fn(params, cfg: LMConfig, tokens, labels):
     phi4-mini's 200064-token vocabulary on the card."""
     logits, aux = forward_train(params, cfg, tokens)
     logits = logits.float()
-    lse = torch.logsumexp(logits, dim=-1)
-    ll = torch.gather(logits, -1, labels.long()[..., None])[..., 0]
+    lse = _logsumexp(logits)
+    ll = _label_logit(logits, labels)
     ce = torch.mean(lse - ll)
     return ce + 0.01 * aux, {"ce": ce, "aux": aux}
 
@@ -339,7 +407,10 @@ def prefill(params, cfg: LMConfig, tokens):
     b, s = tokens.shape
     x = params["embed"][tokens]
     positions = torch.arange(s, dtype=torch.int32, device=x.device)[None, :]
-    caches = init_cache(cfg, b, s, x.device)
+    # on a mesh the cache is a DTensor, its batch over the data axes
+    caches = {name: {k: ctx.zeros(shape, _dt(cfg), x, None, ("pod", "data"))
+                     for k, shape in _cache_shapes(cfg, n, b, s).items()}
+              for name, n, _ in _stacks(cfg)}
     x, _ = _trunk(params, cfg, x, positions, "prefill", caches)
     return _logits(params, cfg, x[:, -1:, :])[:, 0], caches
 

@@ -38,6 +38,9 @@ import math
 import torch
 
 from repro_torch.models import layers as L
+from repro_torch.sharding import ctx
+from repro_torch.sharding.local import (is_dtensor, keep, local_op, partial_where_sharded,
+                                        replicated)
 
 GROUP = 4096  # max tokens per dispatch group
 
@@ -170,6 +173,51 @@ def _combine(y_flat, meta, s, k):
     return out
 
 
+def _dispatch_on_mesh(xg, probs, k, n_exp, cap):
+    """:func:`_dispatch` of DTensors: a group routes its own tokens, so
+    it runs on each rank's groups (the groups' sharding kept, any other
+    gathered); buf and meta come back sharded as the groups."""
+    pl = keep(xg, (0,))
+    out = local_op(lambda a, b: _flat(_dispatch(a, b, k, n_exp, cap)), (xg, probs),
+                   xg.device_mesh, (pl, pl), (pl,) * 11)
+    buf, order, slot, valid, topw, tok, *routes = out
+    return buf, (order, slot, valid, topw, tok, tuple(routes))
+
+
+def _flat(dispatched):
+    buf, (order, slot, valid, topw, tok, routes) = dispatched
+    return (buf, order, slot, valid, topw, tok, *routes)
+
+
+def _combine_on_mesh(y_flat, meta, s, k):
+    """:func:`_combine` of DTensors, on each rank's groups (all the
+    experts' outputs of a group gathered to it)."""
+    pl = keep(meta[0], (0,))
+    flat = (meta[0], meta[1], meta[2], meta[3], meta[4], *meta[5])
+
+    def run(y, *m):
+        return _combine(y, (m[0], m[1], m[2], m[3], m[4], tuple(m[5:])), s, k)
+    return local_op(run, (y_flat, *flat), y_flat.device_mesh, (pl,) * (1 + len(flat)), pl)
+
+
+def _experts_on_mesh(p, bufs):
+    """:func:`_experts` of a DTensor ``bufs`` laid out (groups, experts):
+    each rank runs its experts' shard of the weights on its groups'
+    shard of the buffers, the reference's expert parallelism. The
+    weights follow the buffers' expert sharding (gathered where they
+    are sharded and the buffers are not); their gradients are partial
+    sums over the mesh dims that split the groups."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    pl = keep(bufs, (0, 1))
+    w_pl = tuple(Shard(0) if x == Shard(1) else Replicate() for x in pl)
+    w_grad = tuple(Shard(0) if x == Shard(1) else Partial() if x == Shard(0) else Replicate()
+                   for x in pl)
+    names = ("w_gate", "w_up", "w_down")
+    return local_op(lambda b, *w: _experts(dict(zip(names, w)), b),
+                    (bufs, *(p[n] for n in names)), bufs.device_mesh, (pl,) + (w_pl,) * 3, pl,
+                    grad_pl=(pl,) + (w_grad,) * 3)
+
+
 def _experts(p, bufs):
     """bufs (G, E, C, D) -> (G, E, C, D): each expert's SwiGLU, as three
     batched products over E (the groups side by side)."""
@@ -186,18 +234,34 @@ def moe_block(p, cfg, x):
     e = cfg.moe
     b, s, d = x.shape
     n_groups, group = _group_shape(b * s)
-    xf = x.reshape(n_groups, group, d)
+    # on a mesh, the groups over the data axes (a reshape of batch-sharded
+    # rows may leave a strided layout that the router's product cannot take)
+    xf = ctx.constrain(x.reshape(n_groups, group, d), ("pod", "data"), None, None)
 
     et = n_experts_padded(e)
-    logits = xf.float() @ p["router"]
+    if is_dtensor(xf):   # on each rank's groups (the router whole)
+        pl = keep(xf, (0,))
+        logits = local_op(lambda a, w: a.float() @ w, (xf, p["router"]), xf.device_mesh,
+                          (pl, replicated(xf.device_mesh)), pl,
+                          grad_pl=(pl, partial_where_sharded(pl)))
+    else:
+        logits = xf.float() @ p["router"]
     probs = torch.softmax(logits, dim=-1)
     if et > e.n_routed:  # padded experts: unroutable
         probs = torch.nn.functional.pad(probs, (0, et - e.n_routed))
 
     cap = capacity(e, group)
-    bufs, meta = _dispatch(xf, probs, e.top_k, et, cap)
-    y = _experts(p, bufs.view(n_groups, et, cap, d))
-    out = _combine(y.reshape(n_groups, et * cap, d), meta, group, e.top_k)
+    if is_dtensor(xf):
+        # on a mesh: the reference's expert parallelism, experts over
+        # "model", groups over ("pod", "data"), each step on its shards
+        bufs, meta = _dispatch_on_mesh(xf, probs, e.top_k, et, cap)
+        bufs = ctx.constrain(bufs.view(n_groups, et, cap, d), ("pod", "data"), "model", None, None)
+        y = ctx.constrain(_experts_on_mesh(p, bufs), ("pod", "data"), "model", None, None)
+        out = _combine_on_mesh(y.reshape(n_groups, et * cap, d), meta, group, e.top_k)
+    else:
+        bufs, meta = _dispatch(xf, probs, e.top_k, et, cap)
+        y = _experts(p, bufs.view(n_groups, et, cap, d))
+        out = _combine(y.reshape(n_groups, et * cap, d), meta, group, e.top_k)
     out = out.reshape(b, s, d)
 
     if e.n_shared:

@@ -30,6 +30,7 @@ from repro_torch.configs.base import DiffusionConfig
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding import ctx as mesh_ctx
 from repro_torch.tree import from_numpy  # noqa: F401  (the weight bridge)
 
 
@@ -146,7 +147,7 @@ def self_attention_inputs(p: dict, h: torch.Tensor):
     views, the kernel reads contiguous tensors)."""
     b, s, c = h.shape
     y = L.layernorm(h, p["ln1_s"], p["ln1_b"])
-    qkv = (y @ p["sa_qkv"]).reshape(b, s, 3 * heads(c), c // heads(c))
+    qkv = mesh_ctx.split_heads(y @ p["sa_qkv"], b, s, 3 * heads(c), c // heads(c))
     return [t.contiguous() for t in torch.split(qkv, heads(c), dim=2)]
 
 
@@ -158,9 +159,9 @@ def cross_attention_inputs(p: dict, h: torch.Tensor, ctx: torch.Tensor):
     nh = heads(c)
     y = L.layernorm(h, p["ln2_s"], p["ln2_b"])
     ctx = ctx.to(y.dtype)
-    return ((y @ p["ca_q"]).reshape(b, s, nh, c // nh),
-            (ctx @ p["ca_k"]).reshape(b, -1, nh, c // nh),
-            (ctx @ p["ca_v"]).reshape(b, -1, nh, c // nh))
+    return (mesh_ctx.split_heads(y @ p["ca_q"], b, s, nh, c // nh),
+            mesh_ctx.split_heads(ctx @ p["ca_k"], b, -1, nh, c // nh),
+            mesh_ctx.split_heads(ctx @ p["ca_v"], b, -1, nh, c // nh))
 
 
 def xformer_tokens(p: dict, x: torch.Tensor) -> torch.Tensor:
@@ -174,12 +175,21 @@ def _xformer(p: dict, x: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:
     b, hh, ww, c = x.shape
     h = xformer_tokens(p, x)
     a = kops.attention(*self_attention_inputs(p, h), causal=False).reshape(b, hh * ww, c)
-    h = h + a @ p["sa_o"]
+    h = h + _rows(a @ p["sa_o"])
     a = kops.attention(*cross_attention_inputs(p, h, ctx), causal=False).reshape(b, hh * ww, c)
-    h = h + a @ p["ca_o"]
-    u1, u2 = torch.chunk(L.layernorm(h, p["ln3_s"], p["ln3_b"]) @ p["ff_in"], 2, dim=-1)
-    h = h + (u1 * L.gelu(u2)) @ p["ff_out"]
+    h = h + _rows(a @ p["ca_o"])
+    # on a mesh the GEGLU's two halves are whole on "model" (its chunk
+    # does not split along the shards)
+    u1, u2 = torch.chunk(_rows(L.layernorm(h, p["ln3_s"], p["ln3_b"]) @ p["ff_in"]), 2, dim=-1)
+    h = h + _rows((u1 * L.gelu(u2)) @ p["ff_out"])
     return (h @ p["proj_out"]).reshape(b, hh, ww, c) + x
+
+
+def _rows(y: torch.Tensor) -> torch.Tensor:
+    """A product's output whole on "model" (a row-parallel one's partial
+    sum reduced), the rows over the data axes; off a mesh, y (DiT's
+    ``_rows``)."""
+    return mesh_ctx.constrain(y, ("pod", "data"), None, None)
 
 
 def _block(blk: dict, h: torch.Tensor, temb: torch.Tensor, ctx: torch.Tensor) -> torch.Tensor:

@@ -30,6 +30,7 @@ from repro_torch.core.tiling import resize_tiles
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
 from repro_torch.models import layers as L
+from repro_torch.sharding import ctx as mesh_ctx
 from repro_torch.tree import from_numpy  # noqa: F401  (the weight bridge)
 
 
@@ -80,7 +81,8 @@ def attention_inputs(p: dict, cfg: VisionConfig, x: torch.Tensor):
     views)."""
     b, s, d = x.shape
     h = L.layernorm(x, p["ln1_s"], p["ln1_b"])
-    qkv = (h @ p["wqkv"] + p["bqkv"]).reshape(b, s, 3 * cfg.n_heads, d // cfg.n_heads)
+    qkv = mesh_ctx.split_heads(h @ p["wqkv"] + p["bqkv"], b, s, 3 * cfg.n_heads,
+                               d // cfg.n_heads)
     return [t.contiguous() for t in torch.split(qkv, cfg.n_heads, dim=2)]
 
 

@@ -74,6 +74,35 @@ def _groups(params, grads, mu, nu):
         yield [list(a) for a in zip(*group)]
 
 
+def _is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def _shards(params, grads, mu, nu):
+    """DTensor leaves as the shards that the elementwise update runs on,
+    each in its moments' layout -> (params, grads, mu, nu) trees of local
+    tensors, and the (parameter, its moment-layout copy) pairs whose new
+    values must be written back (ZeRO-1: the moments sharded further
+    than the parameters). A gradient comes in its moments' layout (a
+    partial sum is reduced)."""
+    out, back = [[], [], [], []], []
+    for p, g, m, v in zip(T.leaves(params), T.leaves(grads), T.leaves(mu), T.leaves(nu)):
+        if not _is_dtensor(m):
+            for lst, x in zip(out, (p, g, m, v)):
+                lst.append(x)
+            continue
+        if tuple(g.placements) != tuple(m.placements):
+            g = g.redistribute(m.device_mesh, m.placements)
+        pm = p
+        if tuple(p.placements) != tuple(m.placements):
+            pm = p.redistribute(m.device_mesh, m.placements)
+            back.append((p, pm))
+        for lst, x in zip(out, (pm, g, m, v)):
+            lst.append(x.to_local())
+    return tuple(T.unflatten(t, xs) for t, xs in zip((params, grads, mu, nu), out)), back
+
+
 def adamw(lr: Union[float, Callable], b1=0.9, b2=0.999, eps=1e-8,
           weight_decay=0.01, clip_norm=1.0):
     """Returns (init_fn, update_fn).
@@ -88,7 +117,11 @@ def adamw(lr: Union[float, Callable], b1=0.9, b2=0.999, eps=1e-8,
     lr_fn = lr if callable(lr) else (lambda _: torch.tensor(lr, dtype=torch.float32))
 
     def init(params):
-        zeros = lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+        def zeros(p):
+            if _is_dtensor(p):   # laid out as the parameter
+                return torch.zeros_like(p, dtype=torch.float32,
+                                        memory_format=torch.contiguous_format)
+            return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
         # the step on the CPU; beside shape-only (meta) parameters, a shape too
         host = "meta" if any(p.is_meta for p in T.leaves(params)) else "cpu"
         return AdamWState(step=torch.zeros((), dtype=torch.int32, device=host),
@@ -102,6 +135,9 @@ def adamw(lr: Union[float, Callable], b1=0.9, b2=0.999, eps=1e-8,
                                    nu=T.map_leaves(copy, state.nu))
         with torch.no_grad():
             gnorm = global_norm(grads)
+            if _is_dtensor(gnorm):   # leaves on a mesh: the update runs on their shards
+                gnorm = gnorm.full_tensor()
+            (lp, lg, lm, lv), back = _shards(params, grads, state.mu, state.nu)
             scale = None
             if clip_norm is not None:
                 scale = torch.clamp(torch.full_like(gnorm, clip_norm)
@@ -110,7 +146,7 @@ def adamw(lr: Union[float, Callable], b1=0.9, b2=0.999, eps=1e-8,
             t = step.to(torch.float32)
             lr_t = lr_fn(step)
             bc1, bc2 = float(1.0 - b1 ** t), float(1.0 - b2 ** t)
-            for xs, gs, ms, vs in _groups(params, grads, state.mu, state.nu):
+            for xs, gs, ms, vs in _groups(lp, lg, lm, lv):
                 g = [x.float() for x in gs]
                 if scale is not None:
                     g = torch._foreach_mul(g, scale)
@@ -127,9 +163,11 @@ def adamw(lr: Union[float, Callable], b1=0.9, b2=0.999, eps=1e-8,
                 torch._foreach_div_(u, w)
                 torch._foreach_add_(u, torch._foreach_mul(p, weight_decay))
                 torch._foreach_sub_(p, torch._foreach_mul(u, float(lr_t)))
-                back = [(x, q) for x, q in zip(xs, p) if q.data_ptr() != x.data_ptr()]
-                if back:   # the slices of leaves that are not float32
-                    torch._foreach_copy_(*(list(a) for a in zip(*back)))
+                done = [(x, q) for x, q in zip(xs, p) if q is not x]
+                if done:   # the slices of leaves that are not float32
+                    torch._foreach_copy_(*(list(a) for a in zip(*done)))
+            for x, xm in back:
+                x.to_local().copy_(xm.redistribute(x.device_mesh, x.placements).to_local())
         return params, AdamWState(step, state.mu, state.nu), {"grad_norm": gnorm, "lr": lr_t}
 
     return init, update

@@ -19,6 +19,7 @@ from dataclasses import dataclass, field
 from typing import Callable, Optional
 
 import numpy as np
+import torch
 
 from repro_torch.checkpoint import ckpt
 
@@ -112,8 +113,18 @@ class DeadlineBatcher:
 
 
 def reshard_state(state, new_mesh, spec_fn):
-    """Re-lay-out ``state`` for another device mesh (elastic scaling).
-    The port runs on one card and has no device mesh yet: this raises."""
-    raise NotImplementedError(
-        "resharding needs a device mesh, which is not ported: the port runs "
-        "on one card (ROADMAP queue 1, the sats mesh)")
+    """Re-lay-out ``state`` for another device mesh (elastic scaling up
+    or down). ``spec_fn(host_state)`` -> a tree of specs
+    (:class:`repro_torch.sharding.P`) for the new mesh. Every leaf is
+    pulled to the host whole (a DTensor gathered), then placed on
+    ``new_mesh`` by its spec; right for any pair of old and new device
+    counts. Every rank of the new mesh's group must call it; each takes
+    its shards from its own copy, which is the same on every rank."""
+    from repro_torch import tree as T
+    from repro_torch.sharding.place import distribute, full
+    if not hasattr(new_mesh, "device_type"):
+        raise ValueError(f"reshard_state: new_mesh must be a DeviceMesh, not {new_mesh!r}")
+    host = T.map_leaves(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, full(state))
+    dev = torch.device(new_mesh.device_type)
+    host = T.map_leaves(lambda x: x.to(dev) if isinstance(x, torch.Tensor) else x, host)
+    return distribute(host, spec_fn(host), new_mesh, src_data_rank=None)

@@ -233,7 +233,9 @@ def test_deadline_batcher_drops_stragglers():
 
 
 def test_reshard_state_raises_naming_the_roadmap():
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
+    """``reshard_state`` is ported (its round trip on four ranks is in
+    ``test_torch_mesh_ranks.py``); without a device mesh it raises."""
+    with pytest.raises(ValueError, match="DeviceMesh"):
         supervisor.reshard_state({"w": torch.zeros(2)}, None, lambda s: s)
 
 

@@ -338,7 +338,11 @@ for m in ("repro_torch.models.lm", "repro_torch.kernels.flash_attention",
           "repro_torch.configs.vit_h14", "repro_torch.configs.ssd_mobilenetv2",
           "repro_torch.models.dit", "repro_torch.models.unet", "repro_torch.models.diffusion",
           "repro_torch.configs.dit_s2", "repro_torch.configs.unet_sd15",
-          "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.optim.compress"):
+          "repro_torch.launch.steps", "repro_torch.launch.train", "repro_torch.optim.compress",
+          "repro_torch.sharding", "repro_torch.sharding.rules", "repro_torch.sharding.policy",
+          "repro_torch.sharding.ctx", "repro_torch.sharding.place", "repro_torch.sharding.local",
+          "repro_torch.launch.mesh", "repro_torch.launch.roofline", "repro_torch.launch.dryrun",
+          "repro_torch.launch.report"):
     assert m in mods, m
 import torch
 assert not torch.cuda.is_available()

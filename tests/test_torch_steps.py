@@ -136,13 +136,19 @@ def test_model_flops_match_reference(arch, shape):
 
 
 def test_build_cell_takes_the_reference_options():
-    """``remat`` and ``unroll`` taken; the mesh options and unknown ones
-    raise."""
+    """``remat`` and ``unroll`` taken; the mesh options taken on a mesh
+    and raising without one; unknown ones raise."""
+    from repro_torch.sharding import AbstractMesh
     assert steps.build_cell("vit-l16", "cls_224", remat="full").fn
     assert steps.build_cell("vit-l16", "cls_224", remat="full", unroll=True).args
     for opt in ("zero1_axis", "no_pure_dp", "dp_serve", "bogus"):
         with pytest.raises(TypeError):
             steps.build_cell("vit-l16", "cls_224", **{opt: True})
+    mesh = AbstractMesh((1, 1), ("data", "model"))
+    for opt, value in (("zero1_axis", "data"), ("no_pure_dp", True), ("dp_serve", False)):
+        assert steps.build_cell("vit-l16", "cls_224", mesh, **{opt: value}).in_shardings
+    with pytest.raises(TypeError):
+        steps.build_cell("vit-l16", "cls_224", mesh, bogus=True)
 
 
 def test_steps_refuse_meta_inputs_and_device_scalars():
