@@ -291,7 +291,19 @@ nothing of JAX or of the reference package ``repro``. Phases:
    subprocesses on a ``fake`` group: PyTorch's private
    ``torch.testing._internal.distributed.fake_pg``, whose absence fails
    the run) with its argument bytes against the placed inputs' (checked
-   equal) and its peak beside the card's ``max_memory_allocated``.
+   equal) and its peak beside the card's ``max_memory_allocated``;
+19. the fleet's ``sats`` device mesh on one rank: a one-rank NCCL group
+   again (phase 18's is gone), a one-dim ("sats",) DeviceMesh of the
+   card, and phase 6's cell (32 satellites, 8 stations, 3 rounds,
+   targetfuse, phase 3's full-width counters) through ``run_scenario(...,
+   mesh=...)`` beside the plain fleet on the same inputs: each
+   satellite's per-tile predictions, truth and summary, the fleet summaries but for the timing keys, the ledger
+   lanes and their count equal (checked); a mesh Fleet and a plain one
+   driven round by round, round 3 under ``LaunchGuard``: the same
+   launches by entry, one ``kmeanspp_seed_lanes_f32`` a shape bucket, no
+   one-lane k-means launch, 0 builds and 0 new segments (checked); ingest
+   and contact s, tiles/s and windows/s, plain and mesh, in turns (plain,
+   mesh, mesh, plain).
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
@@ -303,7 +315,8 @@ monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
 forwards of phase 13, the diffusion samples of phase 14a-b, the first
 training step of each model in phases 15 and 16, phase 17's counted
 serve steps, prefill and plan calls, phase 18's counted sharded serve
-steps, prefill and training steps, and ``int8_matmul``'s one path;
+steps, prefill and training steps, phase 19's counted mesh fleet run,
+and ``int8_matmul``'s one path;
 ``flash_attention``'s entries include its backward's twelve, from
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``),
 then the
@@ -4522,6 +4535,158 @@ def phase_mesh(dev, mission_kernels, flash, bwd_libs):
 
 
 # ---------------------------------------------------------------------------
+# phase 19: the fleet's sats device mesh on one rank
+# ---------------------------------------------------------------------------
+
+# the fleet summary's wall-clock keys (the reference's sharded tests drop
+# them before comparing summaries)
+FLEET_TIMING = ("ingest_s", "tiles_per_s", "tiles_per_s_per_sat", "contact_s", "windows_per_s",
+                "bytes_downlinked_per_s", "recount_s", "recount_wait_s", "recount_hidden_frac",
+                "ingest_dispatch_s", "device_compute_s", "host_fetch_s", "ingest_hidden_frac")
+
+
+def sats_group():
+    """A one-rank NCCL default group from a ``file://`` store in a
+    temporary directory -> (the one-dim ("sats",) DeviceMesh of the card,
+    the directory). ``sats_mesh(1)`` is None (one device: the plain
+    fleet), as the reference's, so the mesh is built here."""
+    import tempfile
+    import torch
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+    from repro_torch.core.fleet_sharding import SATS_AXIS
+    d = tempfile.mkdtemp(prefix="sats_store_")
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"file://{d}/store", rank=0, world_size=1,
+                            device_id=torch.device("cuda", 0))
+    return init_device_mesh("cuda", (1,), mesh_dim_names=(SATS_AXIS,)), d
+
+
+def fleet_facts(results, fl) -> dict:
+    """A fleet run's host results: per satellite, the summary without its
+    timing keys, the ledger lanes and their count."""
+    s = fl.summary()
+    return dict(pred=[r.per_tile_pred for r in results], true=[r.per_tile_true for r in results],
+                summ=[r.summary() for r in results], n_lanes=fl.ledger.n_lanes,
+                fleet={k: v for k, v in s.items() if k not in FLEET_TIMING},
+                ledger={f: getattr(fl.ledger, f).copy() for f in LEDGER_LANES},
+                ingest_s=s["ingest_s"], contact_s=s["contact_s"], tiles_per_s=s["tiles_per_s"],
+                windows_per_s=s["windows_per_s"])
+
+
+def same_facts(a, b) -> list:
+    """The fields of two fleet runs that differ (empty: the same)."""
+    import numpy as np
+    bad = [f"sat{i}" for i in range(len(b["pred"]))
+           if not (np.array_equal(a["pred"][i], b["pred"][i])
+                   and np.array_equal(a["true"][i], b["true"][i])
+                   and a["summ"][i] == b["summ"][i])]
+    bad += [f for f in LEDGER_LANES if not np.array_equal(a["ledger"][f], b["ledger"][f])]
+    if a["n_lanes"] != b["n_lanes"]:
+        bad.append("n_lanes")
+    bad += [k for k in b["fleet"] if a["fleet"].get(k) != b["fleet"][k]]
+    return bad
+
+
+def phase_sats_mesh(dev, kernels):
+    """Phase 19 -> (launches by kernel of the counted mesh run, the same by
+    entry)."""
+    import shutil
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from repro_torch.configs import get_config
+    from repro_torch.core import dedup as dd, fleet as F
+    from repro_torch.core.pipeline import PipelineConfig
+    from repro_torch.data.scenarios import generate_scenario
+    t0 = time.perf_counter()
+    gc.collect()
+    torch.cuda.empty_cache()
+    space, ground = counters((get_config("targetfuse-space"), get_config("targetfuse-ground")),
+                             dev)
+    sc = generate_scenario(contact_spec(FLEET_SATS, FLEET_STATIONS, FLEET_SEED))
+    pcfg = PipelineConfig(method="targetfuse", score_thresh=NMS_SCORE, seed=SEED)
+    n = FLEET_SATS
+    mesh, store = sats_group()
+    try:
+        print(f"19: mesh {mesh}", flush=True)
+
+        def run(**kw):
+            got, fl = F.run_scenario(space, ground, pcfg, sc, device=dev, **kw)
+            torch.cuda.synchronize()
+            out = fleet_facts(got, fl)
+            del fl
+            return out
+        run(mesh=mesh)   # warm-up (DTensor's first sharding rules), dropped
+        plain = [run()]
+        for k in kernels:
+            k.reset()
+        mesh_runs = [run(mesh=mesh)]
+        launches = {k.name: k.launches for k in kernels}
+        entries = {s: c for k in kernels for s, c in k.symbol_launches.items()}
+        mesh_runs.append(run(mesh=mesh))
+        plain.append(run())
+        for i, (a, b) in enumerate(((mesh_runs[0], plain[0]), (mesh_runs[1], plain[1]),
+                                    (mesh_runs[0], mesh_runs[1]))):
+            bad = same_facts(a, b)
+            check(not bad, f"19: mesh run {i} differs from the plain fleet in {bad}")
+        check(mesh_runs[0]["fleet"]["n_devices"] == 1 and mesh_runs[0]["n_lanes"] == n
+              and entries["kmeanspp_seed_lanes_f32"] > 0 and entries["nms_keep_f32"] > 0
+              and entries["tile_moments_f32"] > 0
+              and entries["kmeans_assign_f32"] == entries["kmeanspp_seed_f32"] == 0,
+              f"19: the mesh run's launches by entry {entries}")
+        print(f"19: mesh fleet = plain fleet (per satellite, summaries but the timing keys, "
+              f"{len(LEDGER_LANES)} ledger lanes, n_lanes {n}) in both turns; "
+              f"launches by entry {json.dumps(entries)}", flush=True)
+
+        # round 3 of a mesh Fleet and a plain one under LaunchGuard
+        guards, buckets = {}, []
+        multi = dd.dedup_multi
+
+        def counted_multi(parts, *a, **kw):
+            buckets.append(len({dd._buckets_for(int(m.shape[0]) if c is None else c, k)
+                                for m, k, _, c in parts}))
+            return multi(parts, *a, **kw)
+        for name, kw in (("plain", {}), ("mesh", dict(mesh=mesh))):
+            fleet = F.Fleet(space, ground, pcfg, n_sats=n, device=dev, **kw)
+            rounds = iter(sc.rounds)
+
+            def fleet_round():
+                rnd = next(rounds)
+                fleet.ingest(rnd.frames_per_sat(n), rnd.harvest_per_sat(n))
+                if rnd.contacts:
+                    fleet.contact_round(plan=rnd.contact_plan(n))
+            buckets.clear()
+            dd.dedup_multi = counted_multi
+            try:
+                guards[name] = guard_rounds(f"19 {name} fleet", fleet_round, 1)[0]
+            finally:
+                dd.dedup_multi = multi
+            fleet.finalize()
+            del fleet
+        for g in guards.values():
+            g.assert_steady_state()
+        gm = guards["mesh"].launches
+        check(gm == guards["plain"].launches
+              and gm.get("kmeanspp_seed_lanes_f32", 0) == buckets[-1]
+              and gm.get("kmeans_assign_f32", 0) == gm.get("kmeanspp_seed_f32", 0) == 0,
+              f"19: round 3's launches by entry, mesh {gm} against plain "
+              f"{guards['plain'].launches}, {buckets[-1]} shape bucket(s)")
+    finally:
+        if dist.is_initialized():
+            dist.destroy_process_group()
+        shutil.rmtree(store, ignore_errors=True)
+    row = {name: [dict(ingest_s=r["ingest_s"], contact_s=r["contact_s"],
+                       tiles_per_s=r["tiles_per_s"], windows_per_s=r["windows_per_s"])
+                  for r in runs]
+           for name, runs in (("plain", plain), ("mesh", mesh_runs))}
+    print("19 fleet plain vs mesh (turns plain, mesh, mesh, plain; host s of the Fleet's own "
+          "clocks): " + json.dumps(row), flush=True)
+    print(f"phase 19: {time.perf_counter() - t0:.1f} s", flush=True)
+    return launches, entries
+
+
+# ---------------------------------------------------------------------------
 # phase 9: counter training
 # ---------------------------------------------------------------------------
 
@@ -5427,6 +5592,13 @@ def main():
     for sym, n in mesh_entries.items():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase mesh: {time.perf_counter() - t0:.1f} s", flush=True)
+    t0 = time.perf_counter()
+    sats_launches, sats_entries = phase_sats_mesh(dev, mission_kernels)
+    for name, n in sats_launches.items():
+        launches[name] += n
+    for sym, n in sats_entries.items():
+        entry_launches[sym] = entry_launches.get(sym, 0) + n
+    print(f"phase sats mesh: {time.perf_counter() - t0:.1f} s", flush=True)
 
     replaces = {"tile_moments": "src/repro/kernels/tile_moments.py:33",
                 "kmeans_assign": "src/repro/kernels/kmeans_assign.py:29",

@@ -19,8 +19,16 @@ keeps up to K rounds' recounts in flight (exact at every depth).
 ``--oracle`` runs the same scenario through the looped sequential
 per-Mission path (the parity oracle the fleet is exact-equal to);
 ``--check`` runs both and asserts exact equality of every satellite's
-per-tile predictions. ``--devices N`` with N > 1 (a ``sats`` device
-mesh) raises: the port runs a fleet on one card.
+per-tile predictions. ``--devices N`` splits the fleet along a ``sats``
+device mesh of N ranks: with no process group up, the example starts
+the N ranks itself (``gloo`` for ``--device cpu``, NCCL and one card a
+rank for cuda, from a ``file://`` store in a temporary directory; no
+network), hands them the counters it loaded, and prints rank 0's
+report; started under a process group of N ranks, each rank runs the
+example as it is. ``--check`` then holds the sharded fleet to the looped
+Missions:
+
+  PYTHONPATH=src python examples/constellation_sim_torch.py --device cpu --devices 4 --check
 
 ``--geometry orbital`` swaps the toy phase-offset scenario for the
 orbital geometry engine (:mod:`repro_torch.orbits`): a Walker-delta
@@ -43,15 +51,20 @@ Runs on the GPU unless ``--device cpu`` is given; imports nothing of the
 JAX package.
 """
 import argparse
+import contextlib
+import io
 import os
 import sys
+import tempfile
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), "..", "src"))
 
 import numpy as np
+import torch
 
+from repro_torch import tree as T
 from repro_torch.core.fleet import run_scenario
-from repro_torch.core.fleet_sharding import FleetSharding
+from repro_torch.core.fleet_sharding import sats_mesh
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.data.scenarios import (FleetScenarioSpec, GroundStation,
                                         generate_scenario)
@@ -106,10 +119,61 @@ def main(argv=None):
     args = ap.parse_args(argv)
     if args.faults is not None and args.oracle:
         ap.error("--faults needs the fleet executors (drop --oracle)")
-    if args.devices > 1:
-        FleetSharding(mesh=args.devices)  # raises: no sats mesh in the port
-
+    if (args.devices > 1 and args.device == "cuda"
+            and args.devices > torch.cuda.device_count()):
+        raise ValueError(f"--devices {args.devices}: only {torch.cuda.device_count()} "
+                         f"CUDA device(s) visible")
+    import torch.distributed as dist
     space, ground = get_counters(device=args.device)
+    if args.devices > 1 and not dist.is_initialized():
+        print(_spawn_ranks(args, space, ground), end="")
+        return
+    simulate(args, space, ground, sats_mesh(args.devices, device_type=args.device))
+
+
+def _on_cpu(pair):
+    params, cfg = pair
+    return T.map_leaves(lambda x: x.cpu() if isinstance(x, torch.Tensor) else x, params), cfg
+
+
+def _spawn_ranks(args, space, ground) -> str:
+    """Run the example on ``args.devices`` ranks of a process group made
+    here -> rank 0's output."""
+    import torch.multiprocessing as mp
+    with tempfile.TemporaryDirectory() as d:
+        mp.spawn(_rank, args=(args, _on_cpu(space), _on_cpu(ground), d,
+                              torch.get_num_threads()),
+                 nprocs=args.devices, join=True)
+        with open(os.path.join(d, "rank0.txt")) as f:
+            return f.read()
+
+
+def _rank(rank, args, space, ground, d, threads):
+    """One rank of :func:`_spawn_ranks`: the example on the ``sats`` mesh
+    of all the ranks; rank 0 writes its output to ``d``."""
+    import torch.distributed as dist
+    torch.set_num_threads(threads)
+    kw = {}
+    if args.device == "cuda":
+        torch.cuda.set_device(rank)
+        kw["device_id"] = torch.device("cuda", rank)
+    dist.init_process_group("gloo" if args.device == "cpu" else "nccl",
+                            init_method=f"file://{d}/store", rank=rank,
+                            world_size=args.devices, **kw)
+    try:
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            simulate(args, space, ground, sats_mesh(args.devices, device_type=args.device))
+        if rank == 0:
+            with open(os.path.join(d, "rank0.txt"), "w") as f:
+                f.write(out.getvalue())
+    finally:
+        dist.destroy_process_group()
+
+
+def simulate(args, space, ground, mesh=None):
+    """The scenario, its runs and the report, on one device or (``mesh``)
+    a ``sats`` device mesh."""
     scene_mix = (SceneSpec("track", 512, (16, 28), (10, 24),
                            cloud_fraction=0.3),)
     if args.geometry == "orbital":
@@ -159,7 +223,7 @@ def main(argv=None):
                   f"({c.budget_bytes / 1e6:.2f} MB window)")
 
     results, driver = run_scenario(space, ground, pcfg, scenario,
-                                   fleet=not args.oracle,
+                                   fleet=not args.oracle, mesh=mesh,
                                    async_ground=args.async_ground,
                                    async_depth=args.async_depth,
                                    ingest_overlap=args.ingest_overlap,
@@ -179,7 +243,9 @@ def main(argv=None):
         for i, (a, b) in enumerate(zip(results, other)):
             np.testing.assert_array_equal(a.per_tile_pred, b.per_tile_pred)
             assert a.summary() == b.summary(), f"sat{i} summary mismatch"
-        print(f"parity check: fleet == {what_ref} (exact)")
+        what = (f"sharded fleet ({args.devices} devices)"
+                if mesh is not None else "fleet")
+        print(f"parity check: {what} == {what_ref} (exact)")
 
     for s, r in enumerate(results):
         print(f"  sat{s}: CMAE={r.cmae:.3f} "

@@ -19,8 +19,10 @@ from repro_torch import tree as T
 from repro_torch.configs.base import DetectorConfig
 from repro_torch.core import tiling, xfer
 from repro_torch.core.dedup import bucket_size
+from repro_torch.core.fleet_sharding import ctx as sharding_ctx
 from repro_torch.device import resolve_device
 from repro_torch.models import detector
+from repro_torch.sharding.local import is_dtensor
 from repro_torch.optim.adamw import adamw
 from repro_torch.optim.schedule import cosine_with_warmup
 
@@ -38,20 +40,17 @@ def _tier_batch(n: int, batch: int, floor: int = 8) -> int:
     return min(bucket_size(n, floor), batch)
 
 
-def _count_forward(params, cfg, t, batch: int, score_thresh, nms_iou) -> np.ndarray:
+def _count_forward(params, cfg, t, batch: int, score_thresh, nms_iou,
+                   sharding=None) -> np.ndarray:
     """Zero-pad rows to whole ``batch`` chunks, count chunk by chunk, and
     copy (counts, conf) to the host once -> (2, n_rows_padded)."""
     pad = -t.shape[0] % batch
     if pad:
         t = torch.cat([t, t.new_zeros((pad, *t.shape[1:]))])
-    outs_c, outs_f = [], []
-    for chunk in t.split(batch):
-        c, f = count_tiles(params, cfg, chunk, score_thresh, nms_iou)
-        outs_c.append(c)
-        outs_f.append(f)
+    fwd = _count_forward_device(params, cfg, t, batch, score_thresh, nms_iou, sharding)
     # analysis: waive(host-sync): the designed single host copy of a
     # counting batch (counts and confidences together)
-    return torch.stack([torch.cat(outs_c), torch.cat(outs_f)]).cpu().numpy()
+    return _gathered(fwd).cpu().numpy()
 
 
 def count_tiles_batched(params, cfg, tiles, batch: int = 64, score_thresh=0.3,
@@ -84,16 +83,35 @@ def _count_tiles_chunks(params, cfg: DetectorConfig, chunks, score_thresh: float
 
 
 def _count_forward_device(params, cfg, t, batch: int, score_thresh,
-                          nms_iou) -> torch.Tensor:
-    """:func:`_count_forward` over whole ``batch`` chunks, without the
-    host copy -> (2, n_rows) on the device."""
-    c, f = _count_tiles_chunks(params, cfg, t.reshape(-1, batch, *t.shape[1:]),
-                               score_thresh, nms_iou)
+                          nms_iou, sharding=None) -> torch.Tensor:
+    """The counting of whole ``batch`` chunks, without the host copy ->
+    (2, n_rows) (counts, conf) on the device.
+
+    With an on-mesh :class:`~repro_torch.core.fleet_sharding.FleetSharding`
+    and more than one chunk, the chunks are stacked, zero-padded to a
+    device multiple and split along the ``sats`` axis; each rank counts
+    its own chunks (:func:`_count_tiles_chunks`), and the result is a
+    DTensor split along its rows, pad chunks last (:func:`_gathered`
+    gathers it)."""
+    sh = sharding_ctx(sharding)
+    chunks = t.reshape(-1, batch, *t.shape[1:])
+    if sh.on_mesh and chunks.shape[0] > 1:
+        def count(local):
+            c, f = _count_tiles_chunks(params, cfg, local, score_thresh, nms_iou)
+            return torch.stack([c.reshape(-1), f.reshape(-1)])
+        return sh.map_lanes(count, (sh.shard(chunks),), 1, out_dims=(1,))
+    c, f = _count_tiles_chunks(params, cfg, chunks, score_thresh, nms_iou)
     return torch.stack([c.reshape(-1), f.reshape(-1)])
 
 
+def _gathered(fwd: torch.Tensor) -> torch.Tensor:
+    """A counting batch's (counts, conf) on every rank: a DTensor
+    gathered, a plain tensor as it is."""
+    return fwd.full_tensor() if is_dtensor(fwd) else fwd
+
+
 def count_tiles_multi(params, cfg, parts, batch: int = 64, score_thresh=0.3,
-                      nms_iou: float = 0.25, defer: bool = False):
+                      nms_iou: float = 0.25, sharding=None, defer: bool = False):
     """Count several independent gathers in shared fixed-shape batches.
 
     Counterpart of ``repro/core/cascade.py``'s ``count_tiles_multi``.
@@ -110,7 +128,10 @@ def count_tiles_multi(params, cfg, parts, batch: int = 64, score_thresh=0.3,
     -> ``[(counts, conf), ...]`` host arrays aligned with ``parts``. With
     ``defer=True`` the forwards are launched but not copied back: a
     zero-argument resolver is returned, which makes the one host copy and
-    gives that list when called.
+    gives that list when called. ``sharding``: an optional
+    :class:`~repro_torch.core.fleet_sharding.FleetSharding`; on its mesh
+    the batches are counted a share a rank (:func:`_count_forward_device`)
+    and the resolver gathers them, with the same results.
     """
     sizes = [int(len(idx)) for _, idx in parts]
     empty = (np.zeros((0,), np.float32), np.zeros((0,), np.float32))
@@ -133,12 +154,12 @@ def count_tiles_multi(params, cfg, parts, batch: int = 64, score_thresh=0.3,
         idx_pad[:k] = np.asarray(idx)
         torch.index_select(tiles, 0, xfer.device_constant(idx_pad, tiles.device),
                            out=t[o:o + len(idx_pad)])
-    fwd = _count_forward_device(params, cfg, t, tier, score_thresh, nms_iou)
+    fwd = _count_forward_device(params, cfg, t, tier, score_thresh, nms_iou, sharding)
 
     def resolve():
         # analysis: waive(host-sync): the single deferred host copy of the
         # shared batches; callers resolve() at a pipeline boundary
-        out = fwd.cpu().numpy()
+        out = _gathered(fwd).cpu().numpy()
         return [(out[0, o:o + k], out[1, o:o + k]) if k else empty
                 for o, k in spans]
     return resolve if defer else resolve()

@@ -342,14 +342,24 @@ class _RecountWork:
     while this round is queued, and the fleet may be gone. A segment is
     recounted and aggregated only in the round where it delivered or
     was permanently lost, so concurrent rounds write disjoint
-    segments."""
+    segments. ``sharding`` is the fleet's placement context, which the
+    foreground's recounts use; ``worker_sharding`` the same ranks on a
+    process group of their own, the workers' (one and the same off a
+    mesh)."""
 
-    __slots__ = ("ground", "by_thresh", "agg")
+    __slots__ = ("ground", "by_thresh", "agg", "sharding", "worker_sharding")
 
-    def __init__(self, ground, by_thresh, agg):
+    def __init__(self, ground, by_thresh, agg, sharding=None, worker_sharding=None):
         self.ground = ground
         self.by_thresh = by_thresh
         self.agg = agg
+        self.sharding = sharding
+        self.worker_sharding = worker_sharding
+
+    def on_worker(self) -> "_RecountWork":
+        """The snapshot whose gathers go on the workers' process group."""
+        return _RecountWork(self.ground, self.by_thresh, self.agg, self.worker_sharding,
+                            self.worker_sharding)
 
     def device(self) -> Optional[torch.device]:
         """The device the recount runs on (None: nothing to count)."""
@@ -374,7 +384,8 @@ def _recount_plan(fleet, jobs) -> _RecountWork:
             if not seg.requeued:
                 agg.append((m, seg, window))
             # else: retrying in a later round — no prediction yet
-    return _RecountWork(fleet.ground, by_thresh, agg)
+    return _RecountWork(fleet.ground, by_thresh, agg, fleet.sharding,
+                        fleet.worker_sharding)
 
 
 def _recount_run(work: _RecountWork,
@@ -385,12 +396,24 @@ def _recount_run(work: _RecountWork,
     :func:`_recount_plan` and charges nothing. ``cancel`` is checked
     between threshold groups, after each count and before each
     Aggregate: a worker the watchdog abandoned writes nothing once it is
-    set, so the synchronous recovery never sees a concurrent write."""
+    set, so the synchronous recovery never sees a concurrent write.
+
+    Every threshold group is counted before any is written. On a
+    ``sats`` mesh every rank's worker makes the same gathers in the same
+    order, and a cancel is seen at another point on each rank, so there
+    a cancelled worker still counts every group (and writes nothing):
+    one that stopped early would leave the other ranks' gathers
+    waiting."""
     params, cfg = work.ground
+    on_mesh = work.sharding is not None and work.sharding.on_mesh
+    counted = []
     for thresh, items in work.by_thresh.items():
-        if cancel is not None and cancel.is_set():
+        if cancel is not None and cancel.is_set() and not on_mesh:
             return
-        results = count_tiles_multi(params, cfg, recount_tiles(items), score_thresh=thresh)
+        counted.append((items, count_tiles_multi(params, cfg, recount_tiles(items),
+                                                 score_thresh=thresh,
+                                                 sharding=work.sharding)))
+    for items, results in counted:
         if cancel is not None and cancel.is_set():
             return  # abandoned mid-count: discard, write nothing
         for (m, seg, down), (c, _) in zip(items, results):
@@ -516,11 +539,14 @@ class _InFlightRound:
     """One queued round of the recount pipeline: its dispatch-time work
     snapshot, the injected worker fault and stall, the worker's cancel
     event, thread, exception and wall time (kept per round, so an
-    abandoned worker's clock is simply never read), and on a CUDA device
-    the worker's stream and the foreground event it waits for."""
+    abandoned worker's clock is simply never read), on a CUDA device
+    the worker's stream and the foreground event it waits for, and on a
+    ``sats`` mesh the previous round's worker thread (``after``), which
+    this one waits for, so the workers' gathers keep the rounds' order
+    on every rank."""
 
     __slots__ = ("work", "fault", "stall_s", "stream", "ready", "cancel",
-                 "thread", "err", "worker_s")
+                 "thread", "err", "worker_s", "after")
 
     def __init__(self, work: _RecountWork, fault: Optional[str] = None,
                  stall_s: float = 0.0):
@@ -533,6 +559,7 @@ class _InFlightRound:
         self.thread: Optional[threading.Thread] = None
         self.err: Optional[BaseException] = None
         self.worker_s = 0.0
+        self.after: Optional[threading.Thread] = None
 
 
 def _recount_job(rnd: _InFlightRound) -> None:
@@ -540,19 +567,21 @@ def _recount_job(rnd: _InFlightRound) -> None:
     what was resolved at dispatch, never the fleet."""
     t0 = time.perf_counter()
     try:
+        if rnd.after is not None:
+            rnd.after.join()
         if rnd.fault == "crash":
             raise WorkerCrash("injected ground-worker crash")
         if rnd.fault == "stall":
             _stall(rnd.stall_s, rnd.cancel)
         if rnd.stream is None:
-            _recount_run(rnd.work, cancel=rnd.cancel)
+            _recount_run(rnd.work.on_worker(), cancel=rnd.cancel)
         else:
             # the current device and stream are per thread: set both
             with torch.cuda.device(rnd.stream.device), \
                     torch.cuda.stream(rnd.stream):
                 rnd.stream.wait_event(rnd.ready)
                 try:
-                    _recount_run(rnd.work, cancel=rnd.cancel)
+                    _recount_run(rnd.work.on_worker(), cancel=rnd.cancel)
                 finally:
                     # idle when the thread ends, even after an error
                     rnd.stream.synchronize()
@@ -604,6 +633,14 @@ class GroundSegment:
     the retirement that finds it, with every ledger lane intact and the
     later rounds still queued.
 
+    **A sats mesh** (the fleet's ``sharding`` on a mesh): every rank
+    runs this executor alike, and the workers' recounts gather on a
+    process group of their own (the fleet's ``worker_sharding``), so the
+    foreground's and the workers' collectives never share a
+    communicator; each worker waits for the one dispatched before it,
+    and the watchdog's branch is taken by all ranks or none (one
+    all-reduce), so every rank issues the same gathers in the same order.
+
     **Lifecycle**: a clean ``with`` exit syncs; an exceptional one
     calls :meth:`close`, which cancels every queued round and joins each
     worker briefly without raising.
@@ -632,6 +669,7 @@ class GroundSegment:
         self.watchdog_s = watchdog_s
         self._queue: "deque[_InFlightRound]" = deque()
         self._stream = None  # the workers' CUDA stream, made at first use
+        self._last_worker: Optional[threading.Thread] = None
         self.recount_s = 0.0
         self.wait_s = 0.0
         self.rounds_deferred = 0
@@ -681,8 +719,12 @@ class GroundSegment:
             rnd.stream = self._stream
             rnd.ready = torch.cuda.Event()
             rnd.ready.record(torch.cuda.current_stream(dev))
+        if work.sharding is not None and work.sharding.on_mesh:
+            # after the last worker started, retired or abandoned alike
+            rnd.after = self._last_worker
         rnd.thread = threading.Thread(target=_recount_job, args=(rnd,),
                                       name="ground-recount", daemon=True)
+        self._last_worker = rnd.thread
         self.rounds_deferred += 1
         self._queue.append(rnd)
         self.max_in_flight = max(self.max_in_flight, len(self._queue))
@@ -706,7 +748,11 @@ class GroundSegment:
         t0 = time.perf_counter()
         rnd.thread.join(self.watchdog_s)
         waited = time.perf_counter() - t0
-        if rnd.thread.is_alive():
+        alive = rnd.thread.is_alive()
+        if self.watchdog_s is not None:
+            # on a sats mesh every rank takes the same branch
+            alive = self.fleet.sharding.agree(alive)
+        if alive:
             # watchdog: cancel the worker (it writes nothing from now on)
             # and take the round over synchronously
             rnd.cancel.set()

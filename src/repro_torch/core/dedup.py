@@ -16,10 +16,13 @@ from __future__ import annotations
 
 from typing import NamedTuple
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
 from repro_torch import random as jrandom
+from repro_torch.core import xfer
+from repro_torch.core.fleet_sharding import ctx as sharding_ctx
 from repro_torch.kernels import ops as kops
 
 _N_BUCKET = 64
@@ -243,7 +246,26 @@ def _dedup_finalize_lanes(x: torch.Tensor, cent: torch.Tensor, ns: torch.Tensor)
     return assign, rep_mask, sizes, rep_clip
 
 
-def dedup_multi(parts, iters: int = 10):
+def _dedup_lanes(m: torch.Tensor, ns, firsts, ks, ns_t: torch.Tensor, k_pad: int,
+                 iters: int):
+    """One shape bucket's lanes: m (L, n_pad, D) zero-padded raw moments,
+    the lanes' real rows ``ns``, first picks and cluster counts (host
+    ints) and ``ns_t`` (the rows on m's device) -> (assign, centroids,
+    rep_mask, sizes, rep_clip), each with a leading lane axis."""
+    x = torch.stack([_normalize_lane(m[i], n) for i, n in enumerate(ns)])
+    dev = x.device
+    maskc = (torch.arange(m.shape[1], device=dev)[None, :] < ns_t[:, None])[..., None]
+    cents, _ = kops.kmeanspp_seed_lanes(x, ns, firsts, ks, k_pad)
+    for _ in range(iters):
+        assign, _ = kops.kmeans_assign_lanes(x, cents)
+        one = F.one_hot(assign.long(), k_pad).to(x.dtype) * maskc
+        tot = torch.stack([one[i].T @ x[i] for i in range(len(ns))])
+        cnt = one.sum(1)[..., None]
+        cents = torch.where(cnt > 0, tot / torch.clamp(cnt, min=1), cents)
+    return (cents,) + _dedup_finalize_lanes(x, cents, ns_t)
+
+
+def dedup_multi(parts, iters: int = 10, sharding=None):
     """The dedup of many satellites, a lane each, batched by shape bucket.
 
     Counterpart of ``repro/core/dedup.py``'s ``dedup_multi``. ``parts``:
@@ -257,10 +279,19 @@ def dedup_multi(parts, iters: int = 10):
     operations on its shapes, so every lane equals the one-lane dedup
     bit for bit (a batched reduction could sum in another order). The
     reference pads the lane count to a power of two to bound its
-    compiles; nothing here compiles, so lanes are not padded.
+    compiles; nothing here compiles, so lanes are not padded off the mesh.
+
+    ``sharding``: an optional
+    :class:`~repro_torch.core.fleet_sharding.FleetSharding`. On its mesh
+    a group's lanes are padded to a device multiple with copies of lane 0
+    (inert: real shapes, never read), split along the ``sats`` axis, and
+    each rank runs the whole group program above on its own lanes (its
+    share of the host lists taken by its coordinate), so each lane is
+    still the one-lane dedup's; the results are gathered on every rank.
 
     -> a :class:`DedupResult` a part, aligned with ``parts``.
     """
+    sh = sharding_ctx(sharding)
     groups: dict = {}
     for slot, (moments, k, seed, n) in enumerate(parts):
         n = int(moments.shape[0]) if n is None else int(n)
@@ -268,22 +299,25 @@ def dedup_multi(parts, iters: int = 10):
             (slot, moments, int(k), int(seed), n))
     out = [None] * len(parts)
     for (n_pad, k_pad), items in groups.items():
-        ns = [n for *_, n in items]
-        x = torch.stack([_normalize_lane(_pad_rows(mo.to(torch.float32), n, n_pad), n)
-                         for _, mo, _, _, n in items])
-        dev = x.device
-        ns_t = torch.tensor(ns, device=dev)
-        maskc = (torch.arange(n_pad, device=dev)[None, :] < ns_t[:, None])[..., None]
-        cents, _ = kops.kmeanspp_seed_lanes(
-            x, ns, [jrandom.randint(seed, n) for _, _, _, seed, n in items],
-            [k for _, _, k, _, _ in items], k_pad)
-        for _ in range(iters):
-            assign, _ = kops.kmeans_assign_lanes(x, cents)
-            one = F.one_hot(assign.long(), k_pad).to(x.dtype) * maskc
-            tot = torch.stack([one[i].T @ x[i] for i in range(len(items))])
-            cnt = one.sum(1)[..., None]
-            cents = torch.where(cnt > 0, tot / torch.clamp(cnt, min=1), cents)
-        assign, rep_mask, sizes, rep_clip = _dedup_finalize_lanes(x, cents, ns_t)
+        g = len(items)
+        lane0 = [0] * (sh.pad(g) - g)   # the inert pad lanes, copies of lane 0
+        items_pad = items + [items[i] for i in lane0]
+        ns = [n for *_, n in items_pad]
+        firsts = [jrandom.randint(seed, n) for _, _, _, seed, n in items_pad]
+        ks = [k for _, _, k, _, _ in items_pad]
+        m = torch.stack([_pad_rows(mo.to(torch.float32), n, n_pad)
+                         for _, mo, _, _, n in items_pad])
+        if sh.on_mesh:
+            def lanes(m_local, ns_local):
+                r = sh.lanes(len(ns))
+                return _dedup_lanes(m_local, ns[r], firsts[r], ks[r], ns_local, k_pad, iters)
+            res = sh.map_lanes(lanes, (sh.device_put(m),
+                                       xfer.device_constant(np.asarray(ns, np.int64),
+                                                            sharding=sh)), 5)
+            cents, assign, rep_mask, sizes, rep_clip = (sh.gather(o, g) for o in res)
+        else:
+            cents, assign, rep_mask, sizes, rep_clip = _dedup_lanes(
+                m, ns, firsts, ks, torch.tensor(ns, device=m.device), k_pad, iters)
         for i, (slot, _, k, _, n) in enumerate(items):
             out[slot] = DedupResult(assign[i, :n], cents[i, :k], rep_mask[i, :n],
                                     sizes[i, :k], rep_clip[i, :k])

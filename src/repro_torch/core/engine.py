@@ -17,6 +17,7 @@ import torch
 
 from repro_torch.core import tiling
 from repro_torch.core.dedup import bucket_size
+from repro_torch.core.fleet_sharding import ctx as sharding_ctx
 from repro_torch.data.synthetic import tile_counts
 from repro_torch.device import resolve_device
 from repro_torch.kernels import ops as kops
@@ -57,20 +58,42 @@ def _frame_program(imgs: torch.Tensor, tile_size: int, sp_size: int,
 
 
 def _bucketed_chunks(imgs, shape, tile_size: int, sp_size: int, gd_size: int,
-                     frame_bucket: int, device, with_stats: bool = True):
+                     frame_bucket: int, device, with_stats: bool = True,
+                     sharding=None):
     """Zero-pad a same-resolution image list to whole ``frame_bucket``s
-    and run the frame program bucket by bucket."""
+    and run the frame program bucket by bucket.
+
+    With an on-mesh :class:`~repro_torch.core.fleet_sharding.FleetSharding`
+    and more than one bucket, the buckets are stacked, zero-padded to a
+    device multiple and split along the ``sats`` axis: each rank captures
+    its own buckets in one call (the same program on each, one
+    ``tile_moments`` launch a bucket), and the outputs are gathered back
+    on every rank."""
+    sh = sharding_ctx(sharding)
     nb = -(-len(imgs) // frame_bucket) * frame_bucket
     arr = np.zeros((nb, *shape), np.float32)
     for j, img in enumerate(imgs):
         arr[j] = img
+    n_chunks = nb // frame_bucket
+    if sh.on_mesh and n_chunks > 1:
+        stacked = np.zeros((sh.pad(n_chunks), frame_bucket, *shape), np.float32)
+        stacked[:n_chunks] = arr.reshape(n_chunks, frame_bucket, *shape)
+
+        def capture(chunks):
+            outs = [_frame_program(c, tile_size, sp_size, gd_size, with_stats)
+                    for c in chunks]
+            return tuple(torch.stack(o) for o in zip(*outs))
+        outs = sh.map_lanes(capture, (sh.device_put(stacked),), 4 if with_stats else 2)
+        outs = [sh.gather(o, n_chunks) for o in outs]
+        return [tuple(o[i] for o in outs) for i in range(n_chunks)]
     return [_frame_program(torch.from_numpy(arr[c0:c0 + frame_bucket]).to(device),
                            tile_size, sp_size, gd_size, with_stats)
             for c0 in range(0, nb, frame_bucket)]
 
 
 def _per_frame_pieces(frames, tile_size: int, sp_size: int, gd_size: int,
-                      frame_bucket: int, device, with_stats: bool = True):
+                      frame_bucket: int, device, with_stats: bool = True,
+                      sharding=None):
     """The frame program grouped by resolution; the piece of every frame,
     in input order."""
     groups: dict = {}
@@ -80,7 +103,7 @@ def _per_frame_pieces(frames, tile_size: int, sp_size: int, gd_size: int,
     for shape, idxs in groups.items():
         chunks = _bucketed_chunks([frames[i][0] for i in idxs], shape,
                                   tile_size, sp_size, gd_size, frame_bucket,
-                                  device, with_stats=with_stats)
+                                  device, with_stats=with_stats, sharding=sharding)
         ntile = chunks[0][0].shape[0] // frame_bucket
         for j, i in enumerate(idxs):
             ck, off = chunks[j // frame_bucket], (j % frame_bucket) * ntile
@@ -238,7 +261,7 @@ def _assemble_lane(parts, frames, tile_size: int, roi_std=None,
 def prepare_frames_multi(workloads, tile_size: int, sp_size: int,
                          gd_size: int, frame_bucket: int = FRAME_BUCKET,
                          with_stats: bool = True, defer_stats: bool = False,
-                         device="cuda"):
+                         device="cuda", sharding=None):
     """Constellation-batched capture: the frames of many workloads (one a
     satellite) share frame buckets, and the outputs split back into one
     :class:`PreparedFrames` a workload.
@@ -253,7 +276,10 @@ def prepare_frames_multi(workloads, tile_size: int, sp_size: int,
     ``defer_stats=True`` skips that copy: each workload's ``roi_std`` is
     then a device slice (the same values), fetched by the caller when a
     policy reads it. ``device`` is "cuda" (the default; raises without a
-    card) or "cpu".
+    card) or "cpu". ``sharding``: an optional
+    :class:`~repro_torch.core.fleet_sharding.FleetSharding`; on its mesh
+    the shared buckets are split along the ``sats`` axis
+    (:func:`_bucketed_chunks`), with the same outputs.
     """
     device = resolve_device(device)
     flat = [f for w in workloads for f in w]
@@ -268,7 +294,7 @@ def prepare_frames_multi(workloads, tile_size: int, sp_size: int,
         (shape,) = shapes
         chunks = _bucketed_chunks([img for img, _, _ in flat], shape,
                                   tile_size, sp_size, gd_size, frame_bucket,
-                                  device, with_stats=with_stats)
+                                  device, with_stats=with_stats, sharding=sharding)
         ntile = chunks[0][0].shape[0] // frame_bucket
         cat = (list(chunks[0]) if len(chunks) == 1 else
                [torch.cat([ck[j] for ck in chunks]) for j in range(len(chunks[0]))])
@@ -287,7 +313,8 @@ def prepare_frames_multi(workloads, tile_size: int, sp_size: int,
                                       roi_std=roi_all[rows] if with_stats else None))
         return out
     per_frame = _per_frame_pieces(flat, tile_size, sp_size, gd_size,
-                                  frame_bucket, device, with_stats=with_stats)
+                                  frame_bucket, device, with_stats=with_stats,
+                                  sharding=sharding)
     for w in workloads:
         if not w:
             out.append(_empty_prepared(sp_size, gd_size, device, with_stats))

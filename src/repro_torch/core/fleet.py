@@ -39,9 +39,17 @@ holds one round's working set, not the backlog of segments waiting for
 a contact window, so a round that repeats the last one's shapes
 allocates nothing new.
 
-The fleet runs on one device (the reference's ``mesh`` and
-``strict_parity`` options are not ported: every lane here already
-equals its one-lane Mission bit for bit).
+With a ``mesh`` (:func:`~repro_torch.core.fleet_sharding.sats_mesh`, a
+one-dim ``sats`` ``DeviceMesh``), every rank of the mesh runs this whole
+host program from the same seeds, and the device work above (the
+capture buckets, the dedup lanes, the counting and recount batches) is
+split across the ranks by lane (:mod:`repro_torch.core.fleet_sharding`).
+Every rank ends with the same results, each satellite's equal to the
+one-device fleet's bit for bit. The drain step's throttle masks and the
+ledger's energy caps stay on the host, computed alike on every rank:
+they are a few dozen lanes, not worth dividing. The reference's
+``strict_parity`` option has no counterpart: each batched dedup lane
+here already equals its one-lane Mission Dedup bit for bit.
 """
 from __future__ import annotations
 
@@ -66,7 +74,8 @@ from repro_torch.models import detector
 
 
 class Fleet:
-    """N-satellite constellation over one counter pair, on one device.
+    """N-satellite constellation over one counter pair, on one device or a
+    ``sats`` device mesh.
 
     Parameters
     ----------
@@ -77,6 +86,15 @@ class Fleet:
         back to its Mission's sequential path, in ingest and contact.
     n_sats : fleet size when ``pcfg`` is a single config.
     energy_cfgs : as for :class:`Mission` (compute pricing), shared.
+    mesh : an optional one-dim ``sats`` ``DeviceMesh``
+        (:func:`~repro_torch.core.fleet_sharding.sats_mesh`); every rank
+        of it builds and drives the Fleet alike, and the lane-stacked
+        work is split across the ranks. The device is then the mesh's.
+        None: one device, the code that ran before the mesh existed.
+        The recount pipeline (``async_ground`` / ``async_depth``) is
+        refused on a CUDA mesh of more than one rank: its workers' NCCL
+        gathers would run on a second communicator from another thread,
+        whose order against the foreground's may differ from rank to rank.
     async_ground : ``True`` overlaps each round's ground recount with
         what the caller does next (a depth-1 pipeline).
     async_depth : the recount pipeline's depth: up to ``k`` rounds'
@@ -99,11 +117,12 @@ class Fleet:
         run. Blackouts key on the ingest-call counter, contact faults on
         the contact-round counter; the ``finalize`` flush is never
         faulted.
-    device : "cuda" (default; raises without a card) or "cpu".
+    device : "cuda" (default; raises without a card) or "cpu"; with a
+        ``mesh``, the mesh's device type.
     """
 
     def __init__(self, space, ground, pcfg=None, n_sats: Optional[int] = None,
-                 energy_cfgs=None, async_ground: bool = False,
+                 energy_cfgs=None, mesh=None, async_ground: bool = False,
                  contact_reference: bool = False,
                  faults: Optional[FaultPlan] = None,
                  watchdog_s: Optional[float] = None,
@@ -139,16 +158,30 @@ class Fleet:
                 f"Fleet: ingest_overlap must be a bool (True = defer "
                 f"each round's device->host fetches behind the next "
                 f"round's dispatch), got {ingest_overlap}")
-        self.device = resolve_device(device)
+        if (self.ground_segment.depth and mesh is not None
+                and mesh.device_type == "cuda" and mesh.size() > 1):
+            raise ValueError(
+                f"Fleet: the recount pipeline (async_depth="
+                f"{self.ground_segment.depth}) is not supported on a CUDA "
+                f"mesh of {mesh.size()} ranks: its workers would drive a "
+                f"second NCCL communicator from another thread")
+        self.device = resolve_device(device if mesh is None else mesh.device_type)
         self.n_sats = n_sats
-        self.sharding = FleetSharding()
+        self.sharding = FleetSharding(mesh)
+        # the recount workers gather on a process group of their own, one
+        # a mesh (made by the mesh's first pipelined Fleet, at the same
+        # point on every rank)
+        self.worker_sharding = (self.sharding.twin() if self.ground_segment.depth
+                                else self.sharding)
         self.space = (detector.to_device(space[0], self.device), space[1])
         self.ground = (detector.to_device(ground[0], self.device), ground[1])
         self.missions = [Mission(self.space, self.ground, p,
                                  energy_cfgs=energy_cfgs, device=self.device)
                          for p in pcfgs]
         # every Mission's ledgers are views of a lane of ONE stacked
-        # fleet ledger, so fleet-wide grants and charges are one op
+        # fleet ledger, so fleet-wide grants and charges are one op; its
+        # lanes are padded to a device multiple, and pad lanes are never
+        # written
         self.ledger = FleetLedger(n_sats, n_lanes=self.sharding.pad(n_sats))
         for i, m in enumerate(self.missions):
             m.ledger = self.ledger.energy_view(i)
@@ -276,7 +309,8 @@ class Fleet:
                     and self.missions[i].policy.wants_dedup) for i in ids)
             preps = engine.prepare_frames_multi(
                 [frames_per_sat[i] for i in ids], tile_size, sp_size, gd_size,
-                with_stats=stats, defer_stats=overlap, device=self.device)
+                with_stats=stats, defer_stats=overlap, device=self.device,
+                sharding=self.sharding)
             for i, prep in zip(ids, preps):
                 seg = Segment(frames=list(frames_per_sat[i]),
                               energy_grant_override=energy_budgets_j[i])
@@ -454,7 +488,7 @@ class Fleet:
             nops[i] = n_act
         if not parts:
             return (None, None) if defer else None
-        results = dd.dedup_multi(parts)
+        results = dd.dedup_multi(parts, sharding=self.sharding)
 
         def fetch():
             for (i, idx_active), res in zip(ids, results):
@@ -516,7 +550,7 @@ class Fleet:
         for thresh, ids in by_thresh.items():
             parts = [(segs[i].tiles_sp, process[i]) for i in ids]
             out = count_tiles_multi(params, cfg, parts, score_thresh=thresh,
-                                    defer=defer)
+                                    sharding=self.sharding, defer=defer)
             if defer:
                 # `out` is the resolve closure: the batch is enqueued on
                 # the device; the single host fetch + write-back parks
@@ -729,7 +763,8 @@ class Fleet:
 
     def summary(self) -> dict:
         """Fleet-aggregate scalars (per-satellite results summed) and the
-        run's facts: whether ingest ran the batched dedup, ingest
+        run's facts: the mesh's device count, whether ingest ran the
+        batched dedup, ingest
         throughput (host wall time of :meth:`ingest` calls), the contact
         tier's wall time and window/byte throughput, the recount
         pipeline's accounting (``recount_wait_s <= recount_s``), and the
@@ -794,7 +829,7 @@ class Fleet:
 
 
 def run_scenario(space, ground, pcfg, scenario, *, fleet: bool = True,
-                 energy_cfgs=None, async_ground: bool = False,
+                 energy_cfgs=None, mesh=None, async_ground: bool = False,
                  contact_reference: bool = False,
                  faults: Optional[FaultPlan] = None,
                  watchdog_s: Optional[float] = None,
@@ -804,7 +839,8 @@ def run_scenario(space, ground, pcfg, scenario, *, fleet: bool = True,
 
     ``fleet=True`` runs the constellation-batched :class:`Fleet`, each
     round's contact events as a :class:`~repro_torch.core.contact.
-    ContactPlan`; ``async_ground``/``async_depth`` run the recounts on
+    ContactPlan`, on one device or (``mesh``) split along a ``sats``
+    device mesh; ``async_ground``/``async_depth`` run the recounts on
     the ground segment's workers (``watchdog_s`` bounds each
     retirement), ``ingest_overlap=True`` defers each round's fetches
     behind the next round's launches and ``contact_reference=True``
@@ -824,6 +860,7 @@ def run_scenario(space, ground, pcfg, scenario, *, fleet: bool = True,
     faults_active = faults is not None and not faults.empty
     if fleet:
         fl = Fleet(space, ground, pcfg, n_sats=n, energy_cfgs=energy_cfgs,
+                   mesh=mesh,
                    async_ground=async_ground,
                    contact_reference=contact_reference, faults=faults,
                    watchdog_s=watchdog_s, async_depth=async_depth,

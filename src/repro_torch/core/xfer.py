@@ -12,6 +12,10 @@ them after its first round.
 lock: the ground segment's recount workers call in from their own
 threads.
 
+On a ``sats`` mesh (:class:`~repro_torch.core.fleet_sharding.
+FleetSharding`) a cached vector is a lane stack placed along the mesh,
+and the key holds the mesh, so two meshes never share a tensor.
+
 On a CUDA device the key also holds the calling thread's current
 stream, so each stream reads only copies it uploaded itself. A recount
 worker runs on its own stream; a vector it shared with the foreground
@@ -63,29 +67,39 @@ def cache_size() -> int:
         return len(_cache)
 
 
-def _put(arr: np.ndarray, device) -> torch.Tensor:
+def _put(arr: np.ndarray, device, sharding) -> torch.Tensor:
+    if sharding is not None:
+        return sharding.device_put(arr)  # counts its own transfer
     record_transfer()
     return torch.from_numpy(np.ascontiguousarray(arr)).to(device)
 
 
-def device_constant(arr, device) -> torch.Tensor:
+def device_constant(arr, device=None, sharding=None) -> torch.Tensor:
     """``arr`` (a small host array whose value tends to repeat) as a
-    tensor on ``device``, cached by content. Arrays above the size cap
-    are uploaded each time (and counted). The result is shared: callers
-    only read it."""
+    tensor on ``device``, cached by content; with an on-mesh
+    ``sharding``, as a DTensor split along its ``sats`` axis on the
+    mesh's device (``arr``'s leading axis a device multiple). Arrays
+    above the size cap are uploaded each time (and counted). The result
+    is shared: callers only read it."""
     arr = np.asarray(arr)
-    device = torch.device(device)
+    on_mesh = sharding is not None and sharding.on_mesh
+    if on_mesh:
+        device = sharding.device
+    else:
+        sharding = None
+        device = torch.device(device)
     if arr.nbytes > _MAX_ITEM_BYTES:
-        return _put(arr, device)
+        return _put(arr, device, sharding)
     stream = (torch.cuda.current_stream(device).cuda_stream
               if device.type == "cuda" else None)
-    key = (str(device), stream, arr.dtype.str, arr.shape, arr.tobytes())
+    key = (id(sharding.mesh) if on_mesh else str(device), stream, arr.dtype.str,
+           arr.shape, arr.tobytes())
     with _lock:
         hit = _cache.get(key)
         if hit is not None:
             _stats["cache_reuses"] += 1
             return hit
-    dev = _put(arr, device)
+    dev = _put(arr, device, sharding)
     with _lock:
         if len(_cache) >= _MAX_ENTRIES:
             _cache.clear()

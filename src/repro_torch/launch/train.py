@@ -63,10 +63,9 @@ def build_lm_trainer(cfg, mesh=None, lr: float = 3e-4, total_steps: int = 100,
     moments out as the parameters, and each step puts its batch's rows
     over the data axes (``sharding.policy.lm_specs``) and runs with the
     mesh active, on the mesh's device type. ``compress`` draws one
-    uniform a gradient element, which a sharded gradient would draw
-    otherwise: with a mesh it raises."""
-    if mesh is not None and compress:
-        raise NotImplementedError("build_lm_trainer: compress on a mesh")
+    uniform a gradient element from ``rng``, the whole leaf's on every
+    rank of a mesh, so a sharded gradient's round trip is the one-device
+    round trip of the same values (:mod:`repro_torch.optim.compress`)."""
     device = resolve_device(device if mesh is None else mesh.device_type)
     opt_init, opt_update = adamw(cosine_with_warmup(lr, 10, total_steps))
 

@@ -308,6 +308,12 @@ def test_constellation_sim_torch(argv, bridged, monkeypatch):
 
 
 def test_constellation_sim_torch_refuses_a_mesh(bridged, monkeypatch):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        _run(constellation_sim_torch, ["--device", "cpu", "--devices", "2"], bridged,
-             monkeypatch)
+    """``--devices 2`` on the CPU starts two ``gloo`` ranks, which run the
+    fleet on a two-rank sats mesh; the parent prints rank 0's report, in
+    which ``--check`` holds the sharded fleet to the looped Missions."""
+    got = _run(constellation_sim_torch, ["--device", "cpu", "--devices", "2", "--sats", "3",
+                                         "--rounds", "2", "--check"], bridged, monkeypatch)
+    assert "parity check: sharded fleet (2 devices) == looped Missions (exact)" in got
+    assert any(ln.startswith("fleet runtime: 2 device(s)") for ln in got)
+    assert got[-1].startswith("constellation aggregate count: pred=")
+    assert sum(ln.startswith("  sat") for ln in got) == 3

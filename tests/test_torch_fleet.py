@@ -22,6 +22,8 @@ bit.
 All uses of the session ``counters`` fixture in this file share one
 module-scoped cache of runs.
 """
+from types import SimpleNamespace
+
 import numpy as np
 import pytest
 import torch
@@ -35,7 +37,7 @@ from repro.data.synthetic import SceneSpec as JSceneSpec
 from repro_torch.configs import get_config, reduced
 from repro_torch.core import faults, fleet, xfer
 from repro_torch.core.contact import ContactPlan
-from repro_torch.core.fleet_sharding import FleetSharding
+from repro_torch.core.fleet_sharding import FleetSharding, sats_mesh
 from repro_torch.core.pipeline import PipelineConfig
 from repro_torch.data import scenarios
 from repro_torch.data.synthetic import SceneSpec
@@ -263,8 +265,11 @@ def test_fault_draws_and_repair_match_reference(specs):
 
 def test_unported_options_raise_naming_the_roadmap():
     """The recount pipeline's options construct and report their depth
-    (tests/test_torch_ground_pipeline.py runs them); a sats device mesh
-    is still not ported and raises."""
+    (tests/test_torch_ground_pipeline.py runs them), and a bad depth
+    raises. Off a mesh the fleet's placement context is the identity, as
+    the reference's (tests/test_fleet.py's test_off_mesh_sharding_is_noop);
+    a mesh of more than one device needs a process group (the sats mesh
+    runs on four ranks in tests/test_torch_fleet_mesh.py)."""
     cfg = reduced(get_config("targetfuse-space"))
     counter = (detector.init(torch.Generator().manual_seed(0), cfg, device="cpu"), cfg)
     for kw, depth in ((dict(async_ground=True), 1), (dict(async_depth=1), 1),
@@ -274,11 +279,27 @@ def test_unported_options_raise_naming_the_roadmap():
         s = fl.summary()
         assert (s["async_depth"], s["async_ground"]) == (depth, depth > 0), kw
         assert fl.ground_segment.watchdog_s == kw.get("watchdog_s")
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1"):
-        FleetSharding(object())
-    assert FleetSharding().pad(5) == 5
+    sh = FleetSharding(None)
+    assert not sh.on_mesh and sh.n_devices == 1 and sh.pad(5) == 5
+    arr = np.arange(6.0)
+    assert sh.shard(arr) is arr and sh.device_put(arr) is arr
+    assert sats_mesh(1) is None and sats_mesh(1, device_type="cpu") is None
+    with pytest.raises(RuntimeError, match="process group"):
+        sats_mesh(2, device_type="cpu")
     with pytest.raises(ValueError, match="depth"):
         fleet.Fleet(None, None, PipelineConfig(), n_sats=2, device="cpu", async_depth=-1)
+
+
+@pytest.mark.parametrize("kw", [dict(async_depth=1), dict(async_ground=True)],
+                         ids=["async_depth", "async_ground"])
+def test_recount_pipeline_refused_on_a_multi_card_cuda_mesh(kw):
+    """On a CUDA mesh of more than one rank the recount workers' gathers
+    would run on a second NCCL communicator from another thread, whose
+    order against the foreground's may differ from rank to rank: the
+    Fleet refuses the pipeline before it touches a device."""
+    mesh = SimpleNamespace(device_type="cuda", size=lambda: 2)
+    with pytest.raises(ValueError, match="recount pipeline"):
+        fleet.Fleet(None, None, PipelineConfig(), n_sats=2, mesh=mesh, **kw)
 
 
 def test_transfer_cache_reuses_repeated_index_vectors():

@@ -303,6 +303,84 @@ def _trainer():
     assert n_sure >= n // 2, (n_sure, n)
 
 
+def _compress():
+    """``optim.compress.int8_roundtrip_tree`` of DTensor leaves (split on
+    both mesh dims, on one, replicated, unevenly) equals the plain call on
+    the whole values, bit for bit, from generators in the same state,
+    which it leaves in the same state; every leaf keeps its layout."""
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.optim.compress import int8_roundtrip_tree
+    mesh = make_test_mesh(4, model=2, device_type="cpu")
+    g = torch.Generator().manual_seed(5)
+    tree = {"w": torch.randn(8, 12, generator=g), "b": torch.randn(10, generator=g) * 1e-3,
+            "e": torch.randn(6, 4, 2, generator=g), "z": torch.zeros(4, 4)}
+    layout = {"w": (Shard(0), Shard(1)), "b": (Shard(0), Replicate()),
+              "e": (Shard(0), Shard(0)), "z": (Replicate(), Shard(1))}
+    placed = {k: distribute_tensor(v, mesh, layout[k], src_data_rank=None)
+              for k, v in tree.items()}
+    g0, g1 = torch.Generator().manual_seed(9), torch.Generator().manual_seed(9)
+    want = int8_roundtrip_tree(tree, g0)
+    got = int8_roundtrip_tree(placed, g1)
+    for k in tree:
+        assert tuple(got[k].placements) == layout[k], k
+        assert torch.equal(got[k].full_tensor(), want[k]), k
+    assert torch.equal(g0.get_state(), g1.get_state())
+
+
+# the compressed trainers: after two steps each parameter's update (new
+# less initial) equals the plain compressed trainer's within UPDATE_TOL
+# learning rates except where the stochastic rounding flipped: the
+# sharded gradient differs from the plain one in its last bits (GRAD_TOL
+# above), and where a uniform falls between the two scaled values the
+# element rounds to the neighbouring int8 step, a whole step of
+# max|g| / 127, which moves that element's AdamW update by up to 2 lr a
+# step. So every element within COMPRESS_FLIP_TOL learning rates, and
+# at most COMPRESS_FLIP_SHARE of the elements beyond UPDATE_TOL.
+COMPRESS_FLIP_TOL = 4.0
+COMPRESS_FLIP_SHARE = 1e-3
+
+
+def _compress_trainer():
+    """``build_lm_trainer(cfg, mesh, compress=True)`` under two steps
+    against the plain compressed trainer from the same state: the losses
+    within LOSS_RTOL, the updates as stated above."""
+    from repro_torch import tree as T
+    from repro_torch.configs import get_config, reduced
+    from repro_torch.launch import train
+    from repro_torch.launch.mesh import make_test_mesh
+    from repro_torch.models import lm
+    from repro_torch.sharding.place import full
+    cfg = reduced(get_config("qwen3-8b"))
+    mesh = make_test_mesh(4, model=2, device_type="cpu")
+    params = lm.init(torch.Generator().manual_seed(0), cfg, device="cpu")
+    rng = np.random.default_rng(4)
+    batches = [rng.integers(0, cfg.vocab_size, (4, 16), dtype=np.int32) for _ in range(2)]
+    out = []
+    for m in (None, mesh):
+        step_fn, opt_init = train.build_lm_trainer(cfg, m, lr=LR, total_steps=2, compress=True,
+                                                   device="cpu")
+        p = T.map_leaves(lambda x: x.clone(), params)
+        if m is not None:
+            p = train.place_state(p, cfg, m)
+        state, losses = (p, opt_init(p), torch.Generator().manual_seed(7).get_state()), []
+        for tok in batches:
+            state, loss = step_fn(state, (tok, np.roll(tok, -1, axis=1)))
+            losses.append(float(loss))
+        out.append((full(state[0]), losses, state[2]))
+    (p0, l0, r0), (p1, l1, r1) = out
+    for a, b in zip(l1, l0):
+        assert abs(a - b) <= LOSS_RTOL * abs(b), (l1, l0)
+    assert torch.equal(r0, r1)   # the same draws were taken
+    worst, beyond, n = 0.0, 0, 0
+    for a, b, x in zip(T.leaves(p1), T.leaves(p0), T.leaves(params)):
+        err = ((a - x) - (b - x)).abs() / LR
+        worst = max(worst, float(err.max()))
+        beyond, n = beyond + int((err > UPDATE_TOL).sum()), n + err.numel()
+    assert worst <= COMPRESS_FLIP_TOL, worst
+    assert beyond <= COMPRESS_FLIP_SHARE * n, (beyond, n)
+
+
 def _worker(rank, world, path, job):
     import torch.distributed as dist
     _group(rank, world, path)
@@ -322,12 +400,16 @@ def _worker(rank, world, path, job):
             _layout(rank)
         elif job == "trainer":
             _trainer()
+        elif job == "compress":
+            _compress()
+        elif job == "compress_trainer":
+            _compress_trainer()
     finally:
         dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("job", ["lm", "moe", "serve", "reshard", "kernels", "layout",
-                                 "trainer"])
+                                 "trainer", "compress", "compress_trainer"])
 def test_four_gloo_ranks(job):
     with tempfile.TemporaryDirectory() as d:
         mp.spawn(_worker, args=(4, os.path.join(d, "store"), job), nprocs=4, join=True)
