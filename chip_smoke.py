@@ -303,7 +303,19 @@ nothing of JAX or of the reference package ``repro``. Phases:
    launches by entry, one ``kmeanspp_seed_lanes_f32`` a shape bucket, no
    one-lane k-means launch, 0 builds and 0 new segments (checked); ingest
    and contact s, tiles/s and windows/s, plain and mesh, in turns (plain,
-   mesh, mesh, plain).
+   mesh, mesh, plain). (a) The recount pipeline on that mesh
+   (``SATS_PIPELINES``: targetfuse at ``async_depth=1``, ground_only at
+   ``async_depth=2, ingest_overlap=True``): each run equal to depth 0 on
+   the mesh and to the plain fleet, rounds deferred, the launches by
+   entry of depth 0, every recount (``nms_keep_f32`` with it) launched on
+   the worker's stream, no process group made and no collective off the
+   main thread (checked); round 3 under ``LaunchGuard`` with 0 builds, 0
+   new segments and depth 0's launches (checked); the pipeline's times,
+   plain and mesh, in turns. (b), four ranks sharing the card on
+   ``gloo``, is not run: on this PyTorch (2.11) gloo takes
+   ``torch.distributed``'s own collectives on CUDA tensors but dies in
+   the functional collectives' ``wait_tensor`` that DTensor's
+   ``full_tensor`` makes (``scripts/gloo_cuda_probe.py``).
 
 It prints a ``{"kernels": [...]}`` line (each kernel at its main shape,
 with an ``entries`` list giving each entry of its library at the entry's
@@ -315,7 +327,8 @@ monolith runs, the LM prefills of phases 5, 12a and 12d, the ViT
 forwards of phase 13, the diffusion samples of phase 14a-b, the first
 training step of each model in phases 15 and 16, phase 17's counted
 serve steps, prefill and plan calls, phase 18's counted sharded serve
-steps, prefill and training steps, phase 19's counted mesh fleet run,
+steps, prefill and training steps, phase 19's counted mesh fleet runs
+(depth 0 and (a)'s two pipelined runs),
 and ``int8_matmul``'s one path;
 ``flash_attention``'s entries include its backward's twelve, from
 ``csrc/flash_attention_bwd.cu`` and ``csrc/flash_attention_bwd_sm90.cu``),
@@ -4570,12 +4583,13 @@ def fleet_facts(results, fl) -> dict:
                 summ=[r.summary() for r in results], n_lanes=fl.ledger.n_lanes,
                 fleet={k: v for k, v in s.items() if k not in FLEET_TIMING},
                 ledger={f: getattr(fl.ledger, f).copy() for f in LEDGER_LANES},
-                ingest_s=s["ingest_s"], contact_s=s["contact_s"], tiles_per_s=s["tiles_per_s"],
-                windows_per_s=s["windows_per_s"])
+                **{k: s[k] for k in ("ingest_s", "contact_s", "tiles_per_s", "windows_per_s",
+                                     "recount_s", "recount_wait_s", "recount_hidden_frac")})
 
 
-def same_facts(a, b) -> list:
-    """The fields of two fleet runs that differ (empty: the same)."""
+def same_facts(a, b, skip=()) -> list:
+    """The fields of two fleet runs that differ (empty: the same), the
+    summary keys in ``skip`` aside."""
     import numpy as np
     bad = [f"sat{i}" for i in range(len(b["pred"]))
            if not (np.array_equal(a["pred"][i], b["pred"][i])
@@ -4584,13 +4598,164 @@ def same_facts(a, b) -> list:
     bad += [f for f in LEDGER_LANES if not np.array_equal(a["ledger"][f], b["ledger"][f])]
     if a["n_lanes"] != b["n_lanes"]:
         bad.append("n_lanes")
-    bad += [k for k in b["fleet"] if a["fleet"].get(k) != b["fleet"][k]]
+    bad += [k for k in b["fleet"] if k not in skip and a["fleet"].get(k) != b["fleet"][k]]
     return bad
 
 
-def phase_sats_mesh(dev, kernels):
-    """Phase 19 -> (launches by kernel of the counted mesh run, the same by
-    entry)."""
+class Collectives:
+    """Every ``torch.distributed`` collective and every functional one
+    (DTensor's) issued in the block -> ``calls``: (name, on the main
+    thread); ``groups``: the process groups made."""
+    C10D = ("all_reduce", "all_gather", "all_gather_into_tensor", "broadcast", "reduce",
+            "reduce_scatter_tensor", "all_to_all_single", "barrier", "send", "recv")
+    FUNCOL = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor",
+              "all_to_all_single", "broadcast", "all_reduce_coalesced",
+              "all_gather_into_tensor_coalesced", "reduce_scatter_tensor_coalesced")
+
+    def __enter__(self):
+        import threading
+        import torch
+        import torch.distributed as dist
+        self.calls, self.groups, self.saved = [], 0, []
+
+        def spy(name, fn):
+            def call(*a, **kw):
+                if name == "new_group":
+                    self.groups += 1
+                else:
+                    self.calls.append((name, threading.current_thread() is threading.main_thread()))
+                return fn(*a, **kw)
+            return call
+        for owner, names in ((dist, self.C10D + ("new_group",)),
+                             (torch.ops._c10d_functional, self.FUNCOL)):
+            for name in names:
+                fn = getattr(owner, name)
+                self.saved.append((owner, name, fn))
+                setattr(owner, name, spy(name, fn))
+        return self
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+# phase 19 (a): the recount pipeline on the one-rank mesh, two of
+# tests/test_torch_fleet_mesh.py's PIPELINES: (name, policy, Fleet options)
+SATS_PIPELINES = (("depth1", "targetfuse", dict(async_depth=1)),
+                  ("depth2_overlap", "ground_only", dict(async_depth=2, ingest_overlap=True)))
+# the fleet summary's keys that name the pipeline's options and count its rounds
+PIPELINE_KEYS = ("async_ground", "async_depth", "recount_rounds_deferred",
+                 "recount_max_in_flight", "ingest_overlap", "ingest_rounds_deferred")
+
+
+def sats_pipelines(dev, kernels, space, ground, sc, mesh, smi):
+    """Phase 19 (a): each of SATS_PIPELINES on phase 6's cell on the
+    one-rank mesh, beside depth 0 on the mesh and the plain fleet of its
+    policy, the pipelined runs in turns plain, mesh, mesh, plain after a
+    dropped warm-up. Checks: every mesh run's satellites, summaries (but
+    the timing and pipeline keys), ledger lanes and ``n_lanes`` equal to
+    depth 0 on the mesh and to the plain fleet; rounds deferred; the
+    counted run's launches by entry equal to depth 0's on the mesh; every
+    recount launched on a worker thread, on a stream other than the
+    foreground's; no process group made and no collective issued off the
+    main thread. Then a mesh Fleet of the options and one at depth 0,
+    driven round by round, each round retired at its end, round 3 under
+    ``LaunchGuard``: 0 builds, 0 new segments, the same launches by
+    entry. -> launches by kernel and by entry of the counted runs."""
+    import threading
+    import torch
+    from repro_torch.core import contact, fleet as F
+    from repro_torch.core.pipeline import PipelineConfig
+    n = FLEET_SATS
+    main_stream = torch.cuda.current_stream(dev).cuda_stream
+    total, total_entries, rows = {}, {}, {}
+    recount_calls, count = [], contact.count_tiles_multi
+
+    def spy(*args, **kwargs):
+        recount_calls.append((threading.current_thread() is threading.main_thread(),
+                              torch.cuda.current_stream(dev).cuda_stream))
+        return count(*args, **kwargs)
+
+    def run(pcfg, **kw):
+        got, fl = F.run_scenario(space, ground, pcfg, sc, device=dev, **kw)
+        torch.cuda.synchronize()
+        out = fleet_facts(got, fl)
+        del fl
+        return out
+
+    def guarded(label, pcfg, **kw):
+        fleet = F.Fleet(space, ground, pcfg, n_sats=n, device=dev, mesh=mesh, **kw)
+        rounds = iter(sc.rounds)
+
+        def fleet_round():
+            rnd = next(rounds)
+            fleet.ingest(rnd.frames_per_sat(n), rnd.harvest_per_sat(n))
+            if rnd.contacts:
+                fleet.contact_round(plan=rnd.contact_plan(n))
+            fleet.ground_segment.sync()
+        g = guard_rounds(label, fleet_round, 1)[0]
+        fleet.finalize()
+        del fleet
+        g.assert_steady_state()
+        return g
+
+    for name, method, kw in SATS_PIPELINES:
+        pcfg = PipelineConfig(method=method, score_thresh=NMS_SCORE, seed=SEED)
+        plain0 = run(pcfg)
+        base, _, base_entries = counted_run(kernels, lambda: run(pcfg, mesh=mesh))
+        run(pcfg, mesh=mesh, **kw)   # warm-up, dropped: the first worker sets up its stream
+        plain = [run(pcfg, **kw)]
+        recount_calls.clear()
+        contact.count_tiles_multi = spy
+        try:
+            with Collectives() as spied:
+                got, launches, entries = counted_run(kernels, lambda: run(pcfg, mesh=mesh, **kw))
+        finally:
+            contact.count_tiles_multi = count
+        meshed = [got, run(pcfg, mesh=mesh, **kw)]
+        plain.append(run(pcfg, **kw))
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+        for k, v in entries.items():
+            total_entries[k] = total_entries.get(k, 0) + v
+        for i, r in enumerate(meshed + plain):
+            for want, what in ((base, "depth 0 on the mesh"), (plain0, "the plain fleet")):
+                bad = same_facts(r, want, PIPELINE_KEYS)
+                check(not bad, f"19 {name}: run {i} differs from {what} in {bad}")
+            check(r["fleet"]["recount_rounds_deferred"] > 0
+                  and r["recount_wait_s"] <= r["recount_s"],
+                  f"19 {name}: run {i}'s recount accounting {r['fleet']}")
+        on_worker = [not main and stream != main_stream for main, stream in recount_calls]
+        off_main = [c for c in spied.calls if not c[1]]
+        check(entries == base_entries and entries.get("nms_keep_f32", 0) > 0,
+              f"19 {name}: launches by entry {entries}, depth 0 on the mesh {base_entries}")
+        check(recount_calls and all(on_worker),
+              f"19 {name}: recounts off a worker stream {recount_calls} "
+              f"(foreground stream {main_stream})")
+        # on one rank DTensor's gathers move nothing and issue no collective
+        check(spied.groups == 0 and not off_main,
+              f"19 {name}: {spied.groups} process group(s) made, collectives off the main "
+              f"thread {off_main} of {len(spied.calls)}")
+        g0, g = guarded(f"19 {name} depth 0", pcfg), guarded(f"19 {name}", pcfg, **kw)
+        check(g.launches == g0.launches,
+              f"19 {name}: round 3's launches by entry {g.launches}, depth 0 {g0.launches}")
+        rows[name] = {side: [{k: r[k] for k in ("ingest_s", "contact_s", "recount_s",
+                                                 "recount_wait_s", "recount_hidden_frac",
+                                                 "tiles_per_s", "windows_per_s")} for r in runs]
+                      for side, runs in (("plain", plain), ("mesh", meshed))}
+        print(f"19 {name}: {len(meshed)} mesh and {len(plain)} plain runs equal depth 0 on the "
+              f"mesh and the plain fleet; {len(recount_calls)} recounts on the worker stream; "
+              f"{len(spied.calls)} collectives, none off the main thread, 0 groups made; launches "
+              f"by entry {json.dumps(entries)}; round 3 guarded: {g.syncs} syncs (depth 0 "
+              f"{g0.syncs})", flush=True)
+    print(f"19 pipelines plain vs mesh (turns plain, mesh, mesh, plain; host s of the Fleet's "
+          f"own clocks; {smi}): " + json.dumps(rows), flush=True)
+    return total, total_entries
+
+
+def phase_sats_mesh(dev, kernels, smi):
+    """Phase 19 -> (launches by kernel of the counted mesh runs, the same
+    by entry)."""
     import shutil
     import numpy as np
     import torch
@@ -4672,6 +4837,11 @@ def phase_sats_mesh(dev, kernels):
               and gm.get("kmeans_assign_f32", 0) == gm.get("kmeanspp_seed_f32", 0) == 0,
               f"19: round 3's launches by entry, mesh {gm} against plain "
               f"{guards['plain'].launches}, {buckets[-1]} shape bucket(s)")
+        piped, piped_entries = sats_pipelines(dev, kernels, space, ground, sc, mesh, smi)
+        for k, v in piped.items():
+            launches[k] += v
+        for k, v in piped_entries.items():
+            entries[k] = entries.get(k, 0) + v
     finally:
         if dist.is_initialized():
             dist.destroy_process_group()
@@ -5593,7 +5763,7 @@ def main():
         entry_launches[sym] = entry_launches.get(sym, 0) + n
     print(f"phase mesh: {time.perf_counter() - t0:.1f} s", flush=True)
     t0 = time.perf_counter()
-    sats_launches, sats_entries = phase_sats_mesh(dev, mission_kernels)
+    sats_launches, sats_entries = phase_sats_mesh(dev, mission_kernels, smi)
     for name, n in sats_launches.items():
         launches[name] += n
     for sym, n in sats_entries.items():

@@ -20,7 +20,9 @@ are deliberately out of scope: they run under foreground ownership.
 On a CUDA device the port's worker runs on the segment's own stream: it
 reads its round's ``stream`` and ``ready`` event, makes its stream wait
 for the event (``wait_event``, which only orders the two streams) and
-synchronizes the stream when it ends. A ``synchronize`` waits on device
+synchronizes the stream when it ends. On a ``sats`` mesh it runs only the
+launch half and writes its resolvers to its own round (``launched``),
+recording the round's ``done`` event; the foreground lands them. A ``synchronize`` waits on device
 work, as a count does, so it is a barrier: a cancel check made before
 it is stale after it. Neither is a write-back.
 
@@ -73,15 +75,15 @@ OWNERSHIP: Dict[str, Role] = {
                               "_ingest_dispatch_s", "_host_fetch_s",
                               "_device_compute_s", "_windows_served"})),
     # the worker's own per-round object: the injected fault and stall,
-    # the stream and ready event set at dispatch are its to read; the
-    # err/clock slots are its to write; the foreground reads them only
-    # after join()
+    # the stream and the ready and done events set at dispatch are its to
+    # read; the err/clock slots and the launch half's resolvers are its
+    # to write; the foreground reads them only after join()
     "_InFlightRound": Role(read=frozenset({"work", "cancel", "thread", "fault",
-                                           "stall_s", "stream", "ready"}),
-                           write=frozenset({"err", "worker_s"})),
-    # the dispatch-time snapshot (the ground counter included) is frozen:
-    # read-only
-    "_RecountWork": Role(read=frozenset({"ground", "by_thresh", "agg"})),
+                                           "stall_s", "stream", "ready", "done"}),
+                           write=frozenset({"err", "worker_s", "launched"})),
+    # the dispatch-time snapshot (the ground counter and the placement
+    # context included) is frozen: read-only
+    "_RecountWork": Role(read=frozenset({"ground", "by_thresh", "agg", "sharding"})),
     # per-segment recount output: pure write of this round's own
     # segments, legal only behind a fresh cancel check
     "Segment": Role(read=ANY, guarded=frozenset({"counts_gd"})),

@@ -26,7 +26,9 @@ Counterpart of ``repro/core/contact.py``:
   a worker thread, up to ``k`` rounds in flight, with the watchdog and
   the injected worker faults of :mod:`repro_torch.core.faults`. On a
   CUDA device every worker launches on the segment's own stream, ordered
-  after the foreground's writes by an event recorded at dispatch.
+  after the foreground's writes by an event recorded at dispatch. On a
+  ``sats`` mesh a worker only launches its rank's counting, and the
+  foreground gathers the round when it retires it.
 """
 from __future__ import annotations
 
@@ -342,24 +344,19 @@ class _RecountWork:
     while this round is queued, and the fleet may be gone. A segment is
     recounted and aggregated only in the round where it delivered or
     was permanently lost, so concurrent rounds write disjoint
-    segments. ``sharding`` is the fleet's placement context, which the
-    foreground's recounts use; ``worker_sharding`` the same ranks on a
-    process group of their own, the workers' (one and the same off a
-    mesh)."""
+    segments. ``sharding`` is the fleet's placement context."""
 
-    __slots__ = ("ground", "by_thresh", "agg", "sharding", "worker_sharding")
+    __slots__ = ("ground", "by_thresh", "agg", "sharding")
 
-    def __init__(self, ground, by_thresh, agg, sharding=None, worker_sharding=None):
+    def __init__(self, ground, by_thresh, agg, sharding=None):
         self.ground = ground
         self.by_thresh = by_thresh
         self.agg = agg
         self.sharding = sharding
-        self.worker_sharding = worker_sharding
 
-    def on_worker(self) -> "_RecountWork":
-        """The snapshot whose gathers go on the workers' process group."""
-        return _RecountWork(self.ground, self.by_thresh, self.agg, self.worker_sharding,
-                            self.worker_sharding)
+    @property
+    def on_mesh(self) -> bool:
+        return self.sharding is not None and self.sharding.on_mesh
 
     def device(self) -> Optional[torch.device]:
         """The device the recount runs on (None: nothing to count)."""
@@ -384,35 +381,38 @@ def _recount_plan(fleet, jobs) -> _RecountWork:
             if not seg.requeued:
                 agg.append((m, seg, window))
             # else: retrying in a later round — no prediction yet
-    return _RecountWork(fleet.ground, by_thresh, agg, fleet.sharding,
-                        fleet.worker_sharding)
+    return _RecountWork(fleet.ground, by_thresh, agg, fleet.sharding)
 
 
-def _recount_run(work: _RecountWork,
-                 cancel: Optional[threading.Event] = None) -> None:
-    """The recount half: the ground recounts of every window in the round
-    share fixed-shape counting batches (grouped by threshold), then
-    Aggregate fuses predictions. Reads only the snapshot of
-    :func:`_recount_plan` and charges nothing. ``cancel`` is checked
-    between threshold groups, after each count and before each
-    Aggregate: a worker the watchdog abandoned writes nothing once it is
-    set, so the synchronous recovery never sees a concurrent write.
-
-    Every threshold group is counted before any is written. On a
-    ``sats`` mesh every rank's worker makes the same gathers in the same
-    order, and a cancel is seen at another point on each rank, so there
-    a cancelled worker still counts every group (and writes nothing):
-    one that stopped early would leave the other ranks' gathers
-    waiting."""
+def _recount_launch(work: _RecountWork,
+                    cancel: Optional[threading.Event] = None):
+    """The launch half of a round's recount: each threshold group's
+    ground tiles are made and counted in shared fixed-shape batches
+    (``count_tiles_multi(..., defer=True)``), without the host copy ->
+    ``[(items, resolve)]``, or None where ``cancel`` was set between
+    groups. On a ``sats`` mesh each rank uploads and counts only its own
+    chunks (``DTensor.from_local``, ``local_op``): nothing here is a
+    collective, and each ``resolve()`` makes its group's one gather."""
     params, cfg = work.ground
-    on_mesh = work.sharding is not None and work.sharding.on_mesh
-    counted = []
+    launched = []
     for thresh, items in work.by_thresh.items():
-        if cancel is not None and cancel.is_set() and not on_mesh:
-            return
-        counted.append((items, count_tiles_multi(params, cfg, recount_tiles(items),
-                                                 score_thresh=thresh,
-                                                 sharding=work.sharding)))
+        if cancel is not None and cancel.is_set():
+            return None
+        launched.append((items, count_tiles_multi(params, cfg, recount_tiles(items),
+                                                  score_thresh=thresh, sharding=work.sharding,
+                                                  defer=True)))
+    return launched
+
+
+def _recount_land(work: _RecountWork, launched,
+                  cancel: Optional[threading.Event] = None) -> None:
+    """The landing half: resolve every threshold group's counts (the host
+    copy, and on a ``sats`` mesh the gather), write each segment's ground
+    counts, then Aggregate fuses predictions. ``cancel`` is checked after
+    the counts land and before each Aggregate: a worker the watchdog
+    abandoned writes nothing once it is set, so the synchronous recovery
+    never sees a concurrent write."""
+    counted = [(items, resolve()) for items, resolve in launched]
     for items, results in counted:
         if cancel is not None and cancel.is_set():
             return  # abandoned mid-count: discard, write nothing
@@ -425,6 +425,17 @@ def _recount_run(work: _RecountWork,
         if cancel is not None and cancel.is_set():
             return
         m.contact_stages[3].run(m, seg, window)  # Aggregate
+
+
+def _recount_run(work: _RecountWork,
+                 cancel: Optional[threading.Event] = None) -> None:
+    """A round's whole recount on one thread: the ground recounts of every
+    window share fixed-shape counting batches (grouped by threshold),
+    every group is counted before any is written, then Aggregate. Reads
+    only the snapshot of :func:`_recount_plan` and charges nothing."""
+    launched = _recount_launch(work, cancel)
+    if launched is not None:
+        _recount_land(work, launched, cancel)
 
 
 def _recount_aggregate(fleet, jobs,
@@ -541,12 +552,12 @@ class _InFlightRound:
     event, thread, exception and wall time (kept per round, so an
     abandoned worker's clock is simply never read), on a CUDA device
     the worker's stream and the foreground event it waits for, and on a
-    ``sats`` mesh the previous round's worker thread (``after``), which
-    this one waits for, so the workers' gathers keep the rounds' order
-    on every rank."""
+    ``sats`` mesh the launch half's resolvers (``launched``) and, on a
+    CUDA device, the event the worker records after its launches
+    (``done``), which the foreground's gather waits for."""
 
     __slots__ = ("work", "fault", "stall_s", "stream", "ready", "cancel",
-                 "thread", "err", "worker_s", "after")
+                 "thread", "err", "worker_s", "launched", "done")
 
     def __init__(self, work: _RecountWork, fault: Optional[str] = None,
                  stall_s: float = 0.0):
@@ -559,7 +570,20 @@ class _InFlightRound:
         self.thread: Optional[threading.Thread] = None
         self.err: Optional[BaseException] = None
         self.worker_s = 0.0
-        self.after: Optional[threading.Thread] = None
+        self.launched = None
+        self.done = None
+
+
+def _recount_step(rnd: _InFlightRound) -> None:
+    """What a worker counts: off a mesh the whole recount; on a ``sats``
+    mesh only the launch half, whose resolvers it leaves on the round
+    for the foreground, so it issues no collective."""
+    if not rnd.work.on_mesh:
+        _recount_run(rnd.work, cancel=rnd.cancel)
+        return
+    rnd.launched = _recount_launch(rnd.work, cancel=rnd.cancel)
+    if rnd.done is not None:
+        rnd.done.record(rnd.stream)
 
 
 def _recount_job(rnd: _InFlightRound) -> None:
@@ -567,21 +591,19 @@ def _recount_job(rnd: _InFlightRound) -> None:
     what was resolved at dispatch, never the fleet."""
     t0 = time.perf_counter()
     try:
-        if rnd.after is not None:
-            rnd.after.join()
         if rnd.fault == "crash":
             raise WorkerCrash("injected ground-worker crash")
         if rnd.fault == "stall":
             _stall(rnd.stall_s, rnd.cancel)
         if rnd.stream is None:
-            _recount_run(rnd.work.on_worker(), cancel=rnd.cancel)
+            _recount_step(rnd)
         else:
             # the current device and stream are per thread: set both
             with torch.cuda.device(rnd.stream.device), \
                     torch.cuda.stream(rnd.stream):
                 rnd.stream.wait_event(rnd.ready)
                 try:
-                    _recount_run(rnd.work.on_worker(), cancel=rnd.cancel)
+                    _recount_step(rnd)
                 finally:
                     # idle when the thread ends, even after an error
                     rnd.stream.synchronize()
@@ -619,9 +641,10 @@ class GroundSegment:
     (:func:`~repro_torch.core.mission.recount_tiles`), so it reads no
     tensor the foreground may free; the index vectors a worker uploads
     are its stream's own (:func:`repro_torch.core.xfer.device_constant`).
-    A worker's results reach the host by the counting's own copies, so
-    its stream is idle when the thread ends and retirement only joins
-    the thread. On the CPU the same code runs without the stream steps.
+    A worker synchronizes its stream before its thread ends, so its
+    stream is idle then, and off a mesh its results reached the host by
+    the counting's own copies: retirement only joins the thread. On the
+    CPU the same code runs without the stream steps.
 
     **Watchdog** (``watchdog_s``): each retirement joins with that
     timeout; a worker still alive past it is cancelled (it writes
@@ -634,12 +657,19 @@ class GroundSegment:
     later rounds still queued.
 
     **A sats mesh** (the fleet's ``sharding`` on a mesh): every rank
-    runs this executor alike, and the workers' recounts gather on a
-    process group of their own (the fleet's ``worker_sharding``), so the
-    foreground's and the workers' collectives never share a
-    communicator; each worker waits for the one dispatched before it,
-    and the watchdog's branch is taken by all ranks or none (one
-    all-reduce), so every rank issues the same gathers in the same order.
+    runs this executor alike. A worker runs only the launch half of its
+    round's recount (:func:`_recount_launch`): it counts its rank's
+    chunks and issues no collective. The foreground lands the round when
+    it retires it: its stream waits for the worker's ``done`` event, the
+    resolvers gather each threshold group on the mesh's group, in round
+    order, and the ground counts and Aggregate are written there. The
+    shards the resolvers hold were allocated on the worker's stream and
+    stay alive until the gather's host copy has waited for it. Every
+    collective is thus made by the foreground, at retirements that fall
+    at the same point of the program on every rank, and the watchdog's
+    branch is taken by all ranks or none (one all-reduce), so every rank
+    issues the same collectives in the same order. A cancelled worker
+    simply stops: nothing it does waits for another rank.
 
     **Lifecycle**: a clean ``with`` exit syncs; an exceptional one
     calls :meth:`close`, which cancels every queued round and joins each
@@ -650,7 +680,9 @@ class GroundSegment:
     charges the blocked join and the synchronous retry instead of the
     abandoned worker's clock), ``wait_s`` the time the foreground
     blocked on retirement, so ``wait_s <= recount_s`` for every retired
-    round, and ``hidden_fraction = 1 - wait_s / recount_s``.
+    round, and ``hidden_fraction = 1 - wait_s / recount_s``. On a mesh
+    the gather and Aggregate of a retired round run on the foreground:
+    they count in both, as foreground wait.
     """
 
     def __init__(self, fleet, overlap: bool = False,
@@ -669,7 +701,6 @@ class GroundSegment:
         self.watchdog_s = watchdog_s
         self._queue: "deque[_InFlightRound]" = deque()
         self._stream = None  # the workers' CUDA stream, made at first use
-        self._last_worker: Optional[threading.Thread] = None
         self.recount_s = 0.0
         self.wait_s = 0.0
         self.rounds_deferred = 0
@@ -719,12 +750,10 @@ class GroundSegment:
             rnd.stream = self._stream
             rnd.ready = torch.cuda.Event()
             rnd.ready.record(torch.cuda.current_stream(dev))
-        if work.sharding is not None and work.sharding.on_mesh:
-            # after the last worker started, retired or abandoned alike
-            rnd.after = self._last_worker
+            if work.on_mesh:
+                rnd.done = torch.cuda.Event()
         rnd.thread = threading.Thread(target=_recount_job, args=(rnd,),
                                       name="ground-recount", daemon=True)
-        self._last_worker = rnd.thread
         self.rounds_deferred += 1
         self._queue.append(rnd)
         self.max_in_flight = max(self.max_in_flight, len(self._queue))
@@ -761,8 +790,16 @@ class GroundSegment:
         if isinstance(rnd.err, WorkerCrash):
             self._recover(rnd, waited)
             return
-        self.wait_s += waited
-        self.recount_s += max(rnd.worker_s, waited)
+        landed = 0.0
+        if rnd.err is None and rnd.launched is not None:
+            # a sats mesh: the round's gathers and write-backs, here
+            t0 = time.perf_counter()
+            if rnd.done is not None:
+                torch.cuda.current_stream(rnd.stream.device).wait_event(rnd.done)
+            _recount_land(rnd.work, rnd.launched)
+            landed = time.perf_counter() - t0
+        self.wait_s += waited + landed
+        self.recount_s += max(rnd.worker_s, waited) + landed
         if rnd.err is not None:
             # a real failure, raised once; recounts charge nothing, so
             # every ledger lane is intact

@@ -91,10 +91,9 @@ class Fleet:
         of it builds and drives the Fleet alike, and the lane-stacked
         work is split across the ranks. The device is then the mesh's.
         None: one device, the code that ran before the mesh existed.
-        The recount pipeline (``async_ground`` / ``async_depth``) is
-        refused on a CUDA mesh of more than one rank: its workers' NCCL
-        gathers would run on a second communicator from another thread,
-        whose order against the foreground's may differ from rank to rank.
+        On a mesh the recount pipeline's workers only launch their
+        rank's counting; every collective stays on the calling thread
+        (:class:`~repro_torch.core.contact.GroundSegment`).
     async_ground : ``True`` overlaps each round's ground recount with
         what the caller does next (a depth-1 pipeline).
     async_depth : the recount pipeline's depth: up to ``k`` rounds'
@@ -158,21 +157,9 @@ class Fleet:
                 f"Fleet: ingest_overlap must be a bool (True = defer "
                 f"each round's device->host fetches behind the next "
                 f"round's dispatch), got {ingest_overlap}")
-        if (self.ground_segment.depth and mesh is not None
-                and mesh.device_type == "cuda" and mesh.size() > 1):
-            raise ValueError(
-                f"Fleet: the recount pipeline (async_depth="
-                f"{self.ground_segment.depth}) is not supported on a CUDA "
-                f"mesh of {mesh.size()} ranks: its workers would drive a "
-                f"second NCCL communicator from another thread")
         self.device = resolve_device(device if mesh is None else mesh.device_type)
         self.n_sats = n_sats
         self.sharding = FleetSharding(mesh)
-        # the recount workers gather on a process group of their own, one
-        # a mesh (made by the mesh's first pipelined Fleet, at the same
-        # point on every rank)
-        self.worker_sharding = (self.sharding.twin() if self.ground_segment.depth
-                                else self.sharding)
         self.space = (detector.to_device(space[0], self.device), space[1])
         self.ground = (detector.to_device(ground[0], self.device), ground[1])
         self.missions = [Mission(self.space, self.ground, p,

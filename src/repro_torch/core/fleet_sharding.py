@@ -181,25 +181,6 @@ class FleetSharding:
         dist.all_reduce(t, op=dist.ReduceOp.MAX, group=self.mesh.get_group())
         return bool(t.item())
 
-    def twin(self) -> "FleetSharding":
-        """The same ranks on a process group of their own: the ground
-        segment's workers gather on it while the foreground gathers on
-        the mesh's, so the two threads never interleave on one
-        communicator. The group is made once a mesh, by its first call
-        (every rank must make that call at the same point), and kept on
-        the mesh for every later Fleet; it lives as long as the process
-        group, and ``destroy_process_group()`` frees it with the rest."""
-        if self.mesh is None:
-            return self
-        twin = getattr(self.mesh, "_sats_twin", None)
-        if twin is None:
-            import torch.distributed as dist
-            from torch.distributed.device_mesh import DeviceMesh
-            group = dist.new_group(self.mesh.mesh.flatten().tolist())
-            twin = self.mesh._sats_twin = FleetSharding(DeviceMesh.from_group(
-                group, self.mesh.device_type, mesh_dim_names=(SATS_AXIS,)))
-        return twin
-
 
 # the shared off-mesh context: call sites take ``sharding=None`` and
 # normalize through :func:`ctx`, so None and "no mesh" behave the same

@@ -26,10 +26,16 @@ unsharded fleet (the session's trained reduced counters, bridged by
   bit-equal with the mesh context and without; ``device_constant`` on the
   mesh cached and equal to its host array; ``shard`` / ``gather`` of an
   uneven stack zero-padded and given back whole;
-- one worker process group a mesh, however many pipelined Fleets use it;
 - the recount pipeline at depth 1 and 2 and ``ingest_overlap`` on the
-  mesh equal to depth 0 (the workers gather on a process group of their
-  own, after the previous round's worker);
+  mesh equal to depth 0 on the mesh and to the one-device fleet: the
+  workers launch their rank's counting, and the foreground gathers each
+  round when it retires it;
+- no pipelined Fleet makes a process group, and no collective is issued
+  from any thread but the main one (every ``torch.distributed`` call and
+  every functional collective DTensor makes is spied on);
+- one rank's worker hung inside its launch half for one round: every rank
+  abandons that round, it is recovered once on the foreground, the later
+  rounds land from their own workers, and every round equals depth 0;
 - every rank ends with the same results.
 
 The reference is imported only in the parent, so the ranks import no JAX.
@@ -61,7 +67,23 @@ SCENE_B = ("trackB", 256, (6, 12), (10, 20), 0.2)
 # the pipeline runs held to depth 0 on the mesh: (name, policy, options)
 PIPELINES = (("depth1", "targetfuse", dict(async_depth=1)),
              ("overlap", "targetfuse", dict(ingest_overlap=True)),
-             ("depth2_overlap", "ground_only", dict(async_depth=2, ingest_overlap=True)))
+             ("depth2_overlap", "ground_only", dict(async_depth=2, ingest_overlap=True)),
+             ("depth2", "targetfuse", dict(async_depth=2)))
+# the summary keys that name the pipeline's options and count its rounds
+PIPELINE_KEYS = ("async_ground", "async_depth", "recount_rounds_deferred",
+                 "recount_max_in_flight", "ingest_overlap", "ingest_rounds_deferred")
+# the hung-worker run: the rank whose worker blocks in its first round, and
+# a watchdog far above a healthy round's recount of these 3 satellites (a
+# healthy worker past it would be a second recovery)
+HUNG_RANK, HUNG_WATCHDOG_S = 1, 15.0
+# the collectives a rank can issue: torch.distributed's own calls, and the
+# functional ones (torch.ops._c10d_functional) DTensor's redistributions make
+C10D = ("all_reduce", "all_gather", "all_gather_into_tensor", "all_gather_object", "broadcast",
+        "broadcast_object_list", "reduce", "reduce_scatter_tensor", "all_to_all_single",
+        "gather", "scatter", "barrier", "send", "recv", "isend", "irecv")
+FUNCOL = ("all_reduce", "all_gather_into_tensor", "reduce_scatter_tensor", "all_to_all_single",
+          "broadcast", "all_reduce_coalesced", "all_gather_into_tensor_coalesced",
+          "reduce_scatter_tensor_coalesced")
 HELPERS = ("prepare_frames_multi", "count_tiles_multi", "dedup_multi", "device_constant",
            "shard_gather")
 
@@ -140,8 +162,8 @@ def _drive(fl, sc):
 
 class _SmallRecounts:
     """The recounts in batches of RECOUNT_BATCH rows, and a count of the
-    sharded counting batches made on a recount worker's thread (the
-    pipeline runs must gather there, on the worker group)."""
+    sharded counting batches launched on a recount worker's thread (the
+    pipeline runs must count their rank's chunks there)."""
 
     def __init__(self):
         from repro_torch.core import contact, fleet_sharding
@@ -161,6 +183,60 @@ class _SmallRecounts:
 
     def __exit__(self, *exc):
         self.cls.map_lanes, self.contact.count_tiles_multi = self.orig
+
+
+class _Collectives:
+    """Every collective issued in the block -> ``calls``: (name, issued
+    on the main thread)."""
+
+    def __enter__(self):
+        import torch.distributed as dist
+        self.calls, self.saved = [], []
+        for owner, names in ((dist, C10D), (torch.ops._c10d_functional, FUNCOL)):
+            for name in names:
+                fn = getattr(owner, name)
+                self.saved.append((owner, name, fn))
+                setattr(owner, name, self._spy(name, fn))
+        return self
+
+    def _spy(self, name, fn):
+        def spy(*a, **kw):
+            self.calls.append((name, threading.current_thread() is threading.main_thread()))
+            return fn(*a, **kw)
+        return spy
+
+    def __exit__(self, *exc):
+        for owner, name, fn in self.saved:
+            setattr(owner, name, fn)
+
+
+class _HungLaunch:
+    """On ``rank``, the first launch half run on a recount worker blocks
+    (ignoring its cancel) until the block exits, then gives up; every
+    launch half that ran to its end on a worker is counted in ``done``."""
+
+    def __init__(self, rank):
+        from repro_torch.core import contact
+        self.rank, self.contact, self.launch = rank, contact, contact._recount_launch
+        self.release, self.hung, self.done = threading.Event(), 0, 0
+
+    def __enter__(self):
+        def launch(work, cancel=None):
+            if threading.current_thread().name != "ground-recount":
+                return self.launch(work, cancel)
+            if self.rank == HUNG_RANK and not self.hung:
+                self.hung += 1
+                self.release.wait(300)
+                return None
+            out = self.launch(work, cancel)
+            self.done += out is not None
+            return out
+        self.contact._recount_launch = launch
+        return self
+
+    def __exit__(self, *exc):
+        self.contact._recount_launch = self.launch
+        self.release.set()
 
 
 def _fleets(job, mesh):
@@ -187,17 +263,17 @@ def _fleets(job, mesh):
     for method in sorted({method for _, method, _ in PIPELINES}):
         with _SmallRecounts():
             out["mesh", "small", method] = run(method, main, mesh=mesh)
-    for name, method, kw in PIPELINES:
-        with _SmallRecounts() as counts:
-            out["mesh", name] = run(method, main, mesh=mesh, **kw)
-        out["mesh", name]["worker_batches"] = counts.n
-    # two more pipelined Fleets on the mesh take the workers' group made above
-    pcfg = PipelineConfig(method="targetfuse", score_thresh=0.25)
-    a, b = (fleet.Fleet(space, ground, pcfg, n_sats=3, device="cpu", mesh=mesh, **kw)
-            for kw in (dict(async_depth=1), dict(async_ground=True)))
-    out["twin"] = (a.worker_sharding is b.worker_sharding,
-                   a.worker_sharding.mesh.get_group() is not mesh.get_group(),
-                   a.worker_sharding.n_devices)
+            out["plain", "small", method] = run(method, main)
+    with _Collectives() as spied:
+        for name, method, kw in PIPELINES:
+            with _SmallRecounts() as counts:
+                out["mesh", name] = run(method, main, mesh=mesh, **kw)
+            out["mesh", name]["worker_batches"] = counts.n
+        with _SmallRecounts(), _HungLaunch(mesh.get_coordinate()[0]) as hung:
+            out["mesh", "hung"] = run("targetfuse", main, mesh=mesh, async_depth=2,
+                                      watchdog_s=HUNG_WATCHDOG_S)
+        out["hung_launches"] = (hung.hung, hung.done)
+    out["collectives"] = spied.calls
     return out
 
 
@@ -286,6 +362,7 @@ def _worker(rank, world, path, job):
         dist.new_group = lambda *a, **kw: groups.append(1) or new_group(*a, **kw)
         try:
             out["fleets"] = _fleets(job, mesh)
+            out["hung_launches"] = out["fleets"].pop("hung_launches")
         finally:
             dist.new_group = new_group
         out["new_groups"] = len(groups)
@@ -400,33 +477,55 @@ def test_sharded_helpers_match_unsharded(helper, ranks):
         assert g["helpers"][helper] is True, g["helpers"][helper]
 
 
-def test_one_worker_group_a_mesh(ranks):
-    """The recount workers' process group is made once a mesh: every
-    pipelined Fleet on it (three runs and two more Fleets) shares it, and it
-    is not the mesh's own group."""
+def test_pipeline_makes_no_group_and_no_collective_off_the_main_thread(ranks):
+    """No Fleet on the mesh, pipelined or not, makes a process group, and
+    across every pipeline run and the hung-worker run each rank issues its
+    collectives (the agreement of the watchdog's branch and the gathers)
+    from its main thread only; the spy sees them there."""
     _, got = ranks
     for g in got:
-        assert g["new_groups"] == 1, g["new_groups"]
-        assert g["fleets"]["twin"] == (True, True, WORLD)
+        assert g["new_groups"] == 0, g["new_groups"]
+        calls = g["fleets"]["collectives"]
+        assert [c for c in calls if not c[1]] == []
+        assert {"all_gather_into_tensor", "all_reduce"} <= {name for name, _ in calls}
 
 
 @pytest.mark.parametrize("name, method, kw", PIPELINES, ids=[p[0] for p in PIPELINES])
 def test_mesh_pipeline_equals_depth_zero(name, method, kw, ranks):
     """The recount pipeline and the ingest overlap on the mesh equal depth
-    0 on the mesh (the options' own summary keys aside)."""
+    0 on the mesh and the one-device fleet (the options' own summary keys
+    and the device count aside)."""
     _, got = ranks
     f = got[0]["fleets"]
-    want = f["mesh", "small", method]
     run = f["mesh", name]
-    opts = ("async_ground", "async_depth", "recount_rounds_deferred", "recount_max_in_flight",
-            "ingest_overlap", "ingest_rounds_deferred")
-    _assert_same_sats(run, want, 3, name, skip=opts)
+    _assert_same_sats(run, f["mesh", "small", method], 3, name, skip=PIPELINE_KEYS)
+    _assert_same_sats(run, f["plain", "small", method], 3, f"{name} vs one device",
+                      skip=PIPELINE_KEYS + ("n_devices",))
     assert run["fleet"]["async_depth"] == kw.get("async_depth", 0)
     assert run["fleet"]["ingest_overlap"] == kw.get("ingest_overlap", False)
     if kw.get("async_depth"):
         assert run["fleet"]["recount_rounds_deferred"] > 0
     if kw.get("async_depth"):   # the recounts span batches: the workers gathered
         assert run["worker_batches"] > 0
+
+
+def test_hung_worker_on_one_rank_is_recovered_once(ranks):
+    """Rank 1's worker blocks inside its first round's launch half, deaf
+    to its cancel: every rank abandons that round (the watchdog's branch
+    is agreed), it is recovered once on the foreground, the later rounds
+    land from their own workers on every rank (none waits for the hung
+    one), and every round equals depth 0."""
+    _, got = ranks
+    for g in got:
+        f = g["fleets"]
+        run = f["mesh", "hung"]
+        deferred = run["fleet"]["recount_rounds_deferred"]
+        assert run["fleet"]["fault_watchdog_recoveries"] == 1
+        assert deferred >= 2
+        want = (1, deferred - 1) if g["rank"] == HUNG_RANK else (0, deferred)
+        assert g["hung_launches"] == want, (g["rank"], g["hung_launches"], want)
+        _assert_same_sats(run, f["mesh", "small", "targetfuse"], 3, f"hung rank {g['rank']}",
+                          skip=PIPELINE_KEYS + ("fault_watchdog_recoveries",))
 
 
 def test_every_rank_ends_with_the_same_results(ranks):
